@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of openglottal_tpu for NVIDIA Hopper (H100).
+
+Same layout and names as the JAX package (``models/yolo.py``,
+``models/gate.py``, ``ops/blobs.py``, ``pipelines.py``, ``features.py`` ...)
+so a reader finds each counterpart; PyTorch idiom inside.  The package
+imports ``torch`` and numpy only.  The hand-written CUDA kernels live in
+``csrc/`` and are compiled with ``nvcc`` at first use (``ops/_build.py``).
+
+Ported so far: the ``guided-vft`` and ``unet`` serving pipelines for
+monochrome 256x256 video.  Everything else raises ``NotImplementedError``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,173 @@
+"""Synthetic HSV-like test videos: a pulsating dark ellipse ("glottis") on a
+bright textured background.  The port's own copy of the JAX package's
+generator (same numpy code, same random streams, so both packages see the
+same frames for the same seed).
+
+``realistic=True`` adds structure that is adversarial to intensity
+thresholding inside the gated box (ventricular-band shadows at glottal
+intensity, an axial glottal gradient, glottis-crossing specular streaks and
+illumination drift).  That branch needs ``cv2`` and imports it lazily.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_video(
+    t: int = 64,
+    size: int = 256,
+    f0_cycles_per_frame: float = 0.05,
+    center=(128.0, 128.0),
+    drift_px: float = 0.2,
+    seed: int = 0,
+    realistic: bool = False,
+):
+    """Returns (frames_bgr (T, S, S, 3) uint8, gt_masks (T, S, S) bool).
+
+    The ellipse's area pulses sinusoidally at ``f0_cycles_per_frame`` (the
+    GAW ground truth), with a slow centre drift to exercise the gate's
+    drift clamp.  ``realistic=True`` adds endoscopy-like structure that is
+    adversarial to thresholding — see the module docstring.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    base = (rng.normal(170, 12, (size, size)).clip(0, 255)).astype(np.float32)
+
+    vignette = spec_cy = spec_cx = None
+    if realistic:
+        # low-frequency tissue texture + folds radiating from the glottis
+        lowfreq = rng.normal(0, 1, (size // 16, size // 16))
+        import cv2
+
+        tex = cv2.resize(lowfreq, (size, size), interpolation=cv2.INTER_CUBIC)
+        ang = np.arctan2(yy - center[0], xx - center[1])
+        folds = 10.0 * np.cos(6.0 * ang)
+        base = (base + 18.0 * tex + folds).clip(0, 255)
+        r2 = ((yy - size / 2) ** 2 + (xx - size / 2) ** 2) / (size / 2) ** 2
+        vignette = 1.0 - 0.45 * r2.clip(0, 1)
+        spec_cy, spec_cx = rng.uniform(0.2 * size, 0.8 * size, 2)
+        # streak phase/orientation vary per video, not per frame
+        streak_phase = rng.uniform(0, 2 * np.pi)
+        band_gap = rng.uniform(4.0, 6.0)  # px between glottis edge and band
+
+    frames = np.empty((t, size, size, 3), np.uint8)
+    masks = np.empty((t, size, size), bool)
+    cy, cx = center
+    for i in range(t):
+        phase = 2 * np.pi * f0_cycles_per_frame * i
+        open_frac = 0.5 * (1 - np.cos(phase))  # 0 (closed) .. 1 (open)
+        ry = 6 + 26 * open_frac
+        rx = 3 + 9 * open_frac
+        cy += rng.normal(0, drift_px)
+        cx += rng.normal(0, drift_px)
+        e = (((yy - cy) / max(ry, 1e-3)) ** 2 + ((xx - cx) / max(rx, 1e-3)) ** 2) < 1
+        img = base.copy()
+        if not realistic:
+            img[e] = rng.normal(35, 8, e.sum()).clip(0, 255)
+        else:
+            # axial gradient: posterior (top) ~25 -> anterior (bottom) ~130
+            axial = ((yy - (cy - ry)) / max(2 * ry, 1e-3)).clip(0, 1)
+            glottal = 25.0 + 125.0 * axial + rng.normal(0, 6, (size, size))
+            img = np.where(e, glottal.clip(0, 255), img)
+
+            # ventricular-band shadows: elongated dark bands flanking the
+            # glottis at glottal intensity, inside the dilated detector box,
+            # pulsating/translating with the fold motion
+            bw = 3.5 + 3.5 * open_frac  # band half-width px
+            off = rx + band_gap + bw * 0.5
+            bry = ry * 1.25 + 5.0
+            for sgn in (-1.0, 1.0):
+                bcx = cx + sgn * off
+                band = ((((yy - cy) / max(bry, 1e-3)) ** 2
+                         + (((xx - bcx) / max(bw, 1e-3)) ** 2)) < 1) & ~e
+                img[band] = (28.0 + 14.0 * axial[band]
+                             + rng.normal(0, 6, band.sum())).clip(0, 255)
+
+            # specular streak sweeping across the glottal midline: a thin
+            # bright ridge crossing the glottis, overwriting GT-dark pixels
+            sweep = cy + 0.55 * ry * np.sin(
+                2 * np.pi * 0.013 * i + streak_phase)
+            slope = 0.18 * np.cos(streak_phase)
+            d = yy - (sweep + slope * (xx - cx))
+            streak = 215.0 * np.exp(-(d / 2.2) ** 2) \
+                * np.exp(-(((xx - cx) / (3.0 * max(rx, 2.0))) ** 2))
+            img = img + streak
+
+        if realistic:
+            spec_cy += rng.normal(0, 0.8)
+            spec_cx += rng.normal(0, 0.8)
+            spec = 70.0 * np.exp(-(((yy - spec_cy) / 22.0) ** 2
+                                   + ((xx - spec_cx) / 22.0) ** 2))
+            # illumination drift: slow global gain oscillation
+            gain = 1.0 + 0.15 * np.sin(2 * np.pi * i / 97.0 + seed % 7)
+            img = ((img * vignette + spec) * gain
+                   + rng.normal(0, 4, (size, size))).clip(0, 255)
+        g = img.astype(np.uint8)
+        frames[i] = np.stack([g, g, g], -1)
+        masks[i] = e
+    return frames, masks
+
+
+def synthetic_gt_boxes(masks: np.ndarray, dilate: int = 0):
+    """Tight (x1, y1, x2, y2) boxes of GT masks; rows of -1 when empty."""
+    t, h, w = masks.shape
+    boxes = np.full((t, 4), -1, np.float32)
+    for i in range(t):
+        ys, xs = np.nonzero(masks[i])
+        if len(ys):
+            boxes[i] = [max(0, xs.min() - dilate), max(0, ys.min() - dilate),
+                        min(w, xs.max() + 1 + dilate), min(h, ys.max() + 1 + dilate)]
+    return boxes
+
+
+def spiral_mask(h: int, w: int) -> np.ndarray:
+    """Square spiral arms 4 px apart: a geodesically worst-case component."""
+    m = np.zeros((h, w), bool)
+    x0, y0, x1, y1 = 0, 0, w - 1, h - 1
+    while x0 < x1 and y0 < y1:
+        m[y0, x0:x1 + 1] = True
+        m[y0:y1 + 1, x1] = True
+        m[y1, x0:x1 + 1] = True
+        m[y0 + 2:y1 + 1, x0] = True
+        x0 += 4
+        y0 += 4
+        x1 -= 4
+        y1 -= 4
+    return m
+
+
+def serpentine_mask(h: int, w: int) -> np.ndarray:
+    """Full rows joined by 1-px links at alternating ends (one long channel)."""
+    m = np.ones((h, w), bool)
+    for r in range(1, h, 2):
+        m[r, :] = False
+        m[r, 0 if (r // 2) % 2 else w - 1] = True
+    return m
+
+
+def blob_stress_masks(h: int, w: int, seed: int = 13) -> np.ndarray:
+    """(14, h, w) bool masks that stress connected-component code: blurred
+    noise at thresholds 0.5/0.62/0.75, percolation noise at p = 0.4/0.55/0.7
+    (thousands of tiny components up to giant spanning ones), a spiral, a
+    serpentine, their complements, an all-zero and an all-one frame."""
+    import torch
+
+    from openglottal_tpu_torch.ops.blur import gaussian_blur
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for thresh in (0.5, 0.62, 0.75):
+        noise = torch.from_numpy(rng.random((h, w)).astype(np.float32))
+        k = min(21, 2 * ((min(h, w) - 1) // 2) - 1)   # reflect pad < size
+        blurred = gaussian_blur(noise, k, 5.0).numpy()
+        # rescale to the unit interval so every threshold cuts real blobs
+        blurred = (blurred - blurred.min()) / max(np.ptp(blurred), 1e-6)
+        frames.append(blurred > thresh)
+    for p in (0.4, 0.55, 0.7):
+        frames.append(rng.random((h, w)) < p)
+    sp, se = spiral_mask(h, w), serpentine_mask(h, w)
+    frames += [sp, se, ~sp, ~se, rng.random((h, w)) < 0.5,
+               rng.random((h, w)) < 0.62,
+               np.zeros((h, w), bool), np.ones((h, w), bool)]
+    return np.stack(frames)

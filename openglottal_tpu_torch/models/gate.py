@@ -1,0 +1,202 @@
+"""Temporal detection gate: the reference's TemporalDetector state machine
+run over per-frame detection summaries (has_detection, x1, y1, x2, y2).
+
+Counterpart of ``openglottal_tpu/models/gate.py`` (a ``lax.scan`` there):
+
+  * centre drift-clamp: a fresh detection whose centre jumps more than
+    ``max_shift_px`` from the previous centre is rejected (hold previous);
+  * size update: every accepted detection sets the box size to the raw
+    detection size + 2*padding (int-truncated toward zero);
+  * hold/zero: up to ``max_hold_frames`` consecutive misses hold the previous
+    box; one more miss zeroes the gate AND resets all state so re-acquisition
+    starts fresh;
+  * output clamp: the centre is clamped so the box stays inside the frame
+    (``clip(lo > hi) -> hi`` semantics preserved).
+
+The FSM is ~30 scalar ops per frame and strictly sequential.  On a CUDA
+tensor it runs as ONE launch of a one-thread kernel (``csrc/scan.cu``
+``og_gate_scan``: state in registers, ``(has, raw)`` in, ``(valid, box)`` out,
+no host round-trip).  Its plain version is the Python loop below over numpy
+float32 scalars on the host (IEEE single arithmetic step by step, which eager
+0-d tensors would only repeat more slowly); CPU tensors take it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from openglottal_tpu_torch.ops import _build, scan_cuda
+
+
+class GateParams(NamedTuple):
+    max_shift_px: float = 30.0
+    padding: int = 8
+    max_hold_frames: int = 3
+
+
+class GateState(NamedTuple):
+    """Carry of the FSM.  Python/numpy scalars on the host path; 0-d device
+    tensors when returned by the kernel path (no synchronisation)."""
+
+    valid: object   # bool  — have we a held detection?
+    cx: object      # f32   — previous centre x
+    cy: object      # f32   — previous centre y
+    w: object       # i32   — current box width (incl. padding)
+    h: object       # i32   — current box height
+    miss: object    # i32   — consecutive misses
+
+
+def gate_init() -> GateState:
+    return GateState(False, np.float32(0.0), np.float32(0.0), 0, 0, 0)
+
+
+def _hypot_f32(a: np.float32, b: np.float32) -> np.float32:
+    """``jnp.hypot`` as the reference lowers it: max * sqrt(1 + (min/max)^2),
+    every step rounded to float32."""
+    a, b = np.abs(a), np.abs(b)
+    if np.isinf(a) or np.isinf(b):
+        return np.float32(np.inf)
+    hi, lo = np.maximum(a, b), np.minimum(a, b)
+    if hi == 0:
+        return hi
+    q = np.float32(lo / hi)
+    return np.float32(hi * np.sqrt(np.float32(np.float32(1.0) + np.float32(q * q))))
+
+
+def gate_step(state: GateState, det, frame_h: int, frame_w: int,
+              params: GateParams):
+    """One FSM step on host scalars.  det = (has, x1, y1, x2, y2).
+
+    Returns (new_state, (out_valid, box int[4]))."""
+    f32 = np.float32
+    has = bool(det[0])
+    x1, y1, x2, y2 = (f32(v) for v in det[1:])
+    p = int(params.padding)
+    s_valid = bool(state.valid)
+    s_cx, s_cy = f32(state.cx), f32(state.cy)
+    s_w, s_h, s_miss = int(state.w), int(state.h), int(state.miss)
+
+    new_cx = f32(f32(x1 + x2) * f32(0.5))
+    new_cy = f32(f32(y1 + y2) * f32(0.5))
+    new_w = int(np.trunc(f32(x2 - x1))) + 2 * p   # C cast toward zero
+    new_h = int(np.trunc(f32(y2 - y1))) + 2 * p
+
+    jump = _hypot_f32(f32(new_cx - s_cx), f32(new_cy - s_cy))
+    fresh = has and (not s_valid or bool(jump <= f32(params.max_shift_px)))
+
+    miss = 0 if fresh else (s_miss + 1 if s_valid else s_miss)
+    expired = s_valid and not fresh and miss > params.max_hold_frames
+
+    valid = (fresh or s_valid) and not expired
+    cx = new_cx if fresh else s_cx
+    cy = new_cy if fresh else s_cy
+    w = new_w if fresh else s_w
+    h = new_h if fresh else s_h
+
+    if expired:
+        new_state = GateState(valid, f32(0.0), f32(0.0), 0, 0, 0)
+    else:
+        new_state = GateState(valid, cx, cy, w, h, miss)
+
+    hw, hh = w // 2, h // 2
+    ocx = int(np.trunc(np.minimum(np.maximum(cx, f32(hw)),
+                                  f32(f32(frame_w) - f32(hw)))))
+    ocy = int(np.trunc(np.minimum(np.maximum(cy, f32(hh)),
+                                  f32(f32(frame_h) - f32(hh)))))
+    return new_state, (valid, (ocx - hw, ocy - hh, ocx + hw, ocy + hh))
+
+
+def gate_scan_plain(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
+                    frame_h: int, frame_w: int, params: GateParams):
+    """Plain version: the FSM as a Python loop on the host.  Tensors on a
+    device are copied to the host and the outputs copied back."""
+    dev = has.device
+    has_np = has.detach().cpu().numpy().astype(bool)
+    raw_np = boxes.detach().to(torch.float32).cpu().numpy()
+    st = GateState(*(v.item() if isinstance(v, torch.Tensor) else v
+                     for v in state))
+    t = has_np.shape[0]
+    ov = np.zeros((t,), bool)
+    ob = np.zeros((t, 4), np.int32)
+    with np.errstate(all="ignore"):
+        for i in range(t):
+            st, (v, b) = gate_step(st, (has_np[i], *raw_np[i]), frame_h,
+                                   frame_w, params)
+            ov[i] = v
+            ob[i] = b
+    return st, (torch.from_numpy(ov).to(dev), torch.from_numpy(ob).to(dev))
+
+
+def _state_tensors(state: GateState, device):
+    vals = [v for v in state]
+    if any(isinstance(v, torch.Tensor) for v in vals):
+        vals = [v if isinstance(v, torch.Tensor) else torch.tensor(v)
+                for v in vals]
+        sf = torch.stack([vals[1].float(), vals[2].float()]).to(device)
+        si = torch.stack([vals[0].to(torch.int32), vals[3].to(torch.int32),
+                          vals[4].to(torch.int32), vals[5].to(torch.int32)]
+                         ).to(device)
+        return sf.contiguous(), si.contiguous()
+    host_f = [float(vals[1]), float(vals[2])]
+    host_i = [int(bool(vals[0])), int(vals[3]), int(vals[4]), int(vals[5])]
+    if not any(host_f) and not any(host_i):
+        # the initial state: filled on the device, no host-to-device copy
+        return (torch.zeros(2, dtype=torch.float32, device=device),
+                torch.zeros(4, dtype=torch.int32, device=device))
+    return (torch.tensor(host_f, dtype=torch.float32, device=device),
+            torch.tensor(host_i, dtype=torch.int32, device=device))
+
+
+def gate_scan_carry(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
+                    frame_h: int, frame_w: int,
+                    params: GateParams = GateParams(), use_plain: bool = False):
+    """Gate scan resumable across video segments: runs the FSM over this
+    segment starting from ``state`` and returns the carry for the next one.
+    Chunked calls are bit-exact with one scan over the concatenation.
+
+    Returns (new_state, (out_valid (T,) bool, out_boxes (T, 4) int32)).
+    """
+    if has.dim() != 1 or boxes.shape != (has.shape[0], 4):
+        raise ValueError(f"gate_scan: has {tuple(has.shape)} / boxes "
+                         f"{tuple(boxes.shape)} are not (T,) and (T, 4)")
+    if boxes.device != has.device:
+        raise ValueError("gate_scan: has and boxes lie on different devices")
+    if use_plain or not has.is_cuda:
+        return gate_scan_plain(state, has, boxes, frame_h, frame_w, params)
+    t = has.shape[0]
+    has_u8 = has.to(torch.uint8).contiguous()
+    raw = boxes.to(torch.float32).contiguous()
+    sf, si = _state_tensors(state, has.device)
+    ov = torch.empty((t,), dtype=torch.uint8, device=has.device)
+    ob = torch.empty((t, 4), dtype=torch.int32, device=has.device)
+    so = scan_cuda.lib()
+    with torch.cuda.device(has.device):
+        err = so.og_gate_scan(
+            has_u8.data_ptr(), raw.data_ptr(), ov.data_ptr(), ob.data_ptr(),
+            sf.data_ptr(), si.data_ptr(), t, float(frame_h), float(frame_w),
+            float(params.max_shift_px), int(params.padding),
+            int(params.max_hold_frames), scan_cuda.stream())
+    _build.check(err, "gate_scan")
+    scan_cuda.launched("gate_scan", (has, boxes), frame_h=frame_h,
+                       frame_w=frame_w, params=params)
+    new_state = GateState(si[0] != 0, sf[0], sf[1], si[1], si[2], si[3])
+    return new_state, (ov.bool(), ob)
+
+
+def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
+              frame_w: int, params: GateParams = GateParams(),
+              use_plain: bool = False):
+    """Run the gate over a whole video.
+
+    has:   (T,) bool   — the detector produced a detection this frame.
+    boxes: (T, 4) f32  — raw max-conf (x1, y1, x2, y2) per frame.
+
+    Returns (out_valid (T,) bool, out_boxes (T, 4) int32).  Frames where
+    out_valid is False correspond to the reference returning None.
+    """
+    _, (ov, ob) = gate_scan_carry(gate_init(), has, boxes, frame_h, frame_w,
+                                  params, use_plain)
+    return ov, ob

@@ -1,0 +1,263 @@
+"""YOLOv8n in PyTorch: CSP backbone, C2f blocks, SPPF, anchor-free decoupled
+head with DFL box regression.
+
+Counterpart of ``openglottal_tpu/models/yolo.py``.  Scale "n": per-stage
+channels (16, 32, 64, 128, 256), C2f repeats (1, 2, 2, 1), ~3.0M parameters
+for nc=1.  Parameter names follow the ultralytics layout (``model.0.conv``,
+``model.2.m.0.cv1`` ... ``model.22.cv2.0.2``) so a converted ``state_dict``
+(``utils/convert.py``) loads with ``strict=True``.
+
+Networks run NCHW inside (``channels_last`` memory format is the caller's
+choice); the level outputs are returned NHWC-shaped, as the JAX package
+returns them, so that tests compare like with like.
+
+Postprocessing: only the argmax-confidence box of a single class is kept, so
+full NMS is unnecessary — decode all anchors, take the max-sigmoid-conf box.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+REG_MAX = 16
+STRIDES = (8, 16, 32)
+YOLO_BN_EPS = 1e-3
+DETECT_LAYER = 22
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over NCHW with running statistics, computed in
+    float32 as the reference does.  State: weight, bias, running_mean,
+    running_var (+ num_batches_tracked when ``tracked``, for layouts that
+    carry it)."""
+
+    def __init__(self, ch: int, eps: float, tracked: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+        if tracked:
+            self.register_buffer("num_batches_tracked",
+                                 torch.zeros((), dtype=torch.long))
+
+    def forward(self, x):
+        y = F.batch_norm(x.float(), self.running_mean.float(),
+                         self.running_var.float(), self.weight.float(),
+                         self.bias.float(), False, 0.0, self.eps)
+        return y.to(x.dtype)
+
+
+class ConvBNSiLU(nn.Module):
+    """Conv(no bias) -> BN -> SiLU; ``fuse_bn`` runs the inference-folded
+    form Conv(+bias) -> SiLU (``models/fold.py``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, fuse_bn: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride,
+                              padding=kernel // 2, bias=fuse_bn)
+        if not fuse_bn:
+            self.bn = BatchNorm(out_ch, YOLO_BN_EPS)
+        self.fuse_bn = fuse_bn
+
+    def forward(self, x):
+        x = self.conv(x)
+        if not self.fuse_bn:
+            x = self.bn(x)
+        return F.silu(x)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, ch: int, shortcut: bool = True, fuse_bn: bool = False):
+        super().__init__()
+        self.cv1 = ConvBNSiLU(ch, ch, 3, fuse_bn=fuse_bn)
+        self.cv2 = ConvBNSiLU(ch, ch, 3, fuse_bn=fuse_bn)
+        self.shortcut = shortcut
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.shortcut else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial bottleneck with 2 convolutions (v8 C2f)."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1,
+                 shortcut: bool = False, fuse_bn: bool = False):
+        super().__init__()
+        self.c = out_ch // 2
+        self.cv1 = ConvBNSiLU(in_ch, out_ch, 1, fuse_bn=fuse_bn)
+        self.cv2 = ConvBNSiLU((2 + n) * self.c, out_ch, 1, fuse_bn=fuse_bn)
+        self.m = nn.ModuleList(Bottleneck(self.c, shortcut, fuse_bn)
+                               for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        parts = [y[:, :self.c], y[:, self.c:]]
+        for m in self.m:
+            parts.append(m(parts[-1]))
+        return self.cv2(torch.cat(parts, dim=1))
+
+
+class SPPF(nn.Module):
+    """Three chained 5x5 stride-1 max-pools, concatenated."""
+
+    def __init__(self, in_ch: int, out_ch: int, pool_k: int = 5,
+                 fuse_bn: bool = False):
+        super().__init__()
+        c = out_ch // 2
+        self.cv1 = ConvBNSiLU(in_ch, c, 1, fuse_bn=fuse_bn)
+        self.cv2 = ConvBNSiLU(4 * c, out_ch, 1, fuse_bn=fuse_bn)
+        self.pool_k = pool_k
+
+    def forward(self, x):
+        x = self.cv1(x)
+        pools = [x]
+        for _ in range(3):
+            pools.append(F.max_pool2d(pools[-1], self.pool_k, 1,
+                                      self.pool_k // 2))
+        return self.cv2(torch.cat(pools, dim=1))
+
+
+class _DFL(nn.Module):
+    """The fixed DFL projection (arange over the 16 bins) that the
+    ultralytics layout carries as a frozen 1x1 conv weight."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(REG_MAX, 1, 1, bias=False)
+        self.conv.weight.requires_grad_(False)
+        with torch.no_grad():
+            self.conv.weight.copy_(
+                torch.arange(REG_MAX, dtype=torch.float32).view(1, -1, 1, 1))
+
+
+class DetectHead(nn.Module):
+    """Decoupled anchor-free head: per-level box (4*REG_MAX) + cls (nc)
+    logits.  ``cv2`` is the box branch, ``cv3`` the class branch."""
+
+    def __init__(self, nc: int = 1, ch: Sequence[int] = (64, 128, 256),
+                 fuse_bn: bool = False):
+        super().__init__()
+        c2 = max(16, ch[0] // 4, REG_MAX * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(nn.Sequential(
+            ConvBNSiLU(c, c2, 3, fuse_bn=fuse_bn),
+            ConvBNSiLU(c2, c2, 3, fuse_bn=fuse_bn),
+            nn.Conv2d(c2, 4 * REG_MAX, 1)) for c in ch)
+        self.cv3 = nn.ModuleList(nn.Sequential(
+            ConvBNSiLU(c, c3, 3, fuse_bn=fuse_bn),
+            ConvBNSiLU(c3, c3, 3, fuse_bn=fuse_bn),
+            nn.Conv2d(c3, nc, 1)) for c in ch)
+        self.dfl = _DFL()
+
+    def forward(self, feats):
+        outs = []
+        for i, x in enumerate(feats):
+            b = self.cv2[i](x).float().permute(0, 2, 3, 1)
+            c = self.cv3[i](x).float().permute(0, 2, 3, 1)
+            outs.append((b, c))
+        return outs
+
+
+def _upsample2x(x):
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+class YOLOv8(nn.Module):
+    """YOLOv8 detection model over (N, 3, H, W) input; returns per-level
+    (box_logits (N, h, w, 64), cls_logits (N, h, w, nc)) in float32."""
+
+    def __init__(self, nc: int = 1,
+                 width: Sequence[int] = (16, 32, 64, 128, 256),
+                 depth: Sequence[int] = (1, 2, 2, 1), fuse_bn: bool = False):
+        super().__init__()
+        w, d, fb = width, depth, fuse_bn
+        self.model = nn.ModuleDict({
+            "0": ConvBNSiLU(3, w[0], 3, 2, fb),                    # P1/2
+            "1": ConvBNSiLU(w[0], w[1], 3, 2, fb),                 # P2/4
+            "2": C2f(w[1], w[1], d[0], True, fb),
+            "3": ConvBNSiLU(w[1], w[2], 3, 2, fb),                 # P3/8
+            "4": C2f(w[2], w[2], d[1], True, fb),
+            "5": ConvBNSiLU(w[2], w[3], 3, 2, fb),                 # P4/16
+            "6": C2f(w[3], w[3], d[2], True, fb),
+            "7": ConvBNSiLU(w[3], w[4], 3, 2, fb),                 # P5/32
+            "8": C2f(w[4], w[4], d[3], True, fb),
+            "9": SPPF(w[4], w[4], 5, fb),
+            "12": C2f(w[4] + w[3], w[3], d[3], False, fb),
+            "15": C2f(w[3] + w[2], w[2], d[3], False, fb),
+            "16": ConvBNSiLU(w[2], w[2], 3, 2, fb),
+            "18": C2f(w[2] + w[3], w[3], d[3], False, fb),
+            "19": ConvBNSiLU(w[3], w[3], 3, 2, fb),
+            "21": C2f(w[3] + w[4], w[4], d[3], False, fb),
+            str(DETECT_LAYER): DetectHead(nc, (w[2], w[3], w[4]), fb),
+        })
+
+    def forward(self, x):
+        m = self.model
+        x = x.to(m["0"].conv.weight.dtype)
+        x = m["1"](m["0"](x))
+        x = m["2"](x)
+        x4 = m["4"](m["3"](x))
+        x6 = m["6"](m["5"](x4))
+        x9 = m["9"](m["8"](m["7"](x6)))
+
+        x12 = m["12"](torch.cat([_upsample2x(x9), x6], dim=1))
+        p3 = m["15"](torch.cat([_upsample2x(x12), x4], dim=1))
+        p4 = m["18"](torch.cat([m["16"](p3), x12], dim=1))
+        p5 = m["21"](torch.cat([m["19"](p4), x9], dim=1))
+        return m[str(DETECT_LAYER)]([p3, p4, p5])
+
+
+def anchors_for(size_h: int, size_w: int, device=None):
+    """Anchor centres (in pixels) and strides for all levels, concatenated."""
+    pts, strides = [], []
+    for s in STRIDES:
+        h, w = size_h // s, size_w // s
+        cy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * s
+        cx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * s
+        gy, gx = torch.meshgrid(cy, cx, indexing="ij")
+        pts.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+        strides.append(torch.full((h * w,), float(s), dtype=torch.float32,
+                                  device=device))
+    return torch.cat(pts, 0), torch.cat(strides, 0)
+
+
+def decode_boxes(level_outputs, size_h: int, size_w: int):
+    """DFL-decode all anchors -> (boxes_xyxy (N, A, 4), conf (N, A, nc))."""
+    boxes, confs = [], []
+    dev = level_outputs[0][0].device
+    bins = torch.arange(REG_MAX, dtype=torch.float32, device=dev)
+    for b, c in level_outputs:
+        n, h, w, _ = b.shape
+        dist = torch.softmax(b.reshape(n, h * w, 4, REG_MAX), dim=-1)
+        boxes.append((dist * bins).sum(-1))   # (N, hw, 4) ltrb, stride units
+        confs.append(torch.sigmoid(c.reshape(n, h * w, -1)))
+    pts, strides = anchors_for(size_h, size_w, dev)
+    dist = torch.cat(boxes, 1)
+    conf = torch.cat(confs, 1)
+    x1y1 = pts[None] - dist[..., :2] * strides[None, :, None]
+    x2y2 = pts[None] + dist[..., 2:] * strides[None, :, None]
+    return torch.cat([x1y1, x2y2], -1), conf
+
+
+def max_conf_detect(level_outputs, size_h: int, size_w: int,
+                    conf_thresh: float = 0.25):
+    """Keep only the max-confidence box; among equal confidences the first
+    anchor wins.  Returns (has (N,) bool, best_box (N, 4) f32 xyxy,
+    best_conf (N,))."""
+    boxes, conf = decode_boxes(level_outputs, size_h, size_w)
+    conf = conf.max(-1).values
+    best_conf = conf.max(1).values
+    a = conf.shape[1]
+    pos = torch.arange(a, device=conf.device)
+    idx = torch.where(conf == best_conf[:, None], pos, a).min(1).values
+    idx = idx.clamp(max=a - 1)                  # all-NaN row: keep in range
+    best_box = boxes.gather(1, idx[:, None, None].expand(-1, 1, 4))[:, 0]
+    return best_conf > conf_thresh, best_box, best_conf

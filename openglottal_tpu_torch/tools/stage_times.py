@@ -1,0 +1,192 @@
+"""Where a served video's time goes, on one CUDA device.
+
+    python3 -m openglottal_tpu_torch.tools.stage_times [--frames 502] [--out DIR]
+        [--pipelines guided-vft,unet] [--dtypes bf16,f32]
+
+Serves synthetic 256x256 videos through ``guided-vft`` and ``unet`` (demo
+weights, bfloat16 and float32) and prints one JSON line per pipeline/dtype:
+
+  * ``wall_ms``: host clock around ``extract_features`` (ends in a host read);
+  * ``stages_ms``: device time of each stage by CUDA events, measured on a
+    second pass in which every stage is followed by a synchronise (so stages
+    cannot overlap; their sum exceeds the pipelined wall time's device part);
+  * ``profile``: ``torch.profiler`` over one video — device busy share of the
+    wall time and the kernels with the most device time.
+
+Fails without a CUDA device.  With ``--out`` the lines are also written to
+``DIR/stage_times.jsonl``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=502)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--pipelines", default="guided-vft,unet")
+    ap.add_argument("--dtypes", default="bf16,f32")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("stage_times: no CUDA device available", file=sys.stderr)
+        return 1
+
+    from openglottal_tpu_torch import pipelines as P
+    from openglottal_tpu_torch.data.synthetic import synthetic_video
+    from openglottal_tpu_torch.models import tracker
+    from openglottal_tpu_torch.models.gate import gate_scan
+    from openglottal_tpu_torch.ops import _build, blobs, histogram
+
+    _build.build_all()
+    videos = [np.ascontiguousarray(
+        synthetic_video(t=args.frames, size=256, seed=s)[0][..., 0])
+        for s in range(3)]
+    weights = dict(unet_variables="weights/demo_unet.npz",
+                   yolo_variables="weights/demo_yolo.npz")
+    lines = []
+
+    def timed(stages, name, fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+    def guided_stages(gp, video):
+        st = {}
+        gray = timed(st, "upload", lambda: gp._to_gray(video))
+        with torch.no_grad(), P.full_float32(gp.dtype):
+            dets = [timed(st, "detector", lambda g=gray[i:i + P.CHUNK]:
+                          gp._yolo_chunk(g))
+                    for i in range(0, gray.shape[0], P.CHUNK)]
+        has, raw, _ = (torch.cat(c) for c in zip(*dets))
+        valid, boxes = timed(st, "gate_scan", lambda: gate_scan(
+            has, raw, 256, 256, gp.gate_params))
+        p = gp.ygvft_params
+        n0 = P.YGVFT_INIT
+        fi = torch.argmax(valid[:n0].to(torch.uint8)).reshape(1)
+        _, _, th0 = timed(st, "tracker_init", lambda: tracker.ygvft_initialize(
+            gray[:n0], valid[:n0].any(), boxes.index_select(0, fi)[0], p))
+        frames, v, b = gray[n0:], valid[n0:], boxes[n0:]
+
+        def windows():
+            fits, oy, ox = blobs.roi_window_origin(b, 256, 256, 128)
+            if not bool(fits):
+                raise RuntimeError("a gate box exceeds the 128x128 window")
+            ffw = blobs.gather_windows(frames, oy, ox, 128).to(torch.float32)
+            ar = torch.arange(128, device=ffw.device)
+            rows = oy[:, None, None] + ar[None, :, None]
+            cols = ox[:, None, None] + ar[None, None, :]
+            roi = ((rows >= b[:, 1, None, None]) & (rows < b[:, 3, None, None])
+                   & (cols >= b[:, 0, None, None]) & (cols < b[:, 2, None, None])
+                   & v[:, None, None])
+            return ffw, roi
+        ffw, roi = timed(st, "window_gather", windows)
+        cur, n_px = timed(st, "percentile", lambda:
+                          histogram.masked_percentile_u8_batch(
+                              ffw, roi, p.glottal_percentile))
+        act = torch.ones_like(v)
+        th = timed(st, "thresh_chain", lambda: tracker._thresh_chain(
+            th0, cur, n_px, act, p.beta))
+        raw_m = timed(st, "threshold_compare", lambda:
+                      (ffw < th[:, None, None]) & roi)
+        # the blob filter, kernels and the tensor ops around them apart
+        from openglottal_tpu_torch.ops import blobs_cuda
+        rec = []
+        blobs_cuda.RECORD = rec
+        masks = timed(st, "blob_filter_total", lambda:
+                      blobs.top_n_blobs_batch(raw_m, p.max_glottal_components))
+        blobs_cuda.RECORD = None
+        for name, inputs, kw in rec:
+            fn = getattr(blobs_cuda, name)
+            timed(st, f"kernel_{name}", lambda: fn(*inputs, **kw))
+        timed(st, "area_sum_and_read", lambda:
+              masks.sum((1, 2)).to(torch.float32).cpu())
+        return st
+
+    def unet_stages(gp, video):
+        st = {}
+        gray = timed(st, "upload", lambda: gp._to_gray(video))
+        masks, dets = [], []
+        with torch.no_grad(), P.full_float32(gp.dtype):
+            for i in range(0, gray.shape[0], P.CHUNK):
+                g = gray[i:i + P.CHUNK]
+                masks.append(timed(st, "unet", lambda: gp.unet(
+                    g[:, None].to(gp.dtype).contiguous(
+                        memory_format=torch.channels_last))[:, 0] > 0))
+                dets.append(timed(st, "detector", lambda: gp._yolo_chunk(g)))
+        has, raw, _ = (torch.cat(c) for c in zip(*dets))
+        valid, boxes = timed(st, "gate_scan", lambda: gate_scan(
+            has, raw, 256, 256, gp.gate_params))
+        timed(st, "box_area_sums_and_read", lambda: P._box_area_sums(
+            torch.cat(masks), valid, boxes).cpu())
+        return st
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if tag not in args.dtypes.split(","):
+            continue
+        gp = P.GlottalPipelines(dtype=dtype, **weights)
+        for pipeline, stage_fn in (("guided-vft", guided_stages),
+                                   ("unet", unet_stages)):
+            if pipeline not in args.pipelines.split(","):
+                continue
+            gp.extract_features(videos[0], pipeline)          # warm-up
+            wall = []
+            for v in videos:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gp.extract_features(v, pipeline)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            stage_fn(gp, videos[0])
+            stages = stage_fn(gp, videos[1])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                gp.extract_features(videos[2], pipeline)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+            evs = [e for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.device_time_total for e in evs) / 1e3
+            top = sorted(evs, key=lambda e: -e.device_time_total)[:12]
+            line = {
+                "pipeline": pipeline, "dtype": tag, "frames": args.frames,
+                "device": torch.cuda.get_device_name(0),
+                "wall_ms": wall, "stages_ms": stages,
+                "profile": {
+                    "wall_ms_under_profiler": prof_wall,
+                    "device_kernel_ms": dev_ms,
+                    "device_busy_share": dev_ms / prof_wall if evs else None,
+                    "n_device_kernels": int(sum(e.count for e in evs)),
+                    "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
+                                       for e in top}},
+            }
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+    if args.out:
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "stage_times.jsonl").write_text(
+            "".join(json.dumps(x) + "\n" for x in lines))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
