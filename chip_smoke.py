@@ -180,9 +180,32 @@ def main() -> int:
         k = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7)
         p = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7, use_plain=True)
         hold("thresh_chain", k.view(torch.int32), p.view(torch.int32))
+    # kernel and plain times on one stress batch per shape (the 256x256 rows
+    # are the only timing of the device-memory path: served videos whose gate
+    # boxes fit the 128x128 window never take it)
+    stress_ms = []
+    for m_np in (stress[0], stress[2], stress[6]):
+        t, h, w = m_np.shape
+        masks = torch.from_numpy(m_np).to(dev)
+        code = 2 - masks.to(torch.uint8)
+        init = torch.arange(h * w, dtype=torch.int32, device=dev
+                            ).view(1, h, w).expand(t, -1, -1).contiguous()
+        for name, kfn, pfn in (
+                ("dual_cc_batch", lambda: blobs_cuda.dual_cc_batch(code),
+                 lambda: blobs_cuda.dual_cc_plain(code)),
+                ("dual_min_prop_batch",
+                 lambda: blobs_cuda.dual_min_prop_batch(code, init),
+                 lambda: blobs_cuda.dual_min_prop_plain(code, init)),
+                ("min_prop_batch",
+                 lambda: blobs_cuda.min_prop_batch(masks, init, 8),
+                 lambda: blobs_cuda.min_prop_plain(masks, init, 8))):
+            stress_ms.append({"kernel": name, "shape": [t, h, w],
+                              "kernel_ms": time_cuda(kfn, 20),
+                              "plain_ms": time_cuda(pfn, 1)})
     say("kernels", ok=True, compared="exact equality with the plain version",
         shapes=[list(m.shape) for m in stress[::4]], stress_batches=len(stress),
-        max_abs_err=max_err)
+        max_abs_err=max_err, stress_times=stress_ms)
+    reset_counts()
 
     if kernels_only:
         return 0
