@@ -7,10 +7,11 @@
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
 256x256 synthetic videos through ``GlottalPipelines.extract_features`` with
-the demo weights — ``guided-vft`` and ``unet``, bfloat16 and float32 — and
-checks that the kernels were launched on that path and that the results are
-right.  Needs a CUDA device and nvcc; fails (non-zero exit, no result line)
-without them.  Every phase prints one JSON line; the last line is
+the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
+— and checks that the kernels were launched on those paths and that the
+results are right; then the blob filter's split route and the sequential
+tracker forms.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
+line) without them.  Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -32,14 +33,24 @@ def say(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
+BUSY_CYCLES = 20_000_000    # ~10 ms of device spinning ahead of a timed window
+
+
 def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+    """Mean milliseconds of fn() over reps launches, by CUDA events.
+
+    A wrapper's host side (checks, ``torch.empty``, the ctypes call) costs
+    tens of microseconds, more than a small kernel runs.  So the device is
+    first kept busy for ~10 ms: the launches queue up behind that, and the
+    two events then bracket back-to-back device work instead of the host's
+    enqueue rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(BUSY_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -76,7 +87,7 @@ def main() -> int:
     )
     from openglottal_tpu_torch.models import gate as gate_mod
     from openglottal_tpu_torch.models import tracker as tracker_mod
-    from openglottal_tpu_torch.ops import _build, blobs_cuda, scan_cuda
+    from openglottal_tpu_torch.ops import _build, blobs, blobs_cuda, scan_cuda
     from openglottal_tpu_torch.pipelines import GlottalPipelines
 
     dev = torch.device("cuda")
@@ -156,6 +167,18 @@ def main() -> int:
         for conn in (4, 8):
             hold("min_prop_batch", blobs_cuda.min_prop_batch(masks, init, conn),
                  blobs_cuda.min_prop_plain(masks, init, conn))
+            # plain labelling: the whole stack in one launch, and frame by
+            # frame through the single-frame entry point
+            want = blobs_cuda.cc_plain(masks, conn)
+            hold("cc_batch", blobs_cuda.cc_batch(masks, conn), want)
+            for i in range(t):
+                hold("cc", blobs_cuda.cc(masks[i], conn), want[i])
+        for cd in (code, code3):
+            # the dual kernel equals the single-region kernel region by region
+            hold("cc_batch",
+                 torch.where(cd == 1, blobs_cuda.cc_batch(cd == 1, 8),
+                             blobs_cuda.cc_batch(cd == 2, 4)),
+                 blobs_cuda.dual_cc_batch(cd))
     # the one-thread scans on random sequences (hold / expiry / drift clamp)
     for seed in range(4):
         r = np.random.default_rng(seed)
@@ -180,6 +203,18 @@ def main() -> int:
         k = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7)
         p = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7, use_plain=True)
         hold("thresh_chain", k.view(torch.int32), p.view(torch.int32))
+        # the motion-map recurrence: random maps, an inactive prefix and tail
+        tl, hl, wl = 300, 61, 97
+        d = torch.from_numpy(r.uniform(0, 60, (tl, hl, wl)).astype(np.float32)
+                             ).to(dev)
+        l0 = torch.from_numpy(r.uniform(0, 40, (hl, wl)).astype(np.float32)
+                              ).to(dev)
+        act = torch.from_numpy((np.arange(tl) >= 2) & (np.arange(tl) < tl - 9)
+                               ).to(dev)
+        for alpha in (0.98, 0.3):
+            k = tracker_mod.lmap_ema(l0, d, act, alpha)
+            p = tracker_mod.lmap_ema(l0, d, act, alpha, use_plain=True)
+            hold("lmap_ema", k.view(torch.int32), p.view(torch.int32))
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
     # boxes fit the 128x128 window never take it)
@@ -198,10 +233,26 @@ def main() -> int:
                  lambda: blobs_cuda.dual_min_prop_plain(code, init)),
                 ("min_prop_batch",
                  lambda: blobs_cuda.min_prop_batch(masks, init, 8),
-                 lambda: blobs_cuda.min_prop_plain(masks, init, 8))):
-            stress_ms.append({"kernel": name, "shape": [t, h, w],
+                 lambda: blobs_cuda.min_prop_plain(masks, init, 8)),
+                ("cc_batch", lambda: blobs_cuda.cc_batch(masks, 8),
+                 lambda: blobs_cuda.cc_plain(masks, 8)),
+                ("cc", lambda: blobs_cuda.cc(masks[0], 8),
+                 lambda: blobs_cuda.cc_plain(masks[:1], 8))):
+            stress_ms.append({"kernel": name,
+                              "shape": [h, w] if name == "cc" else [t, h, w],
                               "kernel_ms": time_cuda(kfn, 20),
                               "plain_ms": time_cuda(pfn, 1)})
+    for tl, hl, wl in ((500, 48, 40), (500, 128, 128)):
+        d = torch.rand((tl, hl, wl), device=dev) * 60
+        l0 = torch.rand((hl, wl), device=dev) * 40
+        act = torch.arange(tl, device=dev) >= 2
+        stress_ms.append({
+            "kernel": "lmap_ema", "shape": [tl, hl, wl],
+            "kernel_ms": time_cuda(
+                lambda: tracker_mod.lmap_ema(l0, d, act, 0.98), 20),
+            "plain_ms": time_cuda(
+                lambda: tracker_mod.lmap_ema(l0, d, act, 0.98,
+                                             use_plain=True), 1)})
     say("kernels", ok=True, compared="exact equality with the plain version",
         shapes=[list(m.shape) for m in stress[::4]], stress_batches=len(stress),
         max_abs_err=max_err, stress_times=stress_ms)
@@ -210,7 +261,7 @@ def main() -> int:
     if kernels_only:
         return 0
 
-    # ── the main path ───────────────────────────────────────────────────
+    # ── the main paths ──────────────────────────────────────────────────
     def video(seed: int):
         frames, _ = synthetic_video(t=T_FRAMES, size=256, seed=seed,
                                     realistic=False)
@@ -222,17 +273,18 @@ def main() -> int:
     pipes = {"bf16": GlottalPipelines(dtype=torch.bfloat16, **weights),
              "f32": GlottalPipelines(dtype=torch.float32, **weights)}
 
-    def check_features(name, feats, expect_f0=0.05):
+    def check_features(name, feats, expect_f0=0.05, frames=T_FRAMES):
         if feats is None:
             raise AssertionError(f"{name}: extract_features returned None")
         area = feats["_area"]
-        if area.shape != (T_FRAMES,) or not np.isfinite(area).all():
+        if area.shape != (frames,) or not np.isfinite(area).all():
             raise AssertionError(f"{name}: bad waveform {area.shape}")
         for k in ("area_mean", "area_std", "area_range", "open_quotient",
                   "periodicity", "cv"):
             if not np.isfinite(feats[k]):
                 raise AssertionError(f"{name}: {k} = {feats[k]}")
-        if feats["f0"] is None or abs(feats["f0"] - expect_f0) > 0.005:
+        if expect_f0 is not None and (
+                feats["f0"] is None or abs(feats["f0"] - expect_f0) > 0.005):
             raise AssertionError(f"{name}: f0 = {feats['f0']}, expected "
                                  f"{expect_f0} cycles/frame")
         return {k: v for k, v in feats.items() if k != "_area"}
@@ -248,49 +300,72 @@ def main() -> int:
             ms.append((time.perf_counter() - t0) * 1e3)
         return ms
 
+    def counted(fn, record=None):
+        """fn() with every launch count set to 0 just before and read just
+        after; launches are also recorded into ``record`` when given."""
+        blobs_cuda.RECORD = scan_cuda.RECORD = record
+        reset_counts()
+        try:
+            out = fn()
+            return out, counts()
+        finally:
+            blobs_cuda.RECORD = scan_cuda.RECORD = None
+
+    def expect_counts(where, got, expected):
+        for k, n in expected.items():
+            if got[k] != n:
+                raise AssertionError(f"{where}: {k} launched {got[k]} times, "
+                                     f"expected {n}")
+
     path_launches = {}
-    recorded = []
+    recorded = {}
     waves = {}
     for pipeline, expected in (
             ("guided-vft", {"dual_cc_batch": 1, "dual_min_prop_batch": 1,
                             "min_prop_batch": 2, "gate_scan": 1,
-                            "thresh_chain": 1}),
-            ("unet", {"gate_scan": 1})):
+                            "thresh_chain": 1, "cc": 0, "cc_batch": 0,
+                            "lmap_ema": 0}),
+            ("unet", {"gate_scan": 1}),
+            # vft: the tracker's init labels one ROI mask (2 single-frame CC
+            # launches); the ROI filter and the output filter are one
+            # top_n_blobs_batch each (1 + 1 + 2 launches apiece)
+            ("vft", {"gate_scan": 1, "cc": 2, "lmap_ema": 1,
+                     "dual_cc_batch": 2, "dual_min_prop_batch": 2,
+                     "min_prop_batch": 4, "thresh_chain": 1, "cc_batch": 0})):
         for tag, pipe in pipes.items():
             pipe.extract_features(videos[1], pipeline)     # warm-up (cuDNN)
             record = []
-            blobs_cuda.RECORD = scan_cuda.RECORD = record
-            reset_counts()
-            feats = pipe.extract_features(videos[0], pipeline)
-            got = counts()
-            blobs_cuda.RECORD = scan_cuda.RECORD = None
-            for k, n in expected.items():
-                if got[k] != n:
-                    raise AssertionError(
-                        f"{pipeline}/{tag}: {k} launched {got[k]} times on "
-                        f"the main path, expected {n}")
+            feats, got = counted(
+                lambda: pipe.extract_features(videos[0], pipeline), record)
+            expect_counts(f"{pipeline}/{tag} main path", got, expected)
             path_launches[f"{pipeline}/{tag}"] = got
-            if pipeline == "guided-vft" and tag == "bf16":
-                recorded = record
+            if tag == "bf16":
+                recorded[pipeline] = record
             summary = check_features(f"{pipeline}/{tag}", feats)
             waves[(pipeline, tag)] = feats["_area"]
             ms = serve(pipe, pipeline)
             extra = {}
-            if pipeline == "guided-vft":
-                # gate and window facts of this video, and the plain-kernel run
+            if pipeline != "unet":
+                # gate facts of this video, and the plain-kernel run
                 gray = pipe._to_gray(videos[0])
                 valid, boxes = pipe._detect_gate(gray)
                 side = (boxes[:, 2:] - boxes[:, :2]).max().item()
                 extra = {"gate_valid_share": float(valid.float().mean()),
-                         "max_box_side": side,
-                         "all_boxes_fit_128_window": bool(side <= 126)}
+                         "max_box_side": side}
+                if pipeline == "guided-vft":
+                    extra["all_boxes_fit_128_window"] = bool(side <= 126)
+                else:
+                    _, _, idx, hw0 = pipe._vft_compute(gray, valid, boxes,
+                                                       T_FRAMES)
+                    extra["locked_crop_size_h_w"] = list(hw0)
+                    extra["tracked_frames"] = int(len(idx))
                 plain = GlottalPipelines(dtype=pipe.dtype,
                                          use_plain_kernels=True, **weights)
-                reset_counts()
-                pa = plain.extract_features(videos[0], pipeline)["_area"]
-                if any(counts().values()):
+                pf, pc = counted(
+                    lambda: plain.extract_features(videos[0], pipeline))
+                if any(pc.values()):
                     raise AssertionError("plain-kernel run launched a kernel")
-                if not np.array_equal(pa, feats["_area"]):
+                if not np.array_equal(pf["_area"], feats["_area"]):
                     raise AssertionError(
                         f"{pipeline}/{tag}: waveform differs between the CUDA "
                         f"kernels and their plain versions")
@@ -298,16 +373,96 @@ def main() -> int:
             say(pipeline.replace("-", "_"), dtype=tag, features=summary,
                 launches=got, wall_ms_per_video=ms,
                 frames_per_s=T_FRAMES / (float(np.median(ms)) / 1e3), **extra)
-    reset_counts()
 
     rel_l1 = float(np.abs(waves[("unet", "bf16")] - waves[("unet", "f32")]).sum()
                    / waves[("unet", "f32")].sum())
     if rel_l1 >= 0.05:
         raise AssertionError(f"unet: bf16 vs f32 waveform relative L1 {rel_l1}")
 
+    # ── vft through the blob filter's split route (served, then direct) ─
+    split_pipe = GlottalPipelines(dtype=torch.bfloat16, split_blob_route=True,
+                                  **weights)
+    split_pipe.extract_features(videos[1], "vft")
+    record = []
+    feats, got = counted(
+        lambda: split_pipe.extract_features(videos[0], "vft"), record)
+    expect_counts("vft, split route", got,
+                  {"cc_batch": 4, "min_prop_batch": 8, "dual_cc_batch": 0,
+                   "dual_min_prop_batch": 0, "cc": 2, "lmap_ema": 1,
+                   "gate_scan": 1, "thresh_chain": 1})
+    if not np.array_equal(feats["_area"], waves[("vft", "bf16")]):
+        raise AssertionError("vft: split-route waveform differs from the "
+                             "dual route's")
+    path_launches["vft+split_blob_route/bf16"] = got
+    recorded["vft+split_blob_route"] = record
+    # the same comparison on the very masks the served videos gave the blob
+    # filters — vft's ROI filter (n = 1) and output filter (n = 2) at the
+    # locked crop size, guided-vft's output filter on 128x128 windows — both
+    # routes timed
+    def filter_masks(path):
+        return [inp[0] == 1 for name, inp, _ in recorded[path]
+                if name == "dual_cc_batch"]
+    n_out = pipes["bf16"].vft_params.max_glottal_components
+    n_out_guided = pipes["bf16"].ygvft_params.max_glottal_components
+    routes = []
+    for m, n in (*zip(filter_masks("vft"), (1, n_out)),
+                 (filter_masks("guided-vft")[0], n_out_guided)):
+        dual = blobs.top_n_blobs_batch(m, n)
+        spl, got = counted(lambda: blobs.top_n_blobs_batch(m, n, _split=True))
+        expect_counts("top_n_blobs_batch(_split=True)", got,
+                      {"cc_batch": 2, "min_prop_batch": 4, "dual_cc_batch": 0,
+                       "dual_min_prop_batch": 0})
+        if not torch.equal(dual, spl):
+            raise AssertionError("top_n_blobs_batch: routes differ")
+        routes.append({
+            "shape": list(m.shape), "n": n,
+            "dual_route_ms": time_cuda(
+                lambda: blobs.top_n_blobs_batch(m, n), 10),
+            "split_route_ms": time_cuda(
+                lambda: blobs.top_n_blobs_batch(m, n, _split=True), 10)})
+    say("blob_routes", equal=True, served_split_wall_ms=serve(split_pipe, "vft"),
+        served_split_launches=path_launches["vft+split_blob_route/bf16"],
+        top_n_blobs_batch=routes)
+
+    # ── the sequential tracker forms on a 32-frame clip ─────────────────
+    seq_pipe = GlottalPipelines(dtype=torch.bfloat16, parallel_trackers=False,
+                                **weights)
+    clip = videos[0][:32]
+    gray = seq_pipe._to_gray(clip)
+    n_valid = int(seq_pipe._detect_gate(gray)[0].sum())
+    sequential = {}
+    for pipeline, n_cc, n_steps in (
+            # init: 2 launches; a vft step labels the ROI mask and the output
+            # mask (4 launches) and runs for every gated crop, the inactive
+            # init crops included; a guided step labels the output mask (2)
+            ("vft", 2 + 4 * n_valid, n_valid),
+            ("guided-vft", 2 * (len(clip) - 2), len(clip) - 2)):
+        a_par = pipes["bf16"].extract_features(clip, pipeline)["_area"]
+        seq_pipe.extract_features(clip, pipeline)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, got = counted(lambda: seq_pipe.extract_features(clip, pipeline))
+        wall = (time.perf_counter() - t0) * 1e3
+        expect_counts(f"{pipeline}, sequential", got,
+                      {"cc": n_cc, "lmap_ema": n_steps, "thresh_chain": n_steps,
+                       "gate_scan": 1, "cc_batch": 0, "dual_cc_batch": 0})
+        check_features(f"{pipeline}, sequential", feats, expect_f0=None,
+                       frames=len(clip))
+        diff = float(np.abs(feats["_area"] - a_par).max())
+        if diff > 2.0:
+            raise AssertionError(f"{pipeline}: sequential vs parallel areas "
+                                 f"differ by {diff} px (limit 2.0)")
+        sequential[pipeline] = {
+            "max_abs_area_diff_vs_parallel": diff, "launches": got,
+            "frames_differing": int((feats["_area"] != a_par).sum()),
+            "wall_ms": wall}
+    say("sequential_trackers", frames=len(clip), gated_frames=n_valid,
+        **{k.replace("-", "_"): v for k, v in sequential.items()})
+    reset_counts()
+
     # host synchronisations per video, counted by PyTorch's sync debug mode
     syncs, sync_sites = {}, {}
-    for pipeline in ("guided-vft", "unet"):
+    for pipeline in ("guided-vft", "unet", "vft"):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -327,26 +482,50 @@ def main() -> int:
     small = videos[0][:12]
     cpu_pipe = GlottalPipelines(dtype=torch.float32, device="cpu", **weights)
     agree = {}
-    for pipeline in ("guided-vft", "unet"):
+    for pipeline in ("guided-vft", "unet", "vft"):
         a = cpu_pipe.extract_features(small, pipeline)["_area"]
         b = pipes["f32"].extract_features(small, pipeline)["_area"]
         agree[pipeline] = float(np.abs(a - b).sum() / max(a.sum(), 1.0))
         if agree[pipeline] >= 0.05:
             raise AssertionError(f"{pipeline}: card vs CPU relative L1 "
                                  f"{agree[pipeline]} on 12 frames")
-    say("checks", unet_bf16_vs_f32_rel_l1=rel_l1, host_syncs_per_video=syncs, host_sync_sites=sync_sites,
-        card_vs_cpu_rel_l1_12_frames=agree)
+    say("checks", unet_bf16_vs_f32_rel_l1=rel_l1, host_syncs_per_video=syncs,
+        host_sync_sites=sync_sites, card_vs_cpu_rel_l1_12_frames=agree)
 
-    # ── each kernel at the main path's shapes, on the recorded inputs ───
-    replaces = {
-        "dual_cc_batch": "openglottal_tpu/ops/blobs_pallas.py:357",
-        "dual_min_prop_batch": "openglottal_tpu/ops/blobs_pallas.py:380",
-        "min_prop_batch": "openglottal_tpu/ops/blobs_pallas.py:434",
-        "gate_scan": "openglottal_tpu/models/gate.py:98",
-        "thresh_chain": "openglottal_tpu/models/tracker.py:216",
+    # ── each kernel at its path's shapes, on the recorded inputs ────────
+    # kernel -> (what it replaces, the served path whose run gives its
+    # launch count and its inputs)
+    kernel_table = {
+        "dual_cc_batch": ("openglottal_tpu/ops/blobs_pallas.py:357",
+                          "guided-vft"),
+        "dual_min_prop_batch": ("openglottal_tpu/ops/blobs_pallas.py:380",
+                                "guided-vft"),
+        "min_prop_batch": ("openglottal_tpu/ops/blobs_pallas.py:434",
+                           "guided-vft"),
+        "cc_batch": ("openglottal_tpu/ops/blobs_pallas.py:411",
+                     "vft+split_blob_route"),
+        "cc": ("openglottal_tpu/ops/blobs_pallas.py:460", "vft"),
+        "gate_scan": ("openglottal_tpu/models/gate.py:98", "guided-vft"),
+        "thresh_chain": ("openglottal_tpu/models/tracker.py:216",
+                         "guided-vft"),
+        "lmap_ema": ("openglottal_tpu/models/tracker.py:204", "vft"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
+
+    def links(code):
+        """Neighbour links this input makes the union-find test and join:
+        pairs of equal non-zero code (left, up; both diagonals for code 1),
+        plus one root chase per active pixel."""
+        c = code
+        n = int(((c[:, :, 1:] == c[:, :, :-1]) & (c[:, :, 1:] != 0)).sum())
+        n += int(((c[:, 1:] == c[:, :-1]) & (c[:, 1:] != 0)).sum())
+        n += int(((c[:, 1:, 1:] == c[:, :-1, :-1]) & (c[:, 1:, 1:] == 1)).sum())
+        n += int(((c[:, 1:, :-1] == c[:, :-1, 1:]) & (c[:, 1:, :-1] == 1)).sum())
+        return n + int((c != 0).sum())
+
+    def region_code(region, conn):
+        return region.to(torch.uint8) * (1 if conn == 8 else 2)
 
     def runners(name, inputs, kw):
         """(kernel fn, plain fn, bytes moved, operations) for one launch."""
@@ -365,10 +544,22 @@ def main() -> int:
             region, init = inputs
             conn = kw["connectivity"]
             px = region.numel()
-            code = region.to(torch.uint8) * (1 if conn == 8 else 2)
             return (lambda: blobs_cuda.min_prop_batch(region, init, conn),
                     lambda: blobs_cuda.min_prop_plain(region, init, conn),
-                    px * 9, links(code) + px)
+                    px * 9, links(region_code(region, conn)) + px)
+        if name == "cc_batch":
+            (region,) = inputs
+            conn = kw["connectivity"]
+            return (lambda: blobs_cuda.cc_batch(region, conn),
+                    lambda: blobs_cuda.cc_plain(region, conn),
+                    region.numel() * 5, links(region_code(region, conn)))
+        if name == "cc":
+            (region,) = inputs
+            conn = kw["connectivity"]
+            return (lambda: blobs_cuda.cc(region, conn),
+                    lambda: blobs_cuda.cc_plain(region[None], conn)[0],
+                    region.numel() * 5,
+                    links(region_code(region[None], conn)))
         if name == "gate_scan":
             has, raw = inputs
             n = has.numel()
@@ -376,6 +567,13 @@ def main() -> int:
             return (lambda: gate_mod.gate_scan(has, raw, *args),
                     lambda: gate_mod.gate_scan(has, raw, *args, use_plain=True),
                     n * (1 + 16 + 1 + 16), n * 40)
+        if name == "lmap_ema":
+            l0, d, act = inputs
+            return (lambda: tracker_mod.lmap_ema(l0, d, act, kw["alpha"]),
+                    lambda: tracker_mod.lmap_ema(l0, d, act, kw["alpha"],
+                                                 use_plain=True),
+                    l0.numel() * 4 + d.numel() * 8 + act.numel(),
+                    d.numel() * 2)
         th0, cur, npx, act = inputs
         n = cur.numel()
         return (lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"]),
@@ -383,61 +581,60 @@ def main() -> int:
                                                   use_plain=True),
                 n * (4 + 4 + 1 + 4) + 4, n * 4)
 
-    def links(code):
-        """Neighbour links this input makes the union-find test and join:
-        pairs of equal non-zero code (left, up; both diagonals for code 1),
-        plus one root chase per active pixel."""
-        c = code
-        n = int(((c[:, :, 1:] == c[:, :, :-1]) & (c[:, :, 1:] != 0)).sum())
-        n += int(((c[:, 1:] == c[:, :-1]) & (c[:, 1:] != 0)).sum())
-        n += int(((c[:, 1:, 1:] == c[:, :-1, :-1]) & (c[:, 1:, 1:] == 1)).sum())
-        n += int(((c[:, 1:, :-1] == c[:, :-1, 1:]) & (c[:, 1:, :-1] == 1)).sum())
-        return n + int((c != 0).sum())
-
     per_kernel = {}
-    for name, inputs, kw in recorded:
-        kfn, pfn, nbytes, ops = runners(name, inputs, kw)
-        on_host = name in scan_cuda.LAUNCHES
-        got, want = kfn(), pfn()
-        if isinstance(got, tuple):
-            for g, w_ in zip(got, want):
-                hold(name, g, w_)
-        elif got.dtype.is_floating_point:
-            hold(name, got.view(torch.int32), want.view(torch.int32))
-        else:
-            hold(name, got, want)
-        ms = time_cuda(kfn, 20)
-        plain_ms = time_host(pfn, 2) if on_host else time_cuda(pfn, 2)
-        e = per_kernel.setdefault(name, {"ms": [], "plain_ms": [], "bytes": [],
-                                         "ops": [], "shapes": []})
-        e["ms"].append(ms)
-        e["plain_ms"].append(plain_ms)
-        e["bytes"].append(nbytes)
-        e["ops"].append(ops)
-        e["shapes"].append(list(inputs[-1].shape))
+    elsewhere = {}     # kernel -> path -> ms of each launch on another path
+    for path, record in recorded.items():
+        for name, inputs, kw in record:
+            kfn, pfn, nbytes, ops = runners(name, inputs, kw)
+            if kernel_table[name][1] != path:
+                # not the path this kernel reports: the kernel's time only
+                elsewhere.setdefault(name, {}).setdefault(path, []).append(
+                    time_cuda(kfn, 20))
+                continue
+            on_host = name in scan_cuda.LAUNCHES
+            got, want = kfn(), pfn()
+            if isinstance(got, tuple):
+                for g, w_ in zip(got, want):
+                    hold(name, g, w_)
+            elif got.dtype.is_floating_point:
+                hold(name, got.view(torch.int32), want.view(torch.int32))
+            else:
+                hold(name, got, want)
+            ms = time_cuda(kfn, 20)
+            plain_ms = time_host(pfn, 2) if on_host else time_cuda(pfn, 2)
+            e = per_kernel.setdefault(name, {"ms": [], "plain_ms": [],
+                                             "bytes": [], "ops": [],
+                                             "shapes": []})
+            e["ms"].append(ms)
+            e["plain_ms"].append(plain_ms)
+            e["bytes"].append(nbytes)
+            e["ops"].append(ops)
+            e["shapes"].append(list(max(inputs, key=torch.numel).shape))
     reset_counts()
 
     kernels = []
-    main_counts = path_launches["guided-vft/bf16"]
-    for name in replaces:
+    for name, (replaces, path) in kernel_table.items():
         e = per_kernel.get(name)
-        if e is None or main_counts[name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-        # a kernel launched more than once per video (min_prop_batch: the
-        # 4-connected hole pass and the 8-connected owner pass) reports the
-        # mean over its launches, bound included
+        launches = path_launches[f"{path}/bf16"][name]
+        if e is None or launches == 0:
+            raise AssertionError(f"{name} was not launched on the {path} path")
+        # a kernel launched more than once per video reports the mean over
+        # its launches, bound included
         n = len(e["ms"])
         t_bytes = sum(e["bytes"]) / n / HBM_BYTES_PER_S * 1e3
         t_ops = sum(e["ops"]) / n / FP32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": main_counts[name],
+            "replaces": replaces, "path": path, "launches": launches,
+            "launches_by_path": {k: v[name] for k, v in path_launches.items()
+                                 if k.endswith("/bf16")},
             "max_abs_err": max_err[name], "ms": sum(e["ms"]) / n,
             "plain_ms": sum(e["plain_ms"]) / n,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "shapes": e["shapes"],
             "ms_each_launch": e["ms"],
+            "ms_each_launch_on_other_paths": elsewhere.get(name, {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -8,6 +8,10 @@
 //                                                     with_init=True)
 //   og_min_prop       <- min_prop_pallas_batch       (_make_batch_kernel,
 //                                                     with_init=True)
+//   og_cc_batch       <- connected_components_pallas_batch
+//                                                    (_make_batch_kernel,
+//                                                     with_init=False)
+//   og_cc             <- connected_components_pallas (_make_kernel)
 //
 // Shared semantics.  Every frame of a (T, H, W) stack is independent.  A
 // pixel's region code is 0 (inactive), 1 (propagates 8-connected) or 2
@@ -53,8 +57,12 @@
 // latency in the passes over the frame (five of them, ~100 instructions per
 // pixel in all), not device memory.
 //
-// The later connected_components[_batch] entry points are og_min_prop with
-// init == nullptr; they need no new device code.
+// og_cc_batch and og_cc are the same kernel without `init`: the labels are
+// the roots themselves, so there is no value grid and no fourth pass.  A frame
+// up to 46,489 pixels (215x215) keeps parents and codes in shared memory; a
+// larger one (256x256) builds its forest directly in the output buffer (no
+// scratch).  og_cc is one frame, hence ONE block on one of the card's 132 SMs:
+// its time is a block's latency, not bytes over bandwidth.
 //
 // Plain C interface: raw pointers, sizes, stream.  Nothing is allocated
 // here and nothing synchronises.  Each function returns cudaGetLastError().
@@ -356,6 +364,22 @@ int og_min_prop(const void* region, const void* init, void* out, void* scratch,
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(region, init, out, scratch, t, h, w,
                 connectivity == 8 ? 1 : 2, static_cast<cudaStream_t>(stream));
+}
+
+// region: (T,H,W) bool bytes; out: (T,H,W) int32 labels (component id = min
+// frame-local flat index, outside = H*W); connectivity 4 or 8.
+int og_cc_batch(const void* region, void* out, int t, int h, int w,
+                int connectivity, void* stream) {
+  if (connectivity != 4 && connectivity != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(region, nullptr, out, nullptr, t, h, w,
+                connectivity == 8 ? 1 : 2, static_cast<cudaStream_t>(stream));
+}
+
+// One frame: region (H,W) bool bytes; out (H,W) int32 labels.
+int og_cc(const void* region, void* out, int h, int w, int connectivity,
+          void* stream) {
+  return og_cc_batch(region, out, 1, h, w, connectivity, stream);
 }
 
 }  // extern "C"

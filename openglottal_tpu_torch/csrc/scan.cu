@@ -1,24 +1,40 @@
-// Sequential scalar recurrences of the serving path as one-thread kernels.
+// Sequential recurrences over the frame axis of the serving path.
 //
 //   og_gate_scan     <- openglottal_tpu/models/gate.py gate_scan_carry
 //                       (a lax.scan over per-frame detection summaries)
 //   og_thresh_chain  <- openglottal_tpu/models/tracker.py _thresh_chain
 //                       (a lax.scan over T scalars)
+//   og_lmap_ema      <- openglottal_tpu/models/tracker.py _linear_prefix as
+//                       vft_parallel uses it (an associative scan over
+//                       (T,H,W)), i.e. the motion-map update of vft_step
 //
-// Neither replaces a Pallas kernel; both replace an XLA scan.  Each is a few
-// dozen scalar operations per frame that must run in frame order and stay
-// bit-identical to the reference, so eager PyTorch would issue thousands of
-// tiny launches per video (or force a device-to-host copy in the middle of
+// None replaces a Pallas kernel; each replaces an XLA scan.  The first two are
+// a few dozen scalar operations per frame that must run in frame order and
+// stay bit-identical to the reference, so eager PyTorch would make thousands
+// of tiny launches per video (or force a device-to-host copy in the middle of
 // the pipeline).  One thread with the state in registers does the whole video
 // in one launch; the bound is launch latency plus T dependent steps, not
 // bytes (a 502-frame video moves ~20 KB).
+//
+// og_lmap_ema is the motion map lmap_t = alpha*d_t + (1-alpha)*lmap_{t-1} per
+// pixel.  The reference computes it by parallel prefix because its compiler
+// wants one, and pays log T passes over (T,H,W) plus a reassociated result.
+// Here a thread owns a pixel and walks T in order with the state in a
+// register: neighbouring threads read neighbouring addresses of every frame,
+// d is read once and the maps are written once (8 B per pixel-step, the
+// bound), and the result is the sequential tracker's, bit for bit.  Its
+// parallelism is H*W threads (a size-locked crop: a few thousand), so on a
+// small crop the T dependent fused multiply-adds per thread, not bytes, set
+// the time.
 //
 // Float arithmetic uses the round-to-nearest intrinsics throughout, so that
 // where a multiply and an add are fused is written down here and not left to
 // nvcc: a 1-ulp drift in the threshold flips `pixel < thresh` for a whole
 // pixel population.  The threshold step is fma(beta, th, round((1-beta)*c)),
 // the form the reference's scan takes (see models/tracker.py _thresh_chain);
-// the gate uses no fused operation.
+// the motion-map step is fma(1-alpha, lmap, round(alpha*d)), the form the
+// reference's sequential scan takes (models/tracker.py lmap_ema); the gate
+// uses no fused operation.
 //
 // Plain C interface; nothing allocates or synchronises; each function returns
 // cudaGetLastError().
@@ -123,6 +139,28 @@ __global__ void thresh_chain_kernel(const float* __restrict__ thresh0,
   }
 }
 
+// lmap0: (n,) state before the first step; d, out: (t, n); active: (t,).
+// Inactive steps keep the state and still write it out.
+__global__ void lmap_ema_kernel(const float* __restrict__ lmap0,
+                                const float* __restrict__ d,
+                                const uint8_t* __restrict__ active,
+                                float* __restrict__ out, int t, int n,
+                                float alpha, float one_minus_alpha) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float lm = lmap0[p];
+  const float* src = d + p;
+  float* dst = out + p;
+#pragma unroll 8
+  for (int i = 0; i < t; ++i) {
+    const float di = src[static_cast<size_t>(i) * n];
+    // pinned rounding: round32(alpha*d), then one fused multiply-add
+    const float nxt = __fmaf_rn(one_minus_alpha, lm, __fmul_rn(alpha, di));
+    lm = active[i] ? nxt : lm;
+    dst[static_cast<size_t>(i) * n] = lm;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -146,6 +184,19 @@ int og_thresh_chain(const void* thresh0, const void* cur, const void* n_px,
       static_cast<const float*>(thresh0), static_cast<const float*>(cur),
       static_cast<const float*>(n_px), static_cast<const uint8_t*>(active),
       static_cast<float*>(out), t, beta, one_minus_beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int og_lmap_ema(const void* lmap0, const void* d, const void* active,
+                void* out, int t, int n, float alpha, float one_minus_alpha,
+                void* stream) {
+  if (t <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kThreads = 128;
+  lmap_ema_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lmap0), static_cast<const float*>(d),
+      static_cast<const uint8_t*>(active), static_cast<float*>(out), t, n,
+      alpha, one_minus_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

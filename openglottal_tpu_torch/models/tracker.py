@@ -1,13 +1,24 @@
-"""YOLO-guided vocal-fold tracker, frame-parallel formulation.
+"""Classical motion trackers over the frame axis.
 
-Counterpart of the guided half of ``openglottal_tpu/models/tracker.py``
-(``ygvft_initialize``, ``ygvft_parallel``).  The ROI is the gated detector
-box; the intensity threshold is a beta-EMA of the ``glottal_percentile`` of
-the ROI pixels; the output is (dark AND in-ROI) pixels filtered to the
-``max_glottal_components`` largest blobs.
+Counterpart of ``openglottal_tpu/models/tracker.py``:
 
-Frames arrive as (T, H, W) tensors of integer pixel values.  Everything but
-the scalar threshold chain is per-frame independent and batched over T.
+  * VFT: EMA motion map of Gaussian-blurred absdiffs; ROI = largest blob
+    above ``roi_threshold_ratio`` * peak; intensity threshold = beta-EMA of
+    the ``glottal_percentile`` of the ROI pixels; output = (dark AND in-ROI)
+    pixels filtered to the ``max_glottal_components`` largest blobs.
+  * YOLO-guided VFT: the same machinery, but the ROI is the gated detector
+    box; empty mask when there is none.
+
+Frames arrive as (T, H, W) tensors of integer pixel values; the carry is
+(prev_frame, motion_map, threshold).  Each tracker has two forms with the
+same outputs.  The frame-parallel form (``vft_parallel``, ``ygvft_parallel``)
+batches every per-frame stage over T and runs the two recurrences — the
+per-pixel motion map and the scalar threshold — as one kernel launch each
+(``csrc/scan.cu``).  The sequential form (``*_step``, ``*_scan_carry``,
+``*_scan``) is a Python loop over frames that carries the state explicitly:
+the debug form, and what segment-wise streaming needs.  Both forms take the
+same pinned float32 rounding in the recurrences, so they differ only where
+a batched and a single-frame blur round differently.
 """
 
 from __future__ import annotations
@@ -20,8 +31,11 @@ import torch
 from openglottal_tpu_torch.ops import _build, scan_cuda
 from openglottal_tpu_torch.ops.blobs import (
     gather_windows,
+    largest_blob,
+    largest_blob_batch,
     roi_window_origin,
     scatter_windows,
+    top_n_blobs,
     top_n_blobs_batch,
 )
 from openglottal_tpu_torch.ops.blur import gaussian_blur
@@ -30,6 +44,17 @@ from openglottal_tpu_torch.ops.histogram import (
     masked_percentile_u8_batch,
     percentile_from_hist,
 )
+
+
+class VFTParams(NamedTuple):
+    """Defaults = reference VFT_PARAMS."""
+
+    alpha: float = 0.98
+    beta: float = 0.7
+    roi_threshold_ratio: float = 0.07
+    gaussian_ksize: int = 13
+    glottal_percentile: float = 5.0
+    max_glottal_components: int = 2
 
 
 class YGVFTParams(NamedTuple):
@@ -48,6 +73,78 @@ def _roi_percentile(frame, roi, pct, fallback, min_px):
     if not isinstance(fallback, torch.Tensor):   # filled on the device
         fallback = torch.full((), float(fallback), device=val.device)
     return torch.where(n > min_px, val, fallback)
+
+
+def _roi_threshold(lmap, ratio: float):
+    """ROI threshold of a motion map (..., H, W): ratio * peak, or 1 where
+    the map is all zero.  Returns (...,)."""
+    peak = lmap.amax((-2, -1))
+    return torch.where(peak > 0, peak * ratio, torch.ones_like(peak))
+
+
+def vft_initialize(init_frames, p: VFTParams, use_plain: bool = False):
+    """Seed carry from N init frames: (N, H, W) integer-valued grayscale,
+    already resized to the locked crop size.  The motion map is the blurred
+    mean absdiff; the threshold is the percentile of the FIRST init frame
+    inside the map's largest blob.  Returns carry (prev, lmap, thresh)."""
+    ff = init_frames.to(torch.float32)
+    n = ff.shape[0]
+    avg = (ff[1:] - ff[:-1]).abs().sum(0) / (n - 1)
+    lmap = gaussian_blur(avg, p.gaussian_ksize)
+    rm = largest_blob(lmap > _roi_threshold(lmap, p.roi_threshold_ratio),
+                      use_plain)
+    thresh = _roi_percentile(ff[0], rm, p.glottal_percentile, 127.0, min_px=0)
+    return ff[-1], lmap, thresh
+
+
+def lmap_ema_plain(lmap0, d, active, alpha: float):
+    """Plain version of the motion-map recurrence: a loop over T, one step =
+    fma(1-alpha, lmap, round32(alpha*d)) — see :func:`lmap_ema`; the fused
+    multiply-add is taken in float64, where the product is exact."""
+    a = float(np.float32(alpha))
+    b = float(np.float32(1.0 - alpha))
+    lm = lmap0.to(torch.float32)
+    out = torch.empty_like(d, dtype=torch.float32)
+    for i in range(d.shape[0]):
+        nxt = (lm.double() * b + (d[i].to(torch.float32) * a).double()).float()
+        lm = torch.where(active[i], nxt, lm)
+        out[i] = lm
+    return out
+
+
+def lmap_ema(lmap0, d, active, alpha: float, use_plain: bool = False):
+    """Motion-map recurrence lmap_t = alpha*d_t + (1-alpha)*lmap_{t-1} over a
+    (T, H, W) stack of blurred absdiffs, identity on inactive steps; returns
+    all T maps.  The T steps run in order per pixel, so the result is the
+    sequential tracker's and not a reassociated prefix.  The rounding of a
+    step is pinned to the form the reference's sequential scan takes as
+    compiled for the CPU: round32(alpha*d), then ONE fused multiply-add
+    fma(1-alpha, lmap, that product) (found by comparing bits; the unfused
+    form and the other fused form both differ from it).  On a CUDA tensor it
+    is ONE launch of ``csrc/scan.cu`` ``og_lmap_ema`` (a thread per pixel),
+    on a CPU tensor the plain loop."""
+    if d.dim() != 3 or lmap0.shape != d.shape[1:] or active.shape != d.shape[:1]:
+        raise ValueError("lmap_ema: want lmap0 (H, W), d (T, H, W), active (T,)")
+    if d.device != lmap0.device or active.device != d.device:
+        raise ValueError("lmap_ema: tensors lie on different devices")
+    if d.shape[0] == 0 or d[0].numel() == 0:
+        raise ValueError(f"lmap_ema: empty shape {tuple(d.shape)}")
+    active = active.bool()
+    if use_plain or not d.is_cuda:
+        return lmap_ema_plain(lmap0, d, active, alpha)
+    l0 = lmap0.to(torch.float32).contiguous()
+    d_c = d.to(torch.float32).contiguous()
+    act_c = active.to(torch.uint8).contiguous()
+    out = torch.empty_like(d_c)
+    so = scan_cuda.lib()
+    with torch.cuda.device(d.device):
+        err = so.og_lmap_ema(
+            l0.data_ptr(), d_c.data_ptr(), act_c.data_ptr(), out.data_ptr(),
+            d_c.shape[0], l0.numel(), float(np.float32(alpha)),
+            float(np.float32(1.0 - alpha)), scan_cuda.stream())
+    _build.check(err, "lmap_ema")
+    scan_cuda.launched("lmap_ema", (lmap0, d, active), alpha=alpha)
+    return out
 
 
 def _bbox_mask(h: int, w: int, valid, box, device=None):
@@ -142,7 +239,7 @@ def _prev_chain(init_last, frames):
 
 def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
                    active=None, params: YGVFTParams = YGVFTParams(),
-                   use_plain: bool = False):
+                   use_plain: bool = False, split_blobs: bool = False):
     """Frame-parallel YOLO-guided VFT.  Returns (masks (T, H, W) bool,
     areas (T,) f32).
 
@@ -158,6 +255,9 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
     The motion map (absdiff -> blur -> alpha-EMA) is dead state for the
     guided tracker — its ROI is always the bbox — so the per-frame maps are
     NOT computed here (the JAX package traces them and lets XLA remove them).
+
+    ``split_blobs`` sends the blob filter down its split route (see
+    ``ops/blobs.top_n_blobs_batch``): same outputs, other kernels.
     """
     p = params
     t, h, w = frames.shape
@@ -179,7 +279,8 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
         cur, n_px = masked_percentile_u8_batch(ffx, roix, p.glottal_percentile)
         thresh = _thresh_chain(thresh0, cur, n_px, active, p.beta, use_plain)
         raw = (ffx < thresh[:, None, None]) & roix & active[:, None, None]
-        masks_x = top_n_blobs_batch(raw, p.max_glottal_components, use_plain)
+        masks_x = top_n_blobs_batch(raw, p.max_glottal_components, use_plain,
+                                    _split=split_blobs)
         return masks_x, masks_x.sum((1, 2)).to(torch.float32)
 
     win = 128
@@ -197,3 +298,141 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
     cols = ox[:, None, None] + ar[None, None, :]
     masks_w, areas = tail(ff_w, roi_for(rows, cols))
     return scatter_windows(masks_w, oy, ox, h, w), areas
+
+
+def vft_parallel(init_frames, frames, active=None,
+                 params: VFTParams = VFTParams(), use_plain: bool = False,
+                 split_blobs: bool = False):
+    """Frame-parallel VFT — same outputs as :func:`vft_scan` up to the blur's
+    rounding.  ``active`` may only disable a PREFIX (the init frames the
+    caller overlays) and/or a contiguous tail: the motion-map and threshold
+    recurrences treat inactive steps as identity, matching the scan.
+    ``split_blobs`` sends both blob filters down their split route (see
+    ``ops/blobs.top_n_blobs_batch``): same outputs, other kernels.
+    Returns (masks (T, H, W) bool, areas (T,) f32)."""
+    p = params
+    t = frames.shape[0]
+    if active is None:
+        active = torch.ones((t,), dtype=torch.bool, device=frames.device)
+    prev0, lmap0, thresh0 = vft_initialize(init_frames, p, use_plain)
+
+    ff = frames.to(torch.float32)
+    # prev chain: the scan's carry keeps prev = last init frame until the
+    # first active step, then follows frames; an inactive prefix maps to the
+    # same chain as long as callers pass the frames the scan would see
+    d = gaussian_blur((ff - _prev_chain(prev0, ff)).abs(), p.gaussian_ksize)
+    lmaps = lmap_ema(lmap0, d, active, p.alpha, use_plain)
+
+    rthr = _roi_threshold(lmaps, p.roi_threshold_ratio)
+    roi = largest_blob_batch(lmaps > rthr[:, None, None], use_plain,
+                             _split=split_blobs)
+
+    cur, n_px = masked_percentile_u8_batch(ff, roi, p.glottal_percentile)
+    thresh = _thresh_chain(thresh0, cur, n_px, active, p.beta, use_plain)
+
+    raw = (ff < thresh[:, None, None]) & roi & active[:, None, None]
+    masks = top_n_blobs_batch(raw, p.max_glottal_components, use_plain,
+                              _split=split_blobs)
+    return masks, masks.sum((1, 2)).to(torch.float32)
+
+
+# ── sequential forms: one frame per step, explicit carry ────────────────────
+
+def _ema_steps(carry, frame, roi_fn, p, use_plain: bool):
+    """The part of a step both trackers share.  The two recurrences go
+    through the same kernels as the frame-parallel forms, one step per launch
+    (T = 1), so their rounding is the same; ``roi_fn(lmap)`` gives the ROI."""
+    prev, lmap, thresh = carry
+    ff = frame.to(torch.float32)
+    one = torch.ones((1,), dtype=torch.bool, device=ff.device)
+    d = gaussian_blur((ff - prev).abs(), p.gaussian_ksize)
+    lmap = lmap_ema(lmap, d[None], one, p.alpha, use_plain)[0]
+    roi = roi_fn(lmap)
+    # percentile(frame[roi]) if more than 10 px else the old threshold
+    cur, n_px = percentile_from_hist(masked_histogram_u8(ff, roi),
+                                     p.glottal_percentile)
+    thresh = _thresh_chain(thresh, cur[None], n_px[None], one, p.beta,
+                           use_plain)[0]
+    raw = (ff < thresh) & roi
+    mask = top_n_blobs(raw, p.max_glottal_components, use_plain)
+    return (ff, lmap, thresh), mask
+
+
+def vft_step(carry, frame, p: VFTParams, use_plain: bool = False):
+    """One VFT frame.  frame: (H, W) integer-valued.  Returns (carry, mask)."""
+    def roi_fn(lmap):
+        return largest_blob(
+            lmap > _roi_threshold(lmap, p.roi_threshold_ratio), use_plain)
+
+    return _ema_steps(carry, frame, roi_fn, p, use_plain)
+
+
+def ygvft_step(carry, frame, valid, box, p: YGVFTParams,
+               use_plain: bool = False):
+    """One YOLO-guided VFT frame; ``valid`` 0-d bool, ``box`` (4,) int."""
+    h, w = frame.shape
+
+    def roi_fn(lmap):
+        return _bbox_mask(h, w, valid, box, device=frame.device)
+
+    return _ema_steps(carry, frame, roi_fn, p, use_plain)
+
+
+def _scan(step, carry, t: int, active, device):
+    """Run ``step(carry, i)`` for i < t.  Inactive steps pass the carry
+    through untouched and emit an empty mask; ``active`` stays on the device
+    (no host read per frame)."""
+    if active is None:
+        active = torch.ones((t,), dtype=torch.bool, device=device)
+    masks = []
+    for i in range(t):
+        c2, m = step(carry, i)
+        a = active[i]
+        carry = tuple(torch.where(a, new, old) for new, old in zip(c2, carry))
+        masks.append(m & a)
+    masks = torch.stack(masks)
+    return carry, (masks, masks.sum((1, 2)).to(torch.float32))
+
+
+def vft_scan_carry(carry, frames, active=None,
+                   params: VFTParams = VFTParams(), use_plain: bool = False):
+    """Segment-resumable VFT scan: run a segment from an explicit carry
+    (prev, lmap, thresh) and return the updated carry.  Chained segment calls
+    are bit-identical to one :func:`vft_scan` over the concatenation (the
+    carry IS the full tracker state).
+    Returns (carry, (masks (T, H, W) bool, areas (T,) f32))."""
+    return _scan(lambda c, i: vft_step(c, frames[i], params, use_plain),
+                 tuple(carry), frames.shape[0], active, frames.device)
+
+
+def vft_scan(init_frames, frames, active=None,
+             params: VFTParams = VFTParams(), use_plain: bool = False):
+    """Full sequential VFT pass: initialize from init_frames, scan over
+    frames.  Returns (masks (T, H, W) bool, areas (T,) f32)."""
+    carry = vft_initialize(init_frames, params, use_plain)
+    return vft_scan_carry(carry, frames, active, params, use_plain)[1]
+
+
+def ygvft_scan_carry(carry, frames, valids, boxes, active=None,
+                     params: YGVFTParams = YGVFTParams(),
+                     use_plain: bool = False):
+    """Segment-resumable YOLO-guided VFT scan from an explicit carry (prev,
+    lmap, thresh); returns the updated carry.  (The motion map never reaches
+    the guided tracker's output, but it is part of the carry and is kept up
+    to date.)  Returns (carry, (masks (T, H, W) bool, areas (T,) f32))."""
+    valids = valids.bool()
+    return _scan(
+        lambda c, i: ygvft_step(c, frames[i], valids[i], boxes[i], params,
+                                use_plain),
+        tuple(carry), frames.shape[0], active, frames.device)
+
+
+def ygvft_scan(init_frames, first_valid, first_box, frames, valids, boxes,
+               active=None, params: YGVFTParams = YGVFTParams(),
+               use_plain: bool = False):
+    """Full sequential YOLO-guided VFT pass.  init_frames: (N, H, W);
+    frames: (T, H, W); valids: (T,) bool; boxes: (T, 4) int32 gated boxes.
+    Returns (masks, areas)."""
+    carry = ygvft_initialize(init_frames, first_valid, first_box, params)
+    return ygvft_scan_carry(carry, frames, valids, boxes, active, params,
+                            use_plain)[1]

@@ -1,9 +1,15 @@
-"""N-largest-blob filtering on stacks of independent masks.
+"""Connected components and N-largest-blob filtering, for one mask and for
+stacks of independent masks.
 
-Counterpart of the batch half of ``openglottal_tpu/ops/blobs.py``
-(``top_n_blobs_batch`` and its windowed form), following that function's
-accelerator branch: the connected-component work is done by the
-min-propagation kernels of ``ops/blobs_cuda.py``.
+Counterpart of ``openglottal_tpu/ops/blobs.py``.  The connected-component
+work is done by the min-propagation kernels of ``ops/blobs_cuda.py``: the
+batch functions (``top_n_blobs_batch`` and its windowed form) follow the
+reference's accelerator branch (label-propagation broadcasts, shifts and one
+sort); the single-frame functions (``connected_components``, ``fill_holes``,
+``top_n_blobs``, ``largest_blob``) use the reference's table form — gathers
+and scatters through (H*W + 1)-entry tables indexed by component id — which
+is the natural form on a GPU.  Counts are integers and every scatter is an
+integer one, so results are exact and repeatable.
 
 Semantics (cv2 ``findContours(RETR_EXTERNAL)`` + ``drawContours(FILLED)``,
 reproduced topologically): blobs nested inside another blob's hole are
@@ -21,13 +27,160 @@ import torch
 import torch.nn.functional as F
 
 from openglottal_tpu_torch.ops.blobs_cuda import (
+    cc,
+    cc_batch,
     dual_cc_batch,
     dual_min_prop_batch,
     min_prop_batch,
 )
 
 
-def _min_prop_batch(region, init, connectivity: int, use_plain: bool = False):
+def _propagate(mask, connectivity: int, use_plain: bool = False):
+    """CC labels of one (H, W) bool mask: component id = min flat index,
+    pixels outside = H*W (int32).  One launch of the single-frame kernel."""
+    return cc(mask.bool(), connectivity, use_plain=use_plain)
+
+
+def _propagate_batch(masks, connectivity: int, use_plain: bool = False):
+    """Per-frame CC labels of a (T, H, W) stack, one launch."""
+    return cc_batch(masks.bool(), connectivity, use_plain=use_plain)
+
+
+def connected_components(mask, connectivity: int = 8,
+                         use_plain: bool = False):
+    """Label the components of a boolean (H, W) mask.  Returns int32 labels:
+    component id = min flat index in the component; background = H*W."""
+    return _propagate(mask, connectivity, use_plain)
+
+
+def _border_ids(lab):
+    return torch.cat([lab[0, :], lab[-1, :], lab[:, 0], lab[:, -1]])
+
+
+def fill_holes(mask, use_plain: bool = False):
+    """Fill interior holes: background 4-components not touching the border."""
+    mask = mask.bool()
+    h, w = mask.shape
+    bg = ~mask
+    lab = _propagate(bg, 4, use_plain).long()
+    reach = torch.zeros(h * w + 1, dtype=torch.bool, device=mask.device
+                        ).index_fill_(0, _border_ids(lab), True)
+    is_outside = reach[lab] & bg
+    return mask | (bg & ~is_outside)
+
+
+def _component_tree(mask, use_plain: bool = False):
+    """Nesting analysis of foreground 8-components and background
+    4-components; see :func:`_component_tree_from_labels`."""
+    mask = mask.bool()
+    labF = _propagate(mask, 8, use_plain)
+    labB = _propagate(~mask, 4, use_plain)
+    return _component_tree_from_labels(mask, labF, labB)
+
+
+def _component_tree_from_labels(mask, labF, labB):
+    """Gather/scatter part of :func:`_component_tree`, given the label maps.
+
+    A component's id is the flat index of its topmost-leftmost pixel, and the
+    pixel directly ABOVE that root pixel always belongs to the component's
+    enclosing region (for a background comp: the enclosing foreground comp;
+    for a foreground comp: the background comp it is embedded in).  That
+    gives parent pointers without any contour tracing.
+
+    Returns (labF, labB, rootF, hole): the labels as int64, ``rootF`` (HW+1,)
+    the absorb-root per foreground comp id (nested comps resolve to their
+    top-level enclosing comp, to nesting depth 4), ``hole`` (HW+1,) bool per
+    background comp id — True iff a FILLED draw of its enclosing contour
+    would paint it."""
+    h, w = mask.shape
+    hw = h * w
+    dev = mask.device
+    labF, labB = labF.long(), labB.long()
+    flatF, flatB = labF.reshape(-1), labB.reshape(-1)
+
+    ids = torch.arange(hw + 1, device=dev)
+    up = torch.where(ids >= w, ids - w, hw)   # row-0 roots: no parent
+    tail = torch.full((1,), hw, dtype=torch.long, device=dev)
+    fg_parent = torch.cat([flatF, tail])[up]  # bg comp id -> enclosing fg comp
+    bg_parent = torch.cat([flatB, tail])[up]  # fg comp id -> surrounding bg
+
+    # bg comps touching the border are outside, never holes
+    outside = torch.zeros(hw + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.cat([_border_ids(labB), tail]), True)
+
+    # bg comp H is NOT a hole if some 8-adjacent fg comp X is neither H's
+    # enclosing comp nor nested inside H (bg_parent[X] != H)
+    fgp_pix = fg_parent[flatB].view(h, w)
+    bgpar_pix = bg_parent[flatF].view(h, w)
+    padF = F.pad(labF, (1, 1, 1, 1), value=hw)
+    padP = F.pad(bgpar_pix, (1, 1, 1, 1), value=hw)
+    bad_any = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            nbF = padF[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            nbP = padP[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            bad_any |= (nbF != hw) & (nbF != fgp_pix) & (nbP != labB)
+    viol = torch.zeros(hw + 1, dtype=torch.int32, device=dev).index_add_(
+        0, flatB, (bad_any & ~mask).reshape(-1).to(torch.int32)) > 0
+    hole = ~outside & ~viol & (fg_parent != hw)
+
+    rootF = ids
+    for _ in range(4):   # absorb-root chase (depth <= 4 in real masks)
+        b = bg_parent[rootF]
+        rootF = torch.where(hole[b], fg_parent[b], rootF)
+    return labF, labB, rootF, hole
+
+
+def _select_top_n(mask, labF, labB, n: int):
+    """Rank + paint given the label maps.  Components are ranked by integer
+    foreground pixel count, ties towards the smaller label — written out as
+    one int64 key, since ``torch.topk`` promises no order among equals."""
+    h, w = mask.shape
+    hw = h * w
+    dev = mask.device
+    labF, labB, rootF, hole = _component_tree_from_labels(mask, labF, labB)
+    flatF, flatB = labF.reshape(-1), labB.reshape(-1)
+    mflat = mask.reshape(-1)
+
+    pix_rootF = rootF[flatF]                   # fg pixels -> top-level comp
+    ids = torch.arange(hw + 1, device=dev)
+    counts = torch.zeros(hw + 1, dtype=torch.long, device=dev).index_add_(
+        0, pix_rootF, mflat.long())
+    counts = torch.where(ids == hw, 0, counts)   # the "no component" slot
+    top_idx = torch.topk(counts * (hw + 1) + (hw - ids), min(n, hw + 1)
+                         ).indices
+    keep = torch.zeros(hw + 1, dtype=torch.bool, device=dev)
+    keep[top_idx] = counts[top_idx] > 0
+
+    out_fg = keep[pix_rootF] & mflat
+    # bg pixel painted iff its comp is a hole whose top-level owner is kept
+    up = torch.where(ids >= w, ids - w, hw)
+    tail = torch.full((1,), hw, dtype=torch.long, device=dev)
+    owner = rootF[torch.cat([flatF, tail])[up]]   # bg comp id -> owner
+    out_bg = hole[flatB] & keep[owner[flatB]] & ~mflat
+    return (out_fg | out_bg).view(h, w)
+
+
+def top_n_blobs(mask, n: int, use_plain: bool = False):
+    """Keep the ``n`` largest blobs of ONE (H, W) mask with cv2
+    findContours(RETR_EXTERNAL) + drawContours(FILLED) semantics (see the
+    module docstring).  Two single-frame CC launches (mask 8-connected,
+    background 4-connected), then tables.  Returns a bool mask."""
+    mask = mask.bool()
+    labF = _propagate(mask, 8, use_plain)
+    labB = _propagate(~mask, 4, use_plain)
+    return _select_top_n(mask, labF, labB, n)
+
+
+def largest_blob(mask, use_plain: bool = False):
+    """Largest connected component of one (H, W) mask."""
+    return top_n_blobs(mask, 1, use_plain)
+
+
+def _min_prop_batch(region, init, connectivity: int, use_plain: bool = False,
+                    labels=None):
     """Component broadcast over a (T, H, W) bool region: every pixel of each
     component converges to the MIN of ``init`` (int32) over that component;
     pixels outside the region = H*W.
@@ -36,7 +189,7 @@ def _min_prop_batch(region, init, connectivity: int, use_plain: bool = False):
     else) broadcasts that value over the component — distinct components are
     never adjacent within their own region mask, so values cannot leak."""
     return min_prop_batch(region, init.to(torch.int32), connectivity,
-                          use_plain=use_plain)
+                          use_plain=use_plain, labels=labels)
 
 
 def _shift_down_frame(x, fill):
@@ -45,7 +198,8 @@ def _shift_down_frame(x, fill):
     return torch.cat([top, x[:, :-1, :]], dim=1)
 
 
-def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False):
+def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False,
+                      _split: bool = False):
     """Keep the ``n`` largest blobs of every frame of a (T, H, W) stack.
 
       1. labF/labB: ONE dual-region CC launch (mask 8-connected, background
@@ -54,6 +208,10 @@ def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False):
          the pixel directly above belongs to the enclosing region, so ONE
          dual-region broadcast of that value yields per-pixel enclosing
          component labels with no table lookups.
+         (``_split=True`` takes the reference's other route through steps 1
+         and 2 — two single-region CC launches and two single-region
+         broadcasts — with the same result; it exists to be measured against
+         the dual route.)
       3. FILLED-hole test: a background component is a hole unless it touches
          the border or 8-touches a foreground component that is neither its
          encloser nor nested inside it; the OR over the component is a
@@ -75,19 +233,27 @@ def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False):
     idx = torch.arange(hw, dtype=torch.int32, device=dev).view(1, h, w)
     bg = ~masks
 
-    code = 2 - masks.to(torch.uint8)            # 1: mask, 2: background
-    labFB = dual_cc_batch(code, use_plain=use_plain)
-    labF = torch.where(masks, labFB, hw)
-    labB = torch.where(bg, labFB, hw)
+    if _split:
+        labF = _propagate_batch(masks, 8, use_plain)
+        labB = _propagate_batch(bg, 4, use_plain)
+    else:
+        code = 2 - masks.to(torch.uint8)        # 1: mask, 2: background
+        labFB = dual_cc_batch(code, use_plain=use_plain)
+        labF = torch.where(masks, labFB, hw)
+        labB = torch.where(bg, labFB, hw)
 
     # enclosing fg comp per bg pixel / surrounding bg comp per fg pixel
     fgp_seed = torch.where(bg & (labB == idx), _shift_down_frame(labF, hw), hw)
     bgp_seed = torch.where(masks & (labF == idx), _shift_down_frame(labB, hw),
                            hw)
-    parent = dual_min_prop_batch(code, torch.where(masks, bgp_seed, fgp_seed),
-                                 use_plain=use_plain)
-    fgp = torch.where(bg, parent, hw)
-    bgp = torch.where(masks, parent, hw)
+    if _split:
+        fgp = _min_prop_batch(bg, fgp_seed, 4, use_plain, labels=labB)
+        bgp = _min_prop_batch(masks, bgp_seed, 8, use_plain, labels=labF)
+    else:
+        parent = dual_min_prop_batch(
+            code, torch.where(masks, bgp_seed, fgp_seed), use_plain=use_plain)
+        fgp = torch.where(bg, parent, hw)
+        bgp = torch.where(masks, parent, hw)
 
     # hole violation: an 8-adjacent fg comp that is neither my enclosing comp
     # nor nested inside my comp
@@ -107,7 +273,7 @@ def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False):
     border[:, :, 0] = True
     border[:, :, -1] = True
     seed_nh = (~(bg & (bad | border))).to(torch.int32)  # 0 = surely no hole
-    nh = _min_prop_batch(bg, seed_nh, 4, use_plain)
+    nh = _min_prop_batch(bg, seed_nh, 4, use_plain, labels=labB)
     hole_pix = bg & (nh == 1) & (fgp != hw)
 
     union = masks | hole_pix
@@ -211,6 +377,7 @@ def top_n_blobs_batch_roi(masks: torch.Tensor, boxes: torch.Tensor, n: int,
                            hh, ww)
 
 
-def largest_blob_batch(masks: torch.Tensor, use_plain: bool = False):
+def largest_blob_batch(masks: torch.Tensor, use_plain: bool = False,
+                       _split: bool = False):
     """Largest component per frame of a (T, H, W) stack."""
-    return top_n_blobs_batch(masks, 1, use_plain)
+    return top_n_blobs_batch(masks, 1, use_plain, _split)

@@ -6,6 +6,8 @@ Replaces ``openglottal_tpu/ops/blobs_pallas.py``:
   ``dual_cc_batch``        <- ``dual_cc_pallas_batch``
   ``dual_min_prop_batch``  <- ``dual_min_prop_pallas_batch``
   ``min_prop_batch``       <- ``min_prop_pallas_batch``
+  ``cc_batch``             <- ``connected_components_pallas_batch``
+  ``cc``                   <- ``connected_components_pallas``
 
 Shared semantics: min-propagation to the fixpoint over connected pixels of a
 ``(T, H, W)`` stack of independent frames; a component's id is its minimum
@@ -33,7 +35,8 @@ import torch
 
 from openglottal_tpu_torch.ops import _build
 
-LAUNCHES = {"dual_cc_batch": 0, "dual_min_prop_batch": 0, "min_prop_batch": 0}
+LAUNCHES = {"dual_cc_batch": 0, "dual_min_prop_batch": 0, "min_prop_batch": 0,
+            "cc_batch": 0, "cc": 0}
 
 # Measurement hook: set to a list and every kernel launch appends
 # (wrapper name, input tensors, keyword arguments), so that a script can time
@@ -65,15 +68,22 @@ def _lib() -> ctypes.CDLL:
         lib.og_dual_cc.argtypes = [p, p, i, i, i, p]
         lib.og_dual_min_prop.argtypes = [p, p, p, p, i, i, i, p]
         lib.og_min_prop.argtypes = [p, p, p, p, i, i, i, i, p]
-        for fn in (lib.og_dual_cc, lib.og_dual_min_prop, lib.og_min_prop):
+        lib.og_cc_batch.argtypes = [p, p, i, i, i, i, p]
+        lib.og_cc.argtypes = [p, p, i, i, i, p]
+        for fn in (lib.og_dual_cc, lib.og_dual_min_prop, lib.og_min_prop,
+                   lib.og_cc_batch, lib.og_cc):
             fn.restype = ctypes.c_int
         _configured = True
     return lib
 
 
-def _check(name: str, x: torch.Tensor, dtypes, like: torch.Tensor | None = None):
-    if x.dim() != 3:
-        raise ValueError(f"{name}: expected (T, H, W), got {tuple(x.shape)}")
+def _check(name: str, x: torch.Tensor, dtypes, like: torch.Tensor | None = None,
+           dims: int = 3):
+    if x.dim() != dims:
+        want = "(T, H, W)" if dims == 3 else "(H, W)"
+        raise ValueError(f"{name}: expected {want}, got {tuple(x.shape)}")
+    if dims == 2:
+        x = x[None]
     if x.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
     if x.shape[0] == 0 or x.shape[1] * x.shape[2] == 0:
@@ -219,16 +229,19 @@ def dual_min_prop_batch(code: torch.Tensor, init: torch.Tensor,
 
 
 def min_prop_batch(region: torch.Tensor, init: torch.Tensor,
-                   connectivity: int = 8, use_plain: bool = False):
+                   connectivity: int = 8, use_plain: bool = False,
+                   labels: torch.Tensor | None = None):
     """Component broadcast over one bool region, 4- or 8-connected: every
     pixel of each component gets the min of ``init`` (int32, values <= H*W)
-    over it; pixels outside = H*W.  Replaces ``min_prop_pallas_batch``."""
+    over it; pixels outside = H*W.  Replaces ``min_prop_pallas_batch``.
+    ``labels`` (the region's CC labels, where the caller has them) only saves
+    the plain version its own labelling pass; the kernel does not use them."""
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     region = _check("min_prop_batch", region, _REGION_DTYPES)
     init = _check("min_prop_batch init", init, _INIT_DTYPES, region)
     if use_plain or not region.is_cuda:
-        return min_prop_plain(region, init, connectivity)
+        return min_prop_plain(region, init, connectivity, labels)
     lib = _lib()
     t, h, w = region.shape
     out = torch.empty((t, h, w), dtype=torch.int32, device=region.device)
@@ -239,4 +252,46 @@ def min_prop_batch(region: torch.Tensor, init: torch.Tensor,
                               connectivity, _stream())
     _build.check(err, "min_prop_batch")
     _launched("min_prop_batch", (region, init), connectivity=connectivity)
+    return out
+
+
+def cc_batch(masks: torch.Tensor, connectivity: int = 8,
+             use_plain: bool = False) -> torch.Tensor:
+    """Per-frame connected-component labels of a (T, H, W) bool stack, 4- or
+    8-connected: (T, H, W) int32, component id = min frame-local flat index,
+    pixels outside = H*W.  Replaces ``connected_components_pallas_batch``."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    masks = _check("cc_batch", masks, _REGION_DTYPES)
+    if use_plain or not masks.is_cuda:
+        return cc_plain(masks, connectivity)
+    lib = _lib()
+    t, h, w = masks.shape
+    out = torch.empty((t, h, w), dtype=torch.int32, device=masks.device)
+    with torch.cuda.device(masks.device):
+        err = lib.og_cc_batch(masks.data_ptr(), out.data_ptr(), t, h, w,
+                              connectivity, _stream())
+    _build.check(err, "cc_batch")
+    _launched("cc_batch", (masks,), connectivity=connectivity)
+    return out
+
+
+def cc(mask: torch.Tensor, connectivity: int = 8,
+       use_plain: bool = False) -> torch.Tensor:
+    """Connected-component labels of ONE (H, W) bool frame: (H, W) int32.
+    One launch of one thread block.  Replaces
+    ``connected_components_pallas``."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    mask = _check("cc", mask, _REGION_DTYPES, dims=2)[0]
+    if use_plain or not mask.is_cuda:
+        return cc_plain(mask[None], connectivity)[0]
+    lib = _lib()
+    h, w = mask.shape
+    out = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        err = lib.og_cc(mask.data_ptr(), out.data_ptr(), h, w, connectivity,
+                        _stream())
+    _build.check(err, "cc")
+    _launched("cc", (mask,), connectivity=connectivity)
     return out

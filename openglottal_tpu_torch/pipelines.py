@@ -5,12 +5,16 @@ Counterpart of ``openglottal_tpu/pipelines.py``.  Ported so far, for
 monochrome 256x256 video ((T, H, W) uint8, or (T, H, W, 3) with equal
 channels):
 
+  1  ``vft``        — YOLOv8n -> temporal gate -> size-locked crops of the
+                      gated boxes -> motion tracker
   2  ``guided-vft`` — YOLOv8n -> temporal gate -> YOLO-guided tracker
   3  ``unet``       — YOLOv8n + gate + full-frame U-Net, in-box pixel counts
 
-Everything else (colour input, other frame sizes, the ``vft`` / ``crop-unet``
-/ ``unet-only`` pipelines, meshes, int8, the windowed decoder) raises
-``NotImplementedError`` until a later slice ports it.
+Both trackers run frame-parallel by default and as a sequential per-frame
+loop with ``parallel_trackers=False`` (the debug form).  Everything else
+(colour input, other frame sizes, the ``crop-unet`` / ``unet-only``
+pipelines, meshes, int8, the windowed decoder) raises ``NotImplementedError``
+until a later slice ports it.
 
 Model passes run over ``CHUNK``-frame slices in a Python loop (the last one
 ragged; nothing is padded — PyTorch runs eagerly, so there are no static
@@ -23,6 +27,7 @@ CUDA device is available; the CPU is used only when asked for by name.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -37,15 +42,24 @@ from openglottal_tpu_torch.models.fold import (
     is_folded,
 )
 from openglottal_tpu_torch.models.gate import GateParams, gate_scan
-from openglottal_tpu_torch.models.tracker import YGVFTParams, ygvft_parallel
+from openglottal_tpu_torch.models.tracker import (
+    VFTParams,
+    YGVFTParams,
+    vft_parallel,
+    vft_scan,
+    ygvft_parallel,
+    ygvft_scan,
+)
 from openglottal_tpu_torch.models.unet import UNet
 from openglottal_tpu_torch.models.yolo import YOLOv8, max_conf_detect
+from openglottal_tpu_torch.ops.resize import crop_resize_bilinear
 from openglottal_tpu_torch.utils.convert import (
     unet_state_dict_from_jax,
     yolo_state_dict_from_jax,
 )
 from openglottal_tpu_torch.utils.io import load_weights_npz
 
+VFT_INIT = 2     # init crops of the motion tracker
 YGVFT_INIT = 2   # init frames of the guided tracker
 CHUNK = 128      # frame-chunk size for batched model passes
 PIPELINES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
@@ -105,6 +119,17 @@ def _box_area_sums(masks, valids, boxes):
     return torch.where(valids, areas, torch.zeros_like(areas))
 
 
+def _gather_crops(gray_u8, boxes, out_h: int, out_w: int):
+    """Batched crop + INTER_LINEAR resize of each frame's box to the locked
+    crop size, rounded (half to even) to uint8 values like a resize of uint8
+    crops.  gray (N, H, W), boxes (N, 4) int -> (N, out_h, out_w) float32."""
+    b = boxes.to(torch.float32)
+    c = crop_resize_bilinear(gray_u8.to(torch.float32), b[:, 1], b[:, 0],
+                             b[:, 3] - b[:, 1], b[:, 2] - b[:, 0],
+                             out_h, out_w)
+    return torch.round(c).clamp(0, 255)
+
+
 def _as_tree(weights):
     """A weight tree given as such or as the path of an ``.npz`` file."""
     if weights is None or isinstance(weights, dict):
@@ -121,18 +146,26 @@ class GlottalPipelines:
     ``torch.float32``; in float32 every model pass runs under
     :func:`full_float32`, so that f32 on the card is f32 and not TF32.
     ``fold_bn``: fold BatchNorm into the convs (inference default).
+    ``parallel_trackers=False`` runs both trackers as sequential per-frame
+    loops (same outputs up to the blur's rounding; the debug form).
     ``use_plain_kernels`` is a test hook: it routes every hand-written kernel
-    to its plain version on any device.
+    to its plain version on any device.  ``split_blob_route`` is a
+    measurement option: the frame-parallel trackers' blob filters take two
+    single-region connected-component launches and two single-region
+    broadcasts instead of one dual-region launch each (same outputs).
     """
 
     def __init__(self, unet_variables=None, crop_unet_variables=None,
                  yolo_variables=None, conf: float = 0.25,
                  gate_params: GateParams = GateParams(),
+                 vft_params: VFTParams = VFTParams(),
                  ygvft_params: YGVFTParams = YGVFTParams(),
-                 dtype=torch.bfloat16, mesh=None, fold_bn: bool = True,
+                 dtype=torch.bfloat16, mesh=None,
+                 parallel_trackers: bool = True, fold_bn: bool = True,
                  quant: str | None = None,
                  window_decoder: bool | None = None, device=None,
-                 use_plain_kernels: bool = False):
+                 use_plain_kernels: bool = False,
+                 split_blob_route: bool = False):
         if crop_unet_variables is not None:
             raise NotImplementedError(
                 "crop-unet weights: the crop pipeline is ported in a later "
@@ -150,8 +183,11 @@ class GlottalPipelines:
         self.dtype = dtype
         self.conf = conf
         self.gate_params = gate_params
+        self.vft_params = vft_params
         self.ygvft_params = ygvft_params
+        self.parallel_trackers = parallel_trackers
         self.use_plain_kernels = use_plain_kernels
+        self.split_blob_route = split_blob_route
 
         sds = {}
         if unet_variables is not None:
@@ -248,30 +284,114 @@ class GlottalPipelines:
         return gate_scan(has, raw, h, w, self.gate_params,
                          use_plain=self.use_plain_kernels)
 
-    # ── pipeline 2: guided VFT ──────────────────────────────────────────
+    def _tracker(self, parallel_fn, scan_fn):
+        """The tracker form this instance runs."""
+        if not self.parallel_trackers:
+            return scan_fn
+        return functools.partial(parallel_fn,
+                                 split_blobs=self.split_blob_route)
+
+    # ── pipeline 1: VFT ─────────────────────────────────────────────────
+
+    def _vft_compute(self, gray, valid, boxes, t, want_masks: bool = False):
+        """Shared VFT core: gather size-locked crops of the valid-box frames
+        and run ONE tracker pass over them (frame-parallel, or the sequential
+        scan with ``parallel_trackers=False``).  The crop size is locked from
+        the first gated box — a shape, so the gate outputs are read back to
+        the host here (one device-to-host copy).  The tracker consumes only
+        the valid-box frames, in order; the first VFT_INIT of them seed it.
+
+        Returns (areas (t,) np.float32, crop_masks (n_valid, h0, w0) | None,
+        idx valid-frame indices, (h0, w0))."""
+        vb = torch.cat([valid[:, None].to(torch.int32),
+                        boxes.to(torch.int32)], 1).cpu().numpy()
+        idx = np.nonzero(vb[:, 0])[0]
+        areas = np.zeros(t, np.float32)
+        if len(idx) < VFT_INIT + 1:
+            return areas, None, idx, (0, 0)
+        b0 = vb[idx[0], 1:]
+        w0, h0 = int(b0[2] - b0[0]), int(b0[3] - b0[1])
+        if w0 <= 0 or h0 <= 0:
+            return areas, None, idx, (0, 0)
+        n = len(idx)
+        # the valid frames' indices, in order, made on the device
+        sel = torch.argsort((~valid).to(torch.uint8), stable=True)[:n]
+        crops = _gather_crops(gray[sel], boxes[sel], h0, w0)
+        active = torch.arange(n, device=gray.device) >= VFT_INIT
+        cmasks, areas_v = self._tracker(vft_parallel, vft_scan)(
+            crops[:VFT_INIT], crops, active, params=self.vft_params,
+            use_plain=self.use_plain_kernels)
+        areas[idx] = areas_v.cpu().numpy()
+        areas[idx[:VFT_INIT]] = 0.0       # init frames contribute 0
+        return (areas, cmasks.cpu().numpy() if want_masks else None, idx,
+                (h0, w0))
 
     @torch.no_grad()
-    def guided_vft_areas_gray(self, gray_u8):
-        """Guided-VFT waveform for monochrome video: detect + gate +
-        frame-parallel tracker.  Returns areas (T,) float32 on the host, or
-        None for fewer than YGVFT_INIT + 2 frames.  The first YGVFT_INIT
-        frames seed the tracker and emit zero."""
+    def vft_areas_gray(self, gray_u8):
+        """VFT waveform for monochrome video: detect + gate, then size-locked
+        crops and one tracker pass.  Returns areas (t,) float32 on the host,
+        or None for fewer than VFT_INIT + 5 frames.  All-zero when fewer than
+        VFT_INIT + 1 frames have a gated box or the first box is empty."""
         self._require("yolo")
-        gray = self._to_gray(gray_u8)
-        t = int(gray.shape[0])
-        if t < YGVFT_INIT + 2:
+        t = len(gray_u8)
+        if t < VFT_INIT + 5:
             return None
+        gray = self._to_gray(gray_u8)
         valid, boxes = self._detect_gate(gray)
+        return self._vft_compute(gray, valid, boxes, t)[0]
+
+    def vft_areas(self, frames_u8):
+        """:meth:`vft_areas_gray` for (T, H, W, 3) frames with equal
+        channels (colour input is ported in a later slice)."""
+        return self.vft_areas_gray(frames_u8)
+
+    # ── pipeline 2: guided VFT ──────────────────────────────────────────
+
+    def _ygvft_compute(self, gray, valid, boxes, t, want_masks: bool = False):
+        """Shared guided-VFT core: ONE tracker pass (frame-parallel, or the
+        sequential scan with ``parallel_trackers=False``) -> (areas (t,)
+        np.float32, masks (t, h, w) bool tensor | None).  The first
+        YGVFT_INIT frames seed the tracker and emit zero / empty outputs."""
+        h, w = gray.shape[1:]
         vin = valid[:YGVFT_INIT]
         # first valid init frame, picked on the device (no host read)
         fi = torch.argmax(vin.to(torch.uint8)).reshape(1)
-        _, areas_v = ygvft_parallel(
+        masks_v, areas_v = self._tracker(ygvft_parallel, ygvft_scan)(
             gray[:YGVFT_INIT], vin.any(), boxes.index_select(0, fi)[0],
             gray[YGVFT_INIT:], valid[YGVFT_INIT:], boxes[YGVFT_INIT:],
             params=self.ygvft_params, use_plain=self.use_plain_kernels)
         areas = np.zeros(t, np.float32)
         areas[YGVFT_INIT:] = areas_v.cpu().numpy()
-        return areas
+        masks = None
+        if want_masks:
+            masks = torch.cat([torch.zeros((YGVFT_INIT, h, w),
+                                           dtype=torch.bool,
+                                           device=masks_v.device), masks_v])
+        return areas, masks
+
+    @torch.no_grad()
+    def guided_vft_areas_gray(self, gray_u8):
+        """Guided-VFT waveform for monochrome video: detect + gate + one
+        tracker pass.  Returns areas (T,) float32 on the host, or None for
+        fewer than YGVFT_INIT + 2 frames.  The first YGVFT_INIT frames seed
+        the tracker and emit zero."""
+        self._require("yolo")
+        t = len(gray_u8)
+        if t < YGVFT_INIT + 2:
+            return None
+        gray = self._to_gray(gray_u8)
+        valid, boxes = self._detect_gate(gray)
+        return self._ygvft_compute(gray, valid, boxes, t)[0]
+
+    @torch.no_grad()
+    def ygvft_eval_masks(self, gray, valid, boxes):
+        """Guided-tracker masks of the non-init frames, (t - YGVFT_INIT, h,
+        w) bool, given the gate's outputs (the init frames are excluded from
+        evaluation metrics)."""
+        t = gray.shape[0]
+        _, masks = self._ygvft_compute(gray, valid, boxes, t,
+                                       want_masks=True)
+        return masks[YGVFT_INIT:]
 
     # ── pipeline 3: YOLO + U-Net ────────────────────────────────────────
 
@@ -310,10 +430,12 @@ class GlottalPipelines:
             return None
         if pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {pipeline!r}")
-        if pipeline not in ("guided-vft", "unet"):
+        if pipeline in ("unet-only", "crop-unet"):
             raise NotImplementedError(
                 f"pipeline {pipeline!r} is ported in a later slice")
-        if pipeline == "guided-vft":
+        if pipeline == "vft":
+            areas = self.vft_areas(frames_u8)
+        elif pipeline == "guided-vft":
             areas = self.guided_vft_areas_gray(frames_u8)
         else:
             areas = self.yolo_unet_areas_gray(frames_u8).cpu().numpy()

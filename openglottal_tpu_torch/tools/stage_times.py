@@ -1,10 +1,11 @@
 """Where a served video's time goes, on one CUDA device.
 
     python3 -m openglottal_tpu_torch.tools.stage_times [--frames 502] [--out DIR]
-        [--pipelines guided-vft,unet] [--dtypes bf16,f32]
+        [--pipelines guided-vft,unet,vft] [--dtypes bf16,f32]
 
-Serves synthetic 256x256 videos through ``guided-vft`` and ``unet`` (demo
-weights, bfloat16 and float32) and prints one JSON line per pipeline/dtype:
+Serves synthetic 256x256 videos through ``guided-vft``, ``unet`` and ``vft``
+(demo weights, bfloat16 and float32) and prints one JSON line per
+pipeline/dtype:
 
   * ``wall_ms``: host clock around ``extract_features`` (ends in a host read);
   * ``stages_ms``: device time of each stage by CUDA events, measured on a
@@ -33,7 +34,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=502)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--pipelines", default="guided-vft,unet")
+    ap.add_argument("--pipelines", default="guided-vft,unet,vft")
     ap.add_argument("--dtypes", default="bf16,f32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -45,6 +46,7 @@ def main() -> int:
     from openglottal_tpu_torch.models import tracker
     from openglottal_tpu_torch.models.gate import gate_scan
     from openglottal_tpu_torch.ops import _build, blobs, histogram
+    from openglottal_tpu_torch.ops.blur import gaussian_blur
 
     _build.build_all()
     videos = [np.ascontiguousarray(
@@ -117,6 +119,69 @@ def main() -> int:
               masks.sum((1, 2)).to(torch.float32).cpu())
         return st
 
+    def blob_filter(st, name, masks, n):
+        """One top_n_blobs_batch call, its kernels and the tensor ops around
+        them apart."""
+        from openglottal_tpu_torch.ops import blobs_cuda
+        rec = []
+        blobs_cuda.RECORD = rec
+        out = timed(st, f"{name}_total", lambda:
+                    blobs.top_n_blobs_batch(masks, n))
+        blobs_cuda.RECORD = None
+        for kname, inputs, kw in rec:
+            fn = getattr(blobs_cuda, kname)
+            timed(st, f"{name}_kernels", lambda: fn(*inputs, **kw))
+        return out
+
+    def vft_stages(gp, video):
+        st = {}
+        gray = timed(st, "upload", lambda: gp._to_gray(video))
+        with torch.no_grad(), P.full_float32(gp.dtype):
+            dets = [timed(st, "detector", lambda g=gray[i:i + P.CHUNK]:
+                          gp._yolo_chunk(g))
+                    for i in range(0, gray.shape[0], P.CHUNK)]
+        has, raw, _ = (torch.cat(c) for c in zip(*dets))
+        valid, boxes = timed(st, "gate_scan", lambda: gate_scan(
+            has, raw, 256, 256, gp.gate_params))
+        vb = timed(st, "gate_read", lambda: torch.cat(
+            [valid[:, None].to(torch.int32), boxes], 1).cpu().numpy())
+        idx = np.nonzero(vb[:, 0])[0]
+        b0 = vb[idx[0], 1:]
+        w0, h0 = int(b0[2] - b0[0]), int(b0[3] - b0[1])
+        p = gp.vft_params
+        n0 = P.VFT_INIT
+
+        def crops_fn():
+            sel = torch.argsort((~valid).to(torch.uint8), stable=True
+                                )[:len(idx)]
+            return P._gather_crops(gray[sel], boxes[sel], h0, w0)
+        crops = timed(st, "crops", crops_fn)
+        act = torch.arange(len(idx), device=crops.device) >= n0
+        prev0, lmap0, th0 = timed(st, "tracker_init", lambda:
+                                  tracker.vft_initialize(crops[:n0], p))
+        d = timed(st, "absdiff_blur", lambda: gaussian_blur(
+            (crops - tracker._prev_chain(prev0, crops)).abs(),
+            p.gaussian_ksize))
+        lmaps = timed(st, "lmap_ema", lambda: tracker.lmap_ema(
+            lmap0, d, act, p.alpha))
+        roi_raw = timed(st, "roi_threshold", lambda: lmaps > (
+            tracker._roi_threshold(lmaps, p.roi_threshold_ratio)
+            [:, None, None]))
+        roi = blob_filter(st, "roi_filter", roi_raw, 1)
+        cur, n_px = timed(st, "percentile", lambda:
+                          histogram.masked_percentile_u8_batch(
+                              crops, roi, p.glottal_percentile))
+        th = timed(st, "thresh_chain", lambda: tracker._thresh_chain(
+            th0, cur, n_px, act, p.beta))
+        raw_m = timed(st, "threshold_compare", lambda:
+                      (crops < th[:, None, None]) & roi & act[:, None, None])
+        masks = blob_filter(st, "blob_filter", raw_m,
+                            p.max_glottal_components)
+        timed(st, "area_sum_and_read", lambda:
+              masks.sum((1, 2)).to(torch.float32).cpu())
+        st["crop_h_w"] = [h0, w0]
+        return st
+
     def unet_stages(gp, video):
         st = {}
         gray = timed(st, "upload", lambda: gp._to_gray(video))
@@ -142,7 +207,8 @@ def main() -> int:
             continue
         gp = P.GlottalPipelines(dtype=dtype, **weights)
         for pipeline, stage_fn in (("guided-vft", guided_stages),
-                                   ("unet", unet_stages)):
+                                   ("unet", unet_stages),
+                                   ("vft", vft_stages)):
             if pipeline not in args.pipelines.split(","):
                 continue
             gp.extract_features(videos[0], pipeline)          # warm-up

@@ -43,7 +43,19 @@ def _masks(hw):
 
 
 def _jax_cc(masks, conn):
-    return np.asarray(jblobs._propagate_batch(jnp.asarray(masks), 4096, conn))
+    key = ("cc", masks.shape, conn, masks.tobytes())
+    if key not in _CACHE:
+        _CACHE[key] = np.asarray(
+            jblobs._propagate_batch(jnp.asarray(masks), 4096, conn))
+    return _CACHE[key]
+
+
+def _jax_top_n_batch(masks, n):
+    key = ("topn", masks.shape, n, masks.tobytes())
+    if key not in _CACHE:
+        _CACHE[key] = np.asarray(
+            jblobs.top_n_blobs_batch(jnp.asarray(masks), n))
+    return _CACHE[key]
 
 
 @pytest.mark.parametrize("conn", [4, 8])
@@ -110,13 +122,60 @@ def test_dual_min_prop_equals_two_singles_and_jax(hw):
 def test_top_n_blobs_batch_matches_jax(hw, n):
     masks = _masks(hw)
     got = tblobs.top_n_blobs_batch(torch.from_numpy(masks), n).numpy()
-    want = np.asarray(jblobs.top_n_blobs_batch(jnp.asarray(masks), n))
+    np.testing.assert_array_equal(got, _jax_top_n_batch(masks, n))
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("hw", SHAPES)
+def test_top_n_blobs_batch_split_route_matches_jax(hw, n):
+    """The route through two single-region CC passes and two single-region
+    broadcasts gives the dual route's (and the reference's) masks exactly."""
+    masks = _masks(hw)
+    got = tblobs.top_n_blobs_batch(torch.from_numpy(masks), n,
+                                   _split=True).numpy()
+    np.testing.assert_array_equal(got, _jax_top_n_batch(masks, n))
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("hw", SHAPES)
+def test_cc_batch_and_propagate_batch_match_jax(hw, conn):
+    """Spirals, serpentines, noise, an empty and a full frame: exact."""
+    masks = _masks(hw)
+    want = _jax_cc(masks, conn)
+    got = blobs_cuda.cc_batch(torch.from_numpy(masks), conn).numpy()
+    np.testing.assert_array_equal(got, want)
+    got = tblobs._propagate_batch(torch.from_numpy(masks), conn).numpy()
     np.testing.assert_array_equal(got, want)
 
 
-def test_top_n_blobs_nested_holes_match_jax():
+@pytest.mark.parametrize("conn", [4, 8])
+def test_connected_components_single_frame_matches_jax(conn):
+    """Every stress frame on its own through the single-frame wrapper and
+    through the reference's single-frame function: exact, and equal to the
+    frame's labels in the batch."""
+    masks = _masks(SHAPES[1])
+    batch = _jax_cc(masks, conn)
+    for i, m in enumerate(masks):
+        got = tblobs.connected_components(torch.from_numpy(m), conn).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, batch[i], err_msg=f"frame {i}")
+        if i in (0, 6, 7, 12, 13):   # noise, spiral, serpentine, empty, full
+            want = np.asarray(jblobs.connected_components(
+                jnp.asarray(m), 4096, conn))
+            np.testing.assert_array_equal(got, want, err_msg=f"frame {i}")
+
+
+def test_fill_holes_matches_jax():
+    masks = _masks(SHAPES[1])
+    for i, m in enumerate(masks):
+        got = tblobs.fill_holes(torch.from_numpy(m)).numpy()
+        want = np.asarray(jblobs.fill_holes(jnp.asarray(m)))
+        np.testing.assert_array_equal(got, want, err_msg=f"frame {i}")
+
+
+def _nested_frames():
     """Rings inside rings, a pocket enclosed by two blobs, equal-size ties."""
-    m = np.zeros((3, 64, 128), bool)
+    m = np.zeros((4, 64, 128), bool)
     m[0, 4:60, 4:60] = True
     m[0, 10:54, 10:54] = False
     m[0, 16:48, 16:48] = True
@@ -130,6 +189,43 @@ def test_top_n_blobs_nested_holes_match_jax():
     m[2, 10:40, 30:40] = True
     m[2, 10:12, 20:30] = True
     m[2, 38:40, 21:30] = True
+    m[3, 30:40, 90:100] = True          # three equal blobs, the lowest label
+    m[3, 8:18, 40:50] = True            # is not the first in scan order of
+    m[3, 8:18, 100:110] = True          # columns; n = 2 keeps the top two
+    return m
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_top_n_blobs_single_frame_matches_jax(n):
+    """Single-frame table form vs the reference's, incl. nesting and
+    equal-size ties (the smaller label wins), and vs the batch form."""
+    frames = list(_nested_frames()) + list(_masks((64, 128))[[0, 3, 6, 12]])
+    frames = np.stack(frames)
+    batch = tblobs.top_n_blobs_batch(torch.from_numpy(frames), n).numpy()
+    for i, m in enumerate(frames):
+        got = tblobs.top_n_blobs(torch.from_numpy(m), n).numpy()
+        want = np.asarray(jblobs.top_n_blobs(jnp.asarray(m), n))
+        np.testing.assert_array_equal(got, want, err_msg=f"frame {i}")
+        np.testing.assert_array_equal(got, batch[i], err_msg=f"frame {i}")
+    if n == 1:
+        got = tblobs.largest_blob(torch.from_numpy(frames[1])).numpy()
+        assert got.sum() == 400 and got[5:25, 5:25].all()
+        np.testing.assert_array_equal(
+            got, np.asarray(jblobs.largest_blob(jnp.asarray(frames[1]))))
+
+
+def test_top_n_blobs_ragged_shape_matches_jax():
+    """A shape that is no tile multiple (the reference pads it, the port
+    does not): same masks."""
+    for m in _masks(SHAPES[1])[[1, 4, 8]]:
+        got = tblobs.top_n_blobs(torch.from_numpy(m), 2).numpy()
+        want = np.asarray(jblobs.top_n_blobs(jnp.asarray(m), 2))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_top_n_blobs_nested_holes_match_jax():
+    """Rings inside rings, a pocket enclosed by two blobs, equal-size ties."""
+    m = _nested_frames()
     for n in (1, 2):
         got = tblobs.top_n_blobs_batch(torch.from_numpy(m), n).numpy()
         want = np.asarray(jblobs.top_n_blobs_batch(jnp.asarray(m), n))
@@ -184,6 +280,10 @@ def test_huge_blob_not_dropped():
     ("dual_cc_batch", ("code32",)),
     ("dual_min_prop_batch", ("code", "init64")),
     ("min_prop_batch", ("region2d", "init")),
+    ("cc_batch", ("region2d",)),
+    ("cc_batch", ("code32",)),
+    ("cc", ("code",)),
+    ("cc", ("init",)),
 ])
 def test_wrappers_reject_bad_inputs(fn, args):
     t = {"code": torch.ones((2, 8, 8), dtype=torch.uint8),
@@ -198,6 +298,19 @@ def test_wrappers_reject_bad_inputs(fn, args):
 def test_cpu_tensors_do_not_count_as_launches():
     blobs_cuda.reset_launch_counts()
     blobs_cuda.dual_cc_batch(torch.ones((1, 8, 8), dtype=torch.uint8))
+    blobs_cuda.cc_batch(torch.ones((1, 8, 8), dtype=torch.bool))
+    blobs_cuda.cc(torch.ones((8, 8), dtype=torch.bool))
     assert blobs_cuda.LAUNCHES == {"dual_cc_batch": 0,
                                    "dual_min_prop_batch": 0,
-                                   "min_prop_batch": 0}
+                                   "min_prop_batch": 0,
+                                   "cc_batch": 0, "cc": 0}
+
+
+@pytest.mark.parametrize("fn", ["cc_batch", "cc", "min_prop_batch"])
+def test_bad_connectivity_is_value_error(fn):
+    x = torch.ones((2, 8, 8), dtype=torch.bool)
+    args = {"cc_batch": (x, 6), "cc": (x[0], 6),
+            "min_prop_batch": (x, torch.zeros((2, 8, 8), dtype=torch.int32),
+                               6)}[fn]
+    with pytest.raises(ValueError):
+        getattr(blobs_cuda, fn)(*args)

@@ -1,11 +1,13 @@
-"""The slice as a whole, port vs JAX package on the CPU, at full width with
-the demo weights: ``guided-vft`` on 12 frames and ``unet`` on 4 frames of a
-synthetic video, float32; plus the entry point's edge contracts, the device
-rule and the import hygiene of the port.
+"""The slices as a whole, port vs JAX package on the CPU, at full width with
+the demo weights: ``guided-vft`` and ``vft`` on 12 frames and ``unet`` on 4
+frames of a synthetic video, float32; plus the entry point's edge contracts,
+the sequential tracker forms, the device rule and the import hygiene of the
+port.
 
 The JAX side runs the modular functions on exactly these frames
-(``_yolo_chunk_gray`` -> ``gate_scan`` -> ``ygvft_parallel``), not the fused
-whole-video entry, which pads every video to 128 frames.
+(``_yolo_chunk_gray`` -> ``gate_scan`` -> ``ygvft_parallel``, or ->
+``_gather_crops`` -> ``vft_parallel``), not the fused whole-video entries,
+which pad every video to 128 frames.
 """
 
 import subprocess
@@ -20,12 +22,15 @@ from openglottal_tpu import pipelines as jpipe
 from openglottal_tpu.data.synthetic import synthetic_video as jax_synthetic_video
 from openglottal_tpu.models import fold as jfold
 from openglottal_tpu.models.gate import gate_scan as jgate_scan
+from openglottal_tpu.models.tracker import VFTParams as JVFTParams
 from openglottal_tpu.models.tracker import YGVFTParams as JYGVFTParams
+from openglottal_tpu.models.tracker import vft_parallel as jvft_parallel
 from openglottal_tpu.models.tracker import ygvft_parallel as jygvft_parallel
 from openglottal_tpu.models.unet import UNet as JUNet
 from openglottal_tpu_torch.data.synthetic import synthetic_video
 from openglottal_tpu_torch.models.tracker import ygvft_parallel
 from openglottal_tpu_torch.pipelines import (
+    VFT_INIT,
     YGVFT_INIT,
     GlottalPipelines,
     _box_area_sums,
@@ -147,6 +152,127 @@ def test_guided_vft_areas_end_to_end_exact():
     np.testing.assert_array_equal(feats["_area"], areas)
 
 
+def _jax_vft_areas(valid, boxes):
+    """The reference's modular vft path on the 12 frames, given the gate's
+    outputs: size-locked crops of the valid frames, one frame-parallel
+    tracker pass, init crops zeroed.  Returns (areas (12,), (h0, w0))."""
+    gray = _video()[..., 0]
+    idx = np.nonzero(valid)[0]
+    b0 = boxes[idx[0]]
+    w0, h0 = int(b0[2] - b0[0]), int(b0[3] - b0[1])
+    crops = jpipe._gather_crops(jnp.asarray(gray[idx]),
+                                jnp.asarray(boxes[idx]), h0, w0)
+    _, areas_v = jvft_parallel(crops[:VFT_INIT], crops,
+                               jnp.arange(len(idx)) >= VFT_INIT,
+                               params=JVFTParams())
+    areas = np.zeros(len(gray), np.float32)
+    areas[idx] = np.asarray(areas_v)
+    areas[idx[:VFT_INIT]] = 0.0
+    return areas, (h0, w0)
+
+
+def test_vft_areas_end_to_end_exact():
+    """Detector -> gate -> size-locked crops -> tracker, both packages from
+    the same 12 frames.  The gate boxes are equal (held above), the crops are
+    equal after rounding, so the only float stage is the motion map (blur
+    rounding 1e-4, and the reference's reassociated prefix); areas are pixel
+    counts and atol 0.5 means every frame's count is equal."""
+    _, _, _, jvalid, jboxes = _jax_detect_gate()
+    jareas, (h0, w0) = _jax_vft_areas(jvalid, jboxes)
+    gp = _pipes()
+    areas = gp.vft_areas_gray(_video()[..., 0])
+    assert areas.dtype == np.float32 and areas.shape == (12,)
+    assert (areas[:VFT_INIT] == 0).all() and areas[VFT_INIT:].min() > 0
+    differing = np.nonzero(areas != jareas)[0]
+    assert differing.size == 0, (
+        f"vft areas differ on frames {differing.tolist()} "
+        f"(crop size {h0}x{w0}): {areas[differing]} vs {jareas[differing]}")
+    gray = gp._to_gray(_video()[..., 0])
+    valid, boxes = gp._detect_gate(gray)
+    _, cmasks, idx, hw0 = gp._vft_compute(gray, valid, boxes, 12,
+                                          want_masks=True)
+    assert hw0 == (h0, w0) and cmasks.shape == (12, h0, w0)
+    np.testing.assert_array_equal(idx, np.arange(12))
+    feats = gp.extract_features(_video(), "vft")            # (T, H, W, 3)
+    np.testing.assert_array_equal(feats["_area"], areas)
+    np.testing.assert_array_equal(gp.vft_areas(_video()), areas)
+
+
+def test_vft_contracts():
+    """Fewer than VFT_INIT + 5 frames -> None; fewer than VFT_INIT + 1 gated
+    frames, or an empty first box -> all-zero areas (a silent waveform, so
+    no features)."""
+    gp = _pipes()
+    gray = _video()[..., 0]
+    assert gp.vft_areas_gray(gray[:6]) is None
+    assert gp.extract_features(gray[:6], "vft") is None
+    assert gp.vft_areas_gray(gray[:7]) is not None
+    g = gp._to_gray(gray)
+    boxes = torch.tensor([[100, 90, 150, 170]] * 12, dtype=torch.int32)
+    two = torch.zeros(12, dtype=torch.bool)
+    two[[3, 7]] = True
+    areas, cm, idx, hw0 = gp._vft_compute(g, two, boxes, 12)
+    assert not areas.any() and cm is None and hw0 == (0, 0)
+    assert idx.tolist() == [3, 7]
+    empty_first = boxes.clone()
+    empty_first[0] = torch.tensor([100, 90, 100, 170])
+    areas, _, _, hw0 = gp._vft_compute(g, torch.ones(12, dtype=torch.bool),
+                                       empty_first, 12)
+    assert not areas.any() and hw0 == (0, 0)
+    # frames without a box are skipped, not tracked: they emit 0
+    some = torch.ones(12, dtype=torch.bool)
+    some[[0, 5]] = False
+    areas, _, idx, _ = gp._vft_compute(g, some, boxes, 12)
+    assert idx.tolist() == [1, 2, 3, 4, 6, 7, 8, 9, 10, 11]
+    assert (areas[[0, 5, 1, 2]] == 0).all() and areas[[3, 4, 6, 11]].min() > 0
+
+
+@pytest.mark.parametrize("pipeline", ["vft", "guided-vft"])
+def test_sequential_trackers_agree_with_parallel(pipeline):
+    """``parallel_trackers=False`` routes through the per-frame scans; areas
+    within 2.0 px of the frame-parallel form (the reference's own pin
+    between its forms; here the recurrences are the same, so only the
+    single-frame vs batched blur can differ)."""
+    gp = _pipes()
+    if "seq" not in _MEMO:
+        _MEMO["seq"] = GlottalPipelines(
+            yolo_variables="weights/demo_yolo.npz", dtype=torch.float32,
+            device="cpu", parallel_trackers=False)
+    seq = _MEMO["seq"]
+    assert gp.parallel_trackers and not seq.parallel_trackers
+    frames = _video()[:9, ..., 0]
+    a_par = gp.extract_features(frames, pipeline)["_area"]
+    a_seq = seq.extract_features(frames, pipeline)["_area"]
+    assert a_par[2:].min() > 0
+    np.testing.assert_allclose(a_seq, a_par, atol=2.0, rtol=0)
+
+
+@pytest.mark.parametrize("pipeline", ["vft", "guided-vft"])
+def test_split_blob_route_gives_the_same_waveform(pipeline):
+    """The measurement option that sends the trackers' blob filters through
+    single-region CC passes changes no area."""
+    if "split" not in _MEMO:
+        _MEMO["split"] = GlottalPipelines(
+            yolo_variables="weights/demo_yolo.npz", dtype=torch.float32,
+            device="cpu", split_blob_route=True)
+    frames = _video()[:9, ..., 0]
+    a = _pipes().extract_features(frames, pipeline)["_area"]
+    b = _MEMO["split"].extract_features(frames, pipeline)["_area"]
+    np.testing.assert_array_equal(a, b)
+
+
+def test_ygvft_eval_masks_shape_and_areas():
+    gp = _pipes()
+    gray = gp._to_gray(_video()[:6, ..., 0])
+    valid, boxes = gp._detect_gate(gray)
+    masks = gp.ygvft_eval_masks(gray, valid, boxes)
+    assert masks.shape == (6 - YGVFT_INIT, 256, 256)
+    assert masks.dtype == torch.bool
+    areas = gp.guided_vft_areas_gray(_video()[:6, ..., 0])
+    np.testing.assert_array_equal(masks.sum((1, 2)).numpy(),
+                                  areas[YGVFT_INIT:])
+
+
 def test_unet_areas_within_the_borderline_pixel_count():
     """4 frames through detector + gate + U-Net: per-frame areas may differ
     from the JAX package's by at most the number of in-box pixels whose JAX
@@ -199,7 +325,7 @@ def test_unknown_pipeline_is_value_error():
         _pipes().extract_features(_video()[:4], "nope")
 
 
-@pytest.mark.parametrize("pipeline", ["vft", "crop-unet", "unet-only"])
+@pytest.mark.parametrize("pipeline", ["crop-unet", "unet-only"])
 def test_later_pipelines_raise_not_implemented(pipeline):
     with pytest.raises(NotImplementedError):
         _pipes().extract_features(_video()[:4], pipeline)
