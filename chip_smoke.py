@@ -8,9 +8,10 @@ Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
 256x256 synthetic videos through ``GlottalPipelines.extract_features`` with
 the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
-— and checks that the kernels were launched on those paths and that the
-results are right; then the blob filter's split route and the sequential
-tracker forms.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
+— and checks that the kernels were launched on those paths, that every
+launch equals its plain version on the path's own inputs and that the
+results are right; then the blob filter's two routes against each other and
+the sequential tracker forms.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
 line) without them.  Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -34,6 +35,19 @@ def say(phase: str, **kv) -> None:
 
 
 BUSY_CYCLES = 20_000_000    # ~10 ms of device spinning ahead of a timed window
+TIMING = "queued"           # how every kernel's ``ms`` is taken, see time_cuda
+
+
+def keep_device_busy() -> None:
+    """Queue ~10 ms of spinning on the current stream (the one place that
+    knows how; any kernel that spins for a fixed time would do)."""
+    import torch
+
+    spin = getattr(torch.cuda, "_sleep", None)
+    if spin is None:
+        raise RuntimeError("chip_smoke: this torch has no torch.cuda._sleep; "
+                           "keep_device_busy needs another spin kernel")
+    spin(BUSY_CYCLES)
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -43,14 +57,14 @@ def time_cuda(fn, reps: int) -> float:
     tens of microseconds, more than a small kernel runs.  So the device is
     first kept busy for ~10 ms: the launches queue up behind that, and the
     two events then bracket back-to-back device work instead of the host's
-    enqueue rate."""
+    enqueue rate (``TIMING = "queued"``)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(BUSY_CYCLES)
+    keep_device_busy()
     a.record()
     for _ in range(reps):
         fn()
@@ -328,10 +342,11 @@ def main() -> int:
             ("unet", {"gate_scan": 1}),
             # vft: the tracker's init labels one ROI mask (2 single-frame CC
             # launches); the ROI filter and the output filter are one
-            # top_n_blobs_batch each (1 + 1 + 2 launches apiece)
+            # top_n_blobs_batch each, by the split route (2 single-region CC
+            # launches + 2 + 2 single-region broadcasts apiece)
             ("vft", {"gate_scan": 1, "cc": 2, "lmap_ema": 1,
-                     "dual_cc_batch": 2, "dual_min_prop_batch": 2,
-                     "min_prop_batch": 4, "thresh_chain": 1, "cc_batch": 0})):
+                     "cc_batch": 4, "min_prop_batch": 8, "thresh_chain": 1,
+                     "dual_cc_batch": 0, "dual_min_prop_batch": 0})):
         for tag, pipe in pipes.items():
             pipe.extract_features(videos[1], pipeline)     # warm-up (cuDNN)
             record = []
@@ -379,35 +394,23 @@ def main() -> int:
     if rel_l1 >= 0.05:
         raise AssertionError(f"unet: bf16 vs f32 waveform relative L1 {rel_l1}")
 
-    # ── vft through the blob filter's split route (served, then direct) ─
-    split_pipe = GlottalPipelines(dtype=torch.bfloat16, split_blob_route=True,
-                                  **weights)
-    split_pipe.extract_features(videos[1], "vft")
-    record = []
-    feats, got = counted(
-        lambda: split_pipe.extract_features(videos[0], "vft"), record)
-    expect_counts("vft, split route", got,
-                  {"cc_batch": 4, "min_prop_batch": 8, "dual_cc_batch": 0,
-                   "dual_min_prop_batch": 0, "cc": 2, "lmap_ema": 1,
-                   "gate_scan": 1, "thresh_chain": 1})
-    if not np.array_equal(feats["_area"], waves[("vft", "bf16")]):
-        raise AssertionError("vft: split-route waveform differs from the "
-                             "dual route's")
-    path_launches["vft+split_blob_route/bf16"] = got
-    recorded["vft+split_blob_route"] = record
-    # the same comparison on the very masks the served videos gave the blob
-    # filters — vft's ROI filter (n = 1) and output filter (n = 2) at the
-    # locked crop size, guided-vft's output filter on 128x128 windows — both
-    # routes timed
-    def filter_masks(path):
-        return [inp[0] == 1 for name, inp, _ in recorded[path]
-                if name == "dual_cc_batch"]
+    # ── the blob filter's two routes against each other ─────────────────
+    # on the very masks the served videos gave the blob filters: vft's ROI
+    # filter (n = 1) and output filter (n = 2) at the locked crop size, where
+    # the tracker takes the split route, and guided-vft's output filter on
+    # 128x128 windows, where it takes the dual route; both routes timed
+    vft_masks = [inp[0] for name, inp, kw in recorded["vft"]
+                 if name == "cc_batch" and kw["connectivity"] == 8]
+    guided_masks = [inp[0] == 1 for name, inp, _ in recorded["guided-vft"]
+                    if name == "dual_cc_batch"]
     n_out = pipes["bf16"].vft_params.max_glottal_components
     n_out_guided = pipes["bf16"].ygvft_params.max_glottal_components
     routes = []
-    for m, n in (*zip(filter_masks("vft"), (1, n_out)),
-                 (filter_masks("guided-vft")[0], n_out_guided)):
-        dual = blobs.top_n_blobs_batch(m, n)
+    for m, n in (*zip(vft_masks, (1, n_out)), (guided_masks[0], n_out_guided)):
+        dual, got = counted(lambda: blobs.top_n_blobs_batch(m, n))
+        expect_counts("top_n_blobs_batch, dual route", got,
+                      {"dual_cc_batch": 1, "dual_min_prop_batch": 1,
+                       "min_prop_batch": 2, "cc_batch": 0})
         spl, got = counted(lambda: blobs.top_n_blobs_batch(m, n, _split=True))
         expect_counts("top_n_blobs_batch(_split=True)", got,
                       {"cc_batch": 2, "min_prop_batch": 4, "dual_cc_batch": 0,
@@ -420,9 +423,7 @@ def main() -> int:
                 lambda: blobs.top_n_blobs_batch(m, n), 10),
             "split_route_ms": time_cuda(
                 lambda: blobs.top_n_blobs_batch(m, n, _split=True), 10)})
-    say("blob_routes", equal=True, served_split_wall_ms=serve(split_pipe, "vft"),
-        served_split_launches=path_launches["vft+split_blob_route/bf16"],
-        top_n_blobs_batch=routes)
+    say("blob_routes", equal=True, top_n_blobs_batch=routes)
 
     # ── the sequential tracker forms on a 32-frame clip ─────────────────
     seq_pipe = GlottalPipelines(dtype=torch.bfloat16, parallel_trackers=False,
@@ -502,8 +503,7 @@ def main() -> int:
                                 "guided-vft"),
         "min_prop_batch": ("openglottal_tpu/ops/blobs_pallas.py:434",
                            "guided-vft"),
-        "cc_batch": ("openglottal_tpu/ops/blobs_pallas.py:411",
-                     "vft+split_blob_route"),
+        "cc_batch": ("openglottal_tpu/ops/blobs_pallas.py:411", "vft"),
         "cc": ("openglottal_tpu/ops/blobs_pallas.py:460", "vft"),
         "gate_scan": ("openglottal_tpu/models/gate.py:98", "guided-vft"),
         "thresh_chain": ("openglottal_tpu/models/tracker.py:216",
@@ -583,15 +583,12 @@ def main() -> int:
 
     per_kernel = {}
     elsewhere = {}     # kernel -> path -> ms of each launch on another path
+    held = {}          # path -> launches held against their plain versions
     for path, record in recorded.items():
         for name, inputs, kw in record:
             kfn, pfn, nbytes, ops = runners(name, inputs, kw)
-            if kernel_table[name][1] != path:
-                # not the path this kernel reports: the kernel's time only
-                elsewhere.setdefault(name, {}).setdefault(path, []).append(
-                    time_cuda(kfn, 20))
-                continue
-            on_host = name in scan_cuda.LAUNCHES
+            # every launch of every path equals its plain version on the
+            # path's own inputs
             got, want = kfn(), pfn()
             if isinstance(got, tuple):
                 for g, w_ in zip(got, want):
@@ -600,7 +597,13 @@ def main() -> int:
                 hold(name, got.view(torch.int32), want.view(torch.int32))
             else:
                 hold(name, got, want)
+            held[path] = held.get(path, 0) + 1
             ms = time_cuda(kfn, 20)
+            if kernel_table[name][1] != path:
+                # not the path this kernel reports: the kernel's time only
+                elsewhere.setdefault(name, {}).setdefault(path, []).append(ms)
+                continue
+            on_host = name in scan_cuda.LAUNCHES
             plain_ms = time_host(pfn, 2) if on_host else time_cuda(pfn, 2)
             e = per_kernel.setdefault(name, {"ms": [], "plain_ms": [],
                                              "bytes": [], "ops": [],
@@ -611,6 +614,12 @@ def main() -> int:
             e["ops"].append(ops)
             e["shapes"].append(list(max(inputs, key=torch.numel).shape))
     reset_counts()
+    for path, record in recorded.items():
+        if held.get(path, 0) != len(record) or not record:
+            raise AssertionError(f"{path}: {held.get(path, 0)} of "
+                                 f"{len(record)} launches were held")
+    say("path_launches_vs_plain", compared="exact equality with the plain "
+        "version, every recorded launch of every path", launches_held=held)
 
     kernels = []
     for name, (replaces, path) in kernel_table.items():
@@ -636,7 +645,7 @@ def main() -> int:
             "ms_each_launch": e["ms"],
             "ms_each_launch_on_other_paths": elsewhere.get(name, {}),
         })
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "timing": TIMING}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -239,7 +239,7 @@ def _prev_chain(init_last, frames):
 
 def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
                    active=None, params: YGVFTParams = YGVFTParams(),
-                   use_plain: bool = False, split_blobs: bool = False):
+                   use_plain: bool = False):
     """Frame-parallel YOLO-guided VFT.  Returns (masks (T, H, W) bool,
     areas (T,) f32).
 
@@ -255,9 +255,6 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
     The motion map (absdiff -> blur -> alpha-EMA) is dead state for the
     guided tracker — its ROI is always the bbox — so the per-frame maps are
     NOT computed here (the JAX package traces them and lets XLA remove them).
-
-    ``split_blobs`` sends the blob filter down its split route (see
-    ``ops/blobs.top_n_blobs_batch``): same outputs, other kernels.
     """
     p = params
     t, h, w = frames.shape
@@ -279,8 +276,7 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
         cur, n_px = masked_percentile_u8_batch(ffx, roix, p.glottal_percentile)
         thresh = _thresh_chain(thresh0, cur, n_px, active, p.beta, use_plain)
         raw = (ffx < thresh[:, None, None]) & roix & active[:, None, None]
-        masks_x = top_n_blobs_batch(raw, p.max_glottal_components, use_plain,
-                                    _split=split_blobs)
+        masks_x = top_n_blobs_batch(raw, p.max_glottal_components, use_plain)
         return masks_x, masks_x.sum((1, 2)).to(torch.float32)
 
     win = 128
@@ -301,14 +297,14 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
 
 
 def vft_parallel(init_frames, frames, active=None,
-                 params: VFTParams = VFTParams(), use_plain: bool = False,
-                 split_blobs: bool = False):
+                 params: VFTParams = VFTParams(), use_plain: bool = False):
     """Frame-parallel VFT — same outputs as :func:`vft_scan` up to the blur's
     rounding.  ``active`` may only disable a PREFIX (the init frames the
     caller overlays) and/or a contiguous tail: the motion-map and threshold
     recurrences treat inactive steps as identity, matching the scan.
-    ``split_blobs`` sends both blob filters down their split route (see
-    ``ops/blobs.top_n_blobs_batch``): same outputs, other kernels.
+    Both blob filters take the split route of
+    ``ops/blobs.top_n_blobs_batch`` (single-region launches): same outputs as
+    the dual route, fewer tensor ops at the small locked crop size.
     Returns (masks (T, H, W) bool, areas (T,) f32)."""
     p = params
     t = frames.shape[0]
@@ -325,14 +321,14 @@ def vft_parallel(init_frames, frames, active=None,
 
     rthr = _roi_threshold(lmaps, p.roi_threshold_ratio)
     roi = largest_blob_batch(lmaps > rthr[:, None, None], use_plain,
-                             _split=split_blobs)
+                             _split=True)
 
     cur, n_px = masked_percentile_u8_batch(ff, roi, p.glottal_percentile)
     thresh = _thresh_chain(thresh0, cur, n_px, active, p.beta, use_plain)
 
     raw = (ff < thresh[:, None, None]) & roi & active[:, None, None]
     masks = top_n_blobs_batch(raw, p.max_glottal_components, use_plain,
-                              _split=split_blobs)
+                              _split=True)
     return masks, masks.sum((1, 2)).to(torch.float32)
 
 

@@ -210,8 +210,11 @@ def top_n_blobs_batch(masks: torch.Tensor, n: int, use_plain: bool = False,
          component labels with no table lookups.
          (``_split=True`` takes the reference's other route through steps 1
          and 2 — two single-region CC launches and two single-region
-         broadcasts — with the same result; it exists to be measured against
-         the dual route.)
+         broadcasts — with the same result.  ``vft_parallel`` takes it:
+         at its small size-locked crops it skips the tensor ops that build
+         the code and take the dual result apart, and that outweighed the
+         two extra launches on an H100; at the guided tracker's 128x128
+         windows the dual route was the faster one.)
       3. FILLED-hole test: a background component is a hole unless it touches
          the border or 8-touches a foreground component that is neither its
          encloser nor nested inside it; the OR over the component is a

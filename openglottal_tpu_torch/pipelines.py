@@ -27,7 +27,6 @@ CUDA device is available; the CPU is used only when asked for by name.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import torch
@@ -149,10 +148,7 @@ class GlottalPipelines:
     ``parallel_trackers=False`` runs both trackers as sequential per-frame
     loops (same outputs up to the blur's rounding; the debug form).
     ``use_plain_kernels`` is a test hook: it routes every hand-written kernel
-    to its plain version on any device.  ``split_blob_route`` is a
-    measurement option: the frame-parallel trackers' blob filters take two
-    single-region connected-component launches and two single-region
-    broadcasts instead of one dual-region launch each (same outputs).
+    to its plain version on any device.
     """
 
     def __init__(self, unet_variables=None, crop_unet_variables=None,
@@ -164,8 +160,7 @@ class GlottalPipelines:
                  parallel_trackers: bool = True, fold_bn: bool = True,
                  quant: str | None = None,
                  window_decoder: bool | None = None, device=None,
-                 use_plain_kernels: bool = False,
-                 split_blob_route: bool = False):
+                 use_plain_kernels: bool = False):
         if crop_unet_variables is not None:
             raise NotImplementedError(
                 "crop-unet weights: the crop pipeline is ported in a later "
@@ -187,7 +182,6 @@ class GlottalPipelines:
         self.ygvft_params = ygvft_params
         self.parallel_trackers = parallel_trackers
         self.use_plain_kernels = use_plain_kernels
-        self.split_blob_route = split_blob_route
 
         sds = {}
         if unet_variables is not None:
@@ -286,10 +280,7 @@ class GlottalPipelines:
 
     def _tracker(self, parallel_fn, scan_fn):
         """The tracker form this instance runs."""
-        if not self.parallel_trackers:
-            return scan_fn
-        return functools.partial(parallel_fn,
-                                 split_blobs=self.split_blob_route)
+        return parallel_fn if self.parallel_trackers else scan_fn
 
     # ── pipeline 1: VFT ─────────────────────────────────────────────────
 

@@ -120,13 +120,13 @@ def main() -> int:
         return st
 
     def blob_filter(st, name, masks, n):
-        """One top_n_blobs_batch call, its kernels and the tensor ops around
-        them apart."""
+        """One top_n_blobs_batch call by the route vft_parallel takes, its
+        kernels and the tensor ops around them apart."""
         from openglottal_tpu_torch.ops import blobs_cuda
         rec = []
         blobs_cuda.RECORD = rec
         out = timed(st, f"{name}_total", lambda:
-                    blobs.top_n_blobs_batch(masks, n))
+                    blobs.top_n_blobs_batch(masks, n, _split=True))
         blobs_cuda.RECORD = None
         for kname, inputs, kw in rec:
             fn = getattr(blobs_cuda, kname)

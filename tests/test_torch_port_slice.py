@@ -248,16 +248,27 @@ def test_sequential_trackers_agree_with_parallel(pipeline):
 
 
 @pytest.mark.parametrize("pipeline", ["vft", "guided-vft"])
-def test_split_blob_route_gives_the_same_waveform(pipeline):
-    """The measurement option that sends the trackers' blob filters through
-    single-region CC passes changes no area."""
-    if "split" not in _MEMO:
-        _MEMO["split"] = GlottalPipelines(
-            yolo_variables="weights/demo_yolo.npz", dtype=torch.float32,
-            device="cpu", split_blob_route=True)
+def test_split_blob_route_gives_the_same_waveform(pipeline, monkeypatch):
+    """``vft_parallel`` sends its blob filters through single-region CC
+    passes, ``ygvft_parallel`` through the dual-region ones; with each
+    tracker's route swapped for the other no area changes."""
+    from openglottal_tpu_torch.models import tracker as tracker_mod
+    from openglottal_tpu_torch.ops import blobs as blobs_mod
+
     frames = _video()[:9, ..., 0]
     a = _pipes().extract_features(frames, pipeline)["_area"]
-    b = _MEMO["split"].extract_features(frames, pipeline)["_area"]
+    routes = []
+
+    def swapped(masks, n, use_plain=False, _split=False):
+        routes.append(_split)
+        return blobs_mod.top_n_blobs_batch(masks, n, use_plain, not _split)
+
+    monkeypatch.setattr(tracker_mod, "top_n_blobs_batch", swapped)
+    monkeypatch.setattr(tracker_mod, "largest_blob_batch",
+                        lambda masks, use_plain=False, _split=False:
+                        swapped(masks, 1, use_plain, _split))
+    b = _pipes().extract_features(frames, pipeline)["_area"]
+    assert routes == ([True, True] if pipeline == "vft" else [False])
     np.testing.assert_array_equal(a, b)
 
 
