@@ -2,7 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # everything
-    python3 chip_smoke.py --kernels-only  # build (ptxas -v) + kernel checks
+    python3 chip_smoke.py --kernels-only  # build + kernel checks
+    python3 chip_smoke.py --against DIR [DIR ...]
+        # everything, then the blob kernels of this checkout and of each DIR
+        # (the root of another checkout, e.g. a parent commit unpacked by
+        # ``git archive`` into a git-ignored directory) timed in turns
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -11,18 +15,24 @@ the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
 — and checks that the kernels were launched on those paths, that every
 launch equals its plain version on the path's own inputs and that the
 results are right; then the blob filter's two routes against each other and
-the sequential tracker forms.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
+the sequential tracker forms.  Prints the registers and spills ptxas reports
+for every kernel and the thread blocks per SM each blob entry point's launch
+gets.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
 line) without them.  Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 T_FRAMES = 502          # one high-speed clip
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -87,6 +97,38 @@ def time_host(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def ptxas_summary(log: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, stack_bytes}} from the
+    output of ``nvcc -Xptxas -v``."""
+    def plain_name(sym):
+        # the last component of an Itanium-mangled (nested) name
+        if not sym.startswith("_Z"):
+            return sym
+        pos, parts = (3 if sym.startswith("_ZN") else 2), []
+        while pos < len(sym) and sym[pos].isdigit():
+            n = re.match(r"\d+", sym[pos:]).group()
+            pos += len(n)
+            parts.append(sym[pos:pos + int(n)])
+            pos += int(n)
+        return parts[-1] if parts else sym
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = out.setdefault(plain_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn.update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                      spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m[1])
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -104,6 +146,14 @@ def main() -> int:
     from openglottal_tpu_torch.ops import _build, blobs, blobs_cuda, scan_cuda
     from openglottal_tpu_torch.pipelines import GlottalPipelines
 
+    args = sys.argv[1:]
+    kernels_only = "--kernels-only" in args
+    against = args[args.index("--against") + 1:] if "--against" in args else []
+    if "--against" in args and not against:
+        print("chip_smoke: --against needs at least one directory",
+              file=sys.stderr)
+        return 2
+
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,13 +164,40 @@ def main() -> int:
 
     # ── build ───────────────────────────────────────────────────────────
     t0 = time.perf_counter()
-    kernels_only = "--kernels-only" in sys.argv[1:]
-    logs = _build.build_all(("-Xptxas", "-v") if kernels_only else ())
+    logs = _build.build_all(("-Xptxas", "-v"))
     say("build", seconds=round(time.perf_counter() - t0, 2),
-        sources=[f"openglottal_tpu_torch/csrc/{n}.cu" for n in _build.SOURCES])
-    if kernels_only:
-        for name, log in logs.items():
-            print(f"--- nvcc {name}.cu ---\n{log}", flush=True)
+        sources=[f"openglottal_tpu_torch/csrc/{n}.cu" for n in _build.SOURCES],
+        ptxas={n: ptxas_summary(log) for n, log in logs.items()})
+
+    # where the union-find keeps its grids, and how many of its blocks share
+    # an SM, at each frame size a launch below takes (one rule in blobs.cu
+    # decides the layout of every entry point)
+    lib = _build.load("blobs")
+    lib.og_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.og_smem_bytes.restype = ctypes.c_longlong
+    lib.og_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.og_blocks_per_sm.restype = ctypes.c_int
+
+    def layout_of(h, w):
+        n = lib.og_blocks_per_sm(h, w)
+        if n <= 0:
+            raise AssertionError(f"og_blocks_per_sm({h}, {w}) = {n}")
+        return {"smem_bytes": lib.og_smem_bytes(h, w), "blocks_per_sm": n}
+
+    # the widest frame of 215 columns whose grids fit shared memory, and one
+    # row more (the first that takes the device-memory layout)
+    w_edge = 215
+    h_fit = max(h for h in range(1, 1024) if lib.og_smem_bytes(h, w_edge) > 0)
+    path_shapes = {"dual_cc_batch": [(128, 128)],
+                   "dual_min_prop_batch": [(128, 128)],
+                   "min_prop_batch": [(128, 128), (48, 40)],
+                   "cc_batch": [(48, 40)], "cc": [(48, 40)]}
+    stress_shapes = [(128, 128), (256, 256), (100, 140), (h_fit, w_edge),
+                     (h_fit + 1, w_edge)]
+    say("occupancy",
+        path_shapes={k: {f"{h}x{w}": layout_of(h, w) for h, w in v}
+                     for k, v in path_shapes.items()},
+        stress_shapes={f"{h}x{w}": layout_of(h, w) for h, w in stress_shapes})
 
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES}
@@ -144,9 +221,12 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     stress = []
+    first_batch = []     # index of each shape's first batch in ``stress``
     # (8,128,128) shared-memory path, (4,256,256) device-memory path,
-    # (3,100,140) ragged; all 14 stress masks are cycled through each shape
-    for n, h, w in ((8, 128, 128), (4, 256, 256), (3, 100, 140)):
+    # (3,100,140) ragged, then the last frame size that fits shared memory
+    # and one row more; all 14 stress masks are cycled through each shape
+    for n, (h, w) in zip((8, 4, 3, 7, 7), stress_shapes):
+        first_batch.append(len(stress))
         pool = blob_stress_masks(h, w, seed=13)
         for i in range(0, len(pool), n):
             m = pool[i:i + n]
@@ -232,15 +312,15 @@ def main() -> int:
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
     # boxes fit the 128x128 window never take it)
-    stress_ms = []
-    for m_np in (stress[0], stress[2], stress[6]):
+    def stress_runners(m_np):
+        """(kernel, kernel fn, plain fn) of the five blob entry points on one
+        stress batch (init = the flat index, as plain labelling)."""
         t, h, w = m_np.shape
         masks = torch.from_numpy(m_np).to(dev)
         code = 2 - masks.to(torch.uint8)
         init = torch.arange(h * w, dtype=torch.int32, device=dev
                             ).view(1, h, w).expand(t, -1, -1).contiguous()
-        for name, kfn, pfn in (
-                ("dual_cc_batch", lambda: blobs_cuda.dual_cc_batch(code),
+        return (("dual_cc_batch", lambda: blobs_cuda.dual_cc_batch(code),
                  lambda: blobs_cuda.dual_cc_plain(code)),
                 ("dual_min_prop_batch",
                  lambda: blobs_cuda.dual_min_prop_batch(code, init),
@@ -251,7 +331,12 @@ def main() -> int:
                 ("cc_batch", lambda: blobs_cuda.cc_batch(masks, 8),
                  lambda: blobs_cuda.cc_plain(masks, 8)),
                 ("cc", lambda: blobs_cuda.cc(masks[0], 8),
-                 lambda: blobs_cuda.cc_plain(masks[:1], 8))):
+                 lambda: blobs_cuda.cc_plain(masks[:1], 8)[0]))
+
+    stress_ms = []
+    for i in first_batch:
+        t, h, w = stress[i].shape
+        for name, kfn, pfn in stress_runners(stress[i]):
             stress_ms.append({"kernel": name,
                               "shape": [h, w] if name == "cc" else [t, h, w],
                               "kernel_ms": time_cuda(kfn, 20),
@@ -267,12 +352,86 @@ def main() -> int:
             "plain_ms": time_cuda(
                 lambda: tracker_mod.lmap_ema(l0, d, act, 0.98,
                                              use_plain=True), 1)})
+
+    # ── in turns against other checkouts' blob kernels (--against) ──────
+    @contextlib.contextmanager
+    def blobs_library(other):
+        """The blob wrappers launch the kernels of library ``other`` (same C
+        interface) inside the block."""
+        saved = _build._libs["blobs"]
+        _build._libs["blobs"] = other
+        blobs_cuda._configured = False
+        try:
+            yield
+        finally:
+            _build._libs["blobs"] = saved
+            blobs_cuda._configured = False
+
+    def in_turns(items, walls=None):
+        """The blob kernels of this checkout and of every --against checkout
+        on the same inputs: each held exactly equal to the plain version,
+        then timed in turns (this, a, b, b, a, this; each ``ms`` is the mean
+        of a library's two turns).  items: (label, kernel fn, plain output).
+        walls: {label: fn returning wall ms per video}, served with each
+        library in the same turns, twice over."""
+        built = _build.build_others(
+            {f"blobs_against{i}": Path(d) / "openglottal_tpu_torch/csrc/blobs.cu"
+             for i, d in enumerate(against)}, ("-Xptxas", "-v"))
+        libs = {"this": lib, **{d: built[f"blobs_against{i}"][0]
+                                for i, d in enumerate(against)}}
+        order = [*libs, *reversed(libs)]
+        each = {label: {tag: [] for tag in libs} for label, _, _ in items}
+        wall = {label: {tag: [] for tag in libs} for label in walls or {}}
+        for tag in order + order:
+            with blobs_library(libs[tag]):
+                for label, fn in (walls or {}).items():
+                    wall[label][tag] += fn()
+        for tag in order:
+            with blobs_library(libs[tag]):
+                for label, kfn, want in items:
+                    if not each[label][tag]:
+                        got = kfn()
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{tag}: {label} differs from "
+                                                 f"its plain version")
+                    each[label][tag].append(time_cuda(kfn, 20))
+        # mean over a kernel's launches at one place (label up to " #")
+        groups = {}
+        for label, by_tag in each.items():
+            g = groups.setdefault(label.split(" #")[0], {t: [] for t in libs})
+            for tag, v in by_tag.items():
+                g[tag].append(sum(v) / len(v))
+        say("against", order=order, timing=TIMING,
+            compared="exact equality with the plain version, every library",
+            ptxas={d: ptxas_summary(built[f"blobs_against{i}"][1])
+                   for i, d in enumerate(against)},
+            ms={k: {t: sum(v) / len(v) for t, v in g.items()}
+                for k, g in groups.items()},
+            wall_ms_per_video_median={
+                k: {t: float(np.median(v)) for t, v in by_tag.items()}
+                for k, by_tag in wall.items()},
+            wall_ms_per_video=wall, ms_each_turn=each)
+
+    def stress_items():
+        items = []
+        for i in first_batch:
+            t, h, w = stress[i].shape
+            for name, kfn, pfn in stress_runners(stress[i]):
+                shape = [h, w] if name == "cc" else [t, h, w]
+                items.append((f"{name} stress {'x'.join(map(str, shape))}",
+                              kfn, pfn()))
+        return items
+
     say("kernels", ok=True, compared="exact equality with the plain version",
-        shapes=[list(m.shape) for m in stress[::4]], stress_batches=len(stress),
+        shapes=[list(stress[i].shape) for i in first_batch],
+        stress_batches=len(stress),
         max_abs_err=max_err, stress_times=stress_ms)
     reset_counts()
 
     if kernels_only:
+        if against:
+            in_turns(stress_items())
         return 0
 
     # ── the main paths ──────────────────────────────────────────────────
@@ -620,6 +779,20 @@ def main() -> int:
                                  f"{len(record)} launches were held")
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
+
+    if against:
+        items = []
+        for path, record in recorded.items():
+            for k, (name, inputs, kw) in enumerate(record):
+                if name in blobs_cuda.LAUNCHES:
+                    kfn, pfn, _, _ = runners(name, inputs, kw)
+                    shape = max(inputs, key=torch.numel).shape
+                    items.append((f"{name} {path} "
+                                  f"{'x'.join(map(str, shape))} #{k}",
+                                  kfn, pfn()))
+        in_turns(items + stress_items(),
+                 {f"{p}/bf16": (lambda p=p: serve(pipes["bf16"], p))
+                  for p in ("guided-vft", "vft")})
 
     kernels = []
     for name, (replaces, path) in kernel_table.items():

@@ -20,7 +20,8 @@
 // never cross regions.  The output of an active pixel is the minimum of
 // `init` over its component, where `init` defaults to the frame-local flat
 // index r*W + c (plain connected-component labelling: a component's id is
-// its minimum flat index).  Inactive pixels read H*W.
+// its minimum flat index).  Inactive pixels read H*W.  `init` values above
+// H*W read as H*W.
 //
 // Design for this card.  The TPU kernel stacks frames into one VMEM grid and
 // sweeps whole arrays (segmented row/column min-scans plus a 3x3 min) until
@@ -30,50 +31,82 @@
 // (min over the component), so this kernel reaches it directly with a
 // min-root union-find instead:
 //
-//   1. one thread block per frame (grid = T, frames run in parallel on the
-//      132 SMs, nothing carries over between blocks);
-//   2. parent[p] = first pixel of p's horizontal run of equal code (a warp
-//      ballot per 32 pixels, no atomics); then runs of neighbouring rows are
-//      united where they overlap (and across diagonals when the code is 1).
-//      A union hangs the larger root under the smaller with atomicMin, so a
-//      root is always the minimum flat index of its tree;
+//   0. one thread block per frame (grid = T, frames run in parallel on the
+//      132 SMs, nothing carries over between blocks); the frame's codes are
+//      staged into shared memory with 16-byte loads, all in flight at once;
+//   1. parent[p] = first pixel of p's horizontal run of equal code (a warp
+//      ballot per 32 pixels, no atomics);
+//   2. runs of neighbouring rows are united where they overlap (and across
+//      diagonals when the code is 1).  A union hangs the larger root under
+//      the smaller with atomicMin, so a root is always the minimum flat index
+//      of its tree;
 //   3. after a block barrier the run starts chase their parent chains to the
-//      root (= the component id) and the other pixels take it from them;
-//   4. with `init`: val[root] = atomicMin over the component's init values
-//      (a racy read skips the atomic when the slot is already as small), and
-//      after a barrier each pixel reads val[root].
+//      root (= the component id); any other pixel is two hops from it;
+//   4. with `init`: the root's OWN parent slot becomes the component's value
+//      slot.  Values are stored as v - (H*W + 1), which is negative, so a
+//      slot tells by its sign whether it still holds a pixel index or already
+//      a value, and the roots need no separate "none" initialisation: each
+//      active pixel atomicMin's its value into its root's slot while others
+//      are still finding their roots (a negative slot is a root); after a
+//      barrier each pixel follows at most three slots to its value.
 //
 // Bound: bytes.  Each launch must read 1 B/pixel of code (+ 4 B of init) and
 // write 4 B of output; the union-find itself does O(H*W) near-constant work.
-// What the design does about it: the parent grid (and the value grid) live in
-// dynamic shared memory whenever they fit the 227 KB a block may use (a 128x128
-// window: 64 KB parents + 64 KB values + 16 KB code), so device memory sees
-// exactly one read of each input and one write of the output.  A 256x256
-// frame (256 KB of parents) does not fit; there the same block-per-frame
-// code runs with the parent grid in the output buffer / a scratch buffer in
-// device memory (L2-resident), chosen by the host function below.  Measured on
-// an H100 the kernel is still far from the bytes bound (PERF.md has the
-// numbers): what limits it is integer instruction issue and shared-memory
-// latency in the passes over the frame (five of them, ~100 instructions per
-// pixel in all), not device memory.
-//
-// og_cc_batch and og_cc are the same kernel without `init`: the labels are
-// the roots themselves, so there is no value grid and no fourth pass.  A frame
-// up to 46,489 pixels (215x215) keeps parents and codes in shared memory; a
-// larger one (256x256) builds its forest directly in the output buffer (no
-// scratch).  og_cc is one frame, hence ONE block on one of the card's 132 SMs:
-// its time is a block's latency, not bytes over bandwidth.
+// What the design does about it: the parent grid and the codes live in
+// dynamic shared memory whenever they fit the 227 KB a block may use, so
+// device memory sees exactly one read of each input and one write of the
+// output.  Between those the work is latency-bound: dependent shared-memory
+// loads along parent chains, atomics, barriers, each thread walking its share
+// of the frame in order.  So the design spends its resources on threads in
+// flight: 1024 threads a block (a pixel's chain is walked by the thread that
+// owns it, so twice the threads halve each thread's walk), and a layout small
+// enough that two blocks share an SM, 64 warps, the most an SM holds.  With
+// or without `init` a frame takes 5 B/pixel (a 128x128 window: 64 KB parents
+// + 16 KB codes): the value slot in the root's parent slot is what lets the
+// `init` forms fit it, where a per-pixel value grid would take 9 B/pixel
+// (144 KB at 128x128, one block per SM).
+// A frame of up to 46,484 pixels fits (216x215 does, 217x215 does not); a
+// larger one (256x256) runs the same code with the forest in device memory
+// (L2-resident): in the output buffer without `init`, in a scratch buffer the
+// wrapper allocates with it.  `layout` below is the one place that decides
+// this, for the launch and for the wrapper's scratch.  og_cc is one frame,
+// hence ONE block on one of the card's 132 SMs: its time is a block's
+// latency, not bytes over bandwidth.
 //
 // Plain C interface: raw pointers, sizes, stream.  Nothing is allocated
-// here and nothing synchronises.  Each function returns cudaGetLastError().
+// here and nothing synchronises.  Each launch function returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+// Two blocks of 1024 threads fill an SM's 2048 thread slots; ptxas then has
+// 32 registers a thread, which the kernel fits without spilling.
+constexpr int kThreads = 1024;
+constexpr int kBlocksPerSm = 2;
 constexpr size_t kMaxDynamicSmem = 232448;  // 227 KB usable per block on sm_90
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Where a launch keeps its grids: `smem` bytes of dynamic shared memory for
+// parents and codes (0: the frame does not fit, parents in device memory),
+// and `scratch` bytes of device memory the wrapper must provide.
+struct Layout {
+  size_t smem;
+  size_t scratch;
+};
+
+Layout layout(int t, int h, int w, bool with_init) {
+  const size_t hw = static_cast<size_t>(h) * w;
+  // parents, then the codes at the alignment of the frame's own bytes
+  const size_t smem = align16(align16(hw * 4) + 16 + hw);
+  if (smem <= kMaxDynamicSmem) return {smem, 0};
+  return {0, with_init ? hw * 4 * t : 0};
+}
 
 __device__ __forceinline__ int ld(const int* p) {
   return *reinterpret_cast<const volatile int*>(p);
@@ -140,38 +173,43 @@ __device__ __forceinline__ int region_code(uint8_t byte, int conn_code) {
   return conn_code == 0 ? static_cast<int>(byte) : (byte ? conn_code : 0);
 }
 
-// smem_mode: 0 = parents/values/code all in device memory,
-//            1 = parents + code in shared memory, values in `out`,
-//            2 = parents + values + code in shared memory.
-__global__ void __launch_bounds__(kThreads)
+// in_smem: parents and codes in dynamic shared memory (see `layout`);
+// otherwise parents in `scratch` (with init) or `out` and codes read from
+// device memory where they are needed.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 min_root_fixpoint_kernel(const uint8_t* __restrict__ code_g,
                          const int* __restrict__ init_g,
                          int* __restrict__ out_g,
                          int* __restrict__ scratch_g,
-                         int h, int w, int conn_code, int smem_mode) {
-  extern __shared__ int smem[];
+                         int h, int w, int conn_code, int in_smem) {
+  extern __shared__ __align__(16) int smem[];
   const int hw = h * w;
   const size_t base = static_cast<size_t>(blockIdx.x) * hw;
   const uint8_t* code_in = code_g + base;
   const int* init = init_g ? init_g + base : nullptr;
   int* out = out_g + base;
 
-  int* parent;
-  int* val = nullptr;
+  int* parent = out;             // plain CC builds its forest in the output
   uint8_t* code_s = nullptr;
-  if (smem_mode == 0) {
-    // plain CC can build the forest directly in the output buffer
-    parent = init ? scratch_g + base : out;
-    if (init) val = out;
-  } else {
+  if (in_smem) {
     parent = smem;
-    if (smem_mode == 2) {
-      val = smem + hw;
-      code_s = reinterpret_cast<uint8_t*>(smem + 2 * hw);
-    } else {
-      val = out;
-      code_s = reinterpret_cast<uint8_t*>(smem + hw);
-    }
+    // the staged codes sit at the same offset from a 16-byte boundary as
+    // the frame's own bytes, so the copy is 16-byte loads and stores
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(code_in) & 15);
+    code_s = reinterpret_cast<uint8_t*>(smem) +
+             align16(static_cast<size_t>(hw) * 4) + mis;
+    const int head = min(hw, (16 - mis) & 15);
+    const int n16 = (hw - head) >> 4;
+    const uint4* src = reinterpret_cast<const uint4*>(code_in + head);
+    uint4* dst = reinterpret_cast<uint4*>(code_s + head);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = __ldg(src + i);
+    for (int i = threadIdx.x; i < head; i += blockDim.x) code_s[i] = code_in[i];
+    for (int i = head + (n16 << 4) + threadIdx.x; i < hw; i += blockDim.x)
+      code_s[i] = code_in[i];
+    __syncthreads();
+  } else if (init) {
+    parent = scratch_g + base;
   }
 
   const int lane = threadIdx.x & 31;
@@ -181,39 +219,35 @@ min_root_fixpoint_kernel(const uint8_t* __restrict__ code_g,
   constexpr int kEdge = -1;      // "code" beyond the frame: equals no code
   constexpr int kNoPixel = -2;   // lanes past the end of a row
 
+  auto code_at = [&](int p) -> int {
+    return region_code(code_s ? code_s[p] : code_in[p], conn_code);
+  };
+
   // Every pass walks the frame the same way: a warp takes a row, 32 pixels
   // at a time (coalesced, conflict-free, no division to find row and column).
 
-  // 1. region codes into shared memory, value slots to "none", and the
-  // horizontal runs: parent[p] = first pixel of p's run of equal code.  A
-  // ballot marks where the code changes; the highest mark at or below a lane
-  // is its run start (or the start carried over from the previous chunk).
-  // This joins every horizontal link without a single atomic.
+  // 1. the horizontal runs: parent[p] = first pixel of p's run of equal code.
+  // A ballot marks where the code changes; the highest mark at or below a
+  // lane is its run start (or the start carried over from the previous
+  // chunk).  This joins every horizontal link without a single atomic.
   for (int r = warp; r < h; r += nwarps) {
     int carry = 0;            // run start (column) reaching into this chunk
     int prev_code = kEdge;    // code left of the chunk
     for (int x0 = 0; x0 < w; x0 += 32) {
       const int x = x0 + lane;
       const int p = r * w + x;
-      const int c = x < w ? region_code(code_in[p], conn_code) : kNoPixel;
+      const int c = x < w ? code_at(p) : kNoPixel;
       int left = __shfl_up_sync(kAll, c, 1);
       if (lane == 0) left = prev_code;
       const unsigned bits = __ballot_sync(kAll, x < w && c != left);
       const unsigned mine = bits & (kAll >> (31 - lane));
-      if (x < w) {
-        parent[p] = r * w + (mine ? x0 + 31 - __clz(mine) : carry);
-        if (code_s) code_s[p] = static_cast<uint8_t>(c);
-        if (init) val[p] = hw;
-      }
+      if (x < w) parent[p] = r * w + (mine ? x0 + 31 - __clz(mine) : carry);
       if (bits) carry = x0 + 31 - __clz(bits);
       prev_code = __shfl_sync(kAll, c, 31);
     }
   }
   __syncthreads();
 
-  auto code_at = [&](int p) -> int {
-    return code_s ? static_cast<int>(code_s[p]) : region_code(code_in[p], conn_code);
-  };
   // Codes of a row chunk: own, left neighbour, and whether the lane's pixel
   // starts a run.  Lanes past the row end get kNoPixel.
   auto row_codes = [&](int r, int x0, int& c, int& left) {
@@ -267,66 +301,88 @@ min_root_fixpoint_kernel(const uint8_t* __restrict__ code_g,
   // Root of an active pixel now: a run start holds it; any other pixel's
   // parent is its run start or, after path halving, an ancestor of that — a
   // run start either way (a pixel inside a run never was a root, so nothing
-  // was ever hung under it) — and one more hop ends at the root.
-  auto root_of = [&](int p) -> int { return ld(parent + ld(parent + p)); };
-
+  // was ever hung under it) — and one more hop ends at the root.  So the
+  // slots other pixels read are those of run starts; a slot that is not a
+  // run start's is read only by its own pixel.
   if (!init) {
     // With the forest in the output buffer (parent == out) a slot is read by
     // other pixels only if it is a run start's, and that one is rewritten
     // with the value it already holds.
     for (int r = warp; r < h; r += nwarps)
+#pragma unroll 4
       for (int x = lane; x < w; x += 32) {
         const int p = r * w + x;
-        out[p] = code_at(p) == 0 ? hw : root_of(p);
+        out[p] = code_at(p) == 0 ? hw : ld(parent + ld(parent + p));
       }
     return;
   }
 
-  // 4. min of init over each component, gathered at its root
+  // 4. min of init over each component, gathered in the root's own slot as
+  // v - (H*W + 1) < 0.  While this runs a root's slot holds either its own
+  // index or a value, and no other slot changes.  The init loads of four
+  // chunks of a row are issued before any of their atomics.
+  const int bias = hw + 1;
   for (int r = warp; r < h; r += nwarps)
-    for (int x = lane; x < w; x += 32) {
-      const int p = r * w + x;
-      if (code_at(p) == 0) continue;
-      const int v = init[p];
-      int* slot = val + root_of(p);
-      if (v < ld(slot)) atomicMin(slot, v);
+    for (int x0 = 0; x0 < w; x0 += 4 * 32) {
+      int v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int x = x0 + 32 * k + lane;
+        v[k] = x < w ? init[r * w + x] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int x = x0 + 32 * k + lane;
+        const int p = r * w + x;
+        if (x >= w || code_at(p) == 0) continue;
+        const int e = min(v[k], hw) - bias;
+        const int a = ld(parent + p);
+        int root = p;
+        if (a >= 0 && a != p) {          // p is no root
+          if (e == -1) continue;         // H*W: the root's own value is <= it
+          const int b = ld(parent + a);  // a's root, or a value if a is one
+          root = (b < 0 || b == a) ? a : b;
+        }
+        if (e < ld(parent + root)) atomicMin(parent + root, e);
+      }
     }
   __syncthreads();
-  // val may alias out (values kept in the output buffer): a root rewrites its
-  // own slot with the value it already holds, and a non-root's slot is read by
-  // nobody (values are only ever read at roots), so the gather is hazard-free.
+
+  // 5. every root's slot holds its component's value now (a root gathers its
+  // own): follow the slots to the first negative one.
   for (int r = warp; r < h; r += nwarps)
+#pragma unroll 4
     for (int x = lane; x < w; x += 32) {
       const int p = r * w + x;
-      out[p] = code_at(p) == 0 ? hw : ld(val + root_of(p));
+      int v = hw;
+      if (code_at(p) != 0) {
+        v = ld(parent + p);
+        if (v >= 0) v = ld(parent + v);
+        if (v >= 0) v = ld(parent + v);
+        v += bias;
+      }
+      out[p] = v;
     }
+}
+
+cudaError_t allow_max_smem() {
+  return cudaFuncSetAttribute(min_root_fixpoint_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kMaxDynamicSmem));
 }
 
 int launch(const void* code, const void* init, void* out, void* scratch,
            int t, int h, int w, int conn_code, cudaStream_t stream) {
   if (t <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t hw = static_cast<size_t>(h) * w;
-  const size_t need2 = hw * 9;   // parents + values + code bytes
-  const size_t need1 = hw * 5;   // parents + code bytes
-  int mode = 0;
-  size_t smem = 0;
-  if (init != nullptr && need2 <= kMaxDynamicSmem) {
-    mode = 2;
-    smem = need2;
-  } else if (need1 <= kMaxDynamicSmem) {
-    mode = 1;
-    smem = need1;
-  }
-  if (mode == 0 && init != nullptr && scratch == nullptr)
+  const Layout lay = layout(t, h, w, init != nullptr);
+  if (lay.scratch != 0 && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  smem = (smem + 15) & ~static_cast<size_t>(15);
-  cudaError_t err = cudaFuncSetAttribute(
-      min_root_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxDynamicSmem));
+  const cudaError_t err = allow_max_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  min_root_fixpoint_kernel<<<t, kThreads, smem, stream>>>(
+  min_root_fixpoint_kernel<<<t, kThreads, lay.smem, stream>>>(
       static_cast<const uint8_t*>(code), static_cast<const int*>(init),
-      static_cast<int*>(out), static_cast<int*>(scratch), h, w, conn_code, mode);
+      static_cast<int*>(out), static_cast<int*>(scratch), h, w, conn_code,
+      lay.smem != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,10 +393,24 @@ extern "C" {
 // Bytes of device scratch (int32 parents) the launch needs for this shape;
 // 0 when the grids fit shared memory.  with_init: 1 for the min_prop forms.
 long long og_scratch_bytes(int t, int h, int w, int with_init) {
-  const size_t hw = static_cast<size_t>(h) * w;
-  if (!with_init) return 0;
-  if (hw * 5 <= kMaxDynamicSmem) return 0;
-  return static_cast<long long>(hw) * 4 * t;
+  return static_cast<long long>(layout(t, h, w, with_init != 0).scratch);
+}
+
+// Bytes of dynamic shared memory a launch at this frame size takes (0: the
+// grids are in device memory).
+long long og_smem_bytes(int h, int w) {
+  return static_cast<long long>(layout(1, h, w, false).smem);
+}
+
+// Thread blocks of a launch at this frame size that fit one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+int og_blocks_per_sm(int h, int w) {
+  cudaError_t err = allow_max_smem();
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, min_root_fixpoint_kernel, kThreads, layout(1, h, w, false).smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // code: (T,H,W) uint8 in {0,1,2}; out: (T,H,W) int32.

@@ -39,18 +39,18 @@ def _nvcc() -> str:
                        "openglottal_tpu_torch cannot be built")
 
 
-def _target(name: str, flags) -> tuple[Path, Path]:
-    src = CSRC_DIR / f"{name}.cu"
+def _target(name: str, flags, src: Path | None = None) -> tuple[Path, Path]:
+    src = src or CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _start_build(name: str, extra_flags=()):
+def _start_build(name: str, extra_flags=(), src: Path | None = None):
     """Start nvcc for one source unless its library exists; returns
     (process | None, tmp path, final path)."""
     flags = (*NVCC_FLAGS, *extra_flags)
-    src, out = _target(name, flags)
+    src, out = _target(name, flags, src)
     if out.exists():
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +66,7 @@ def _finish_build(name, proc, tmp, out) -> tuple[Path, str]:
         raw, _ = proc.communicate()
         log = raw.decode(errors="replace")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+            raise RuntimeError(f"nvcc failed building {name} "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
     return out, log
@@ -84,6 +84,20 @@ def build_all(extra_flags=()) -> dict[str, str]:
             path, logs[name] = _finish_build(name, proc, tmp, out)
             _libs[name] = ctypes.CDLL(str(path))
     return logs
+
+
+def build_others(sources: dict[str, Path], extra_flags=()):
+    """Build .cu files from outside the package (another checkout's kernels,
+    to time them against this one's), one nvcc each, all started together, as
+    ``build/lib<name>_<hash>.so``.  They are not what ``load`` returns.
+    Returns {name: (library, compiler output)}."""
+    jobs = [(n, *_start_build(n, extra_flags, Path(src)))
+            for n, src in sources.items()]
+    built = {}
+    for name, proc, tmp, out in jobs:
+        path, log = _finish_build(name, proc, tmp, out)
+        built[name] = (ctypes.CDLL(str(path)), log)
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:
