@@ -4,9 +4,10 @@
     python3 chip_smoke.py                 # everything
     python3 chip_smoke.py --kernels-only  # build + kernel checks
     python3 chip_smoke.py --against DIR [DIR ...]
-        # everything, then the blob kernels of this checkout and of each DIR
-        # (the root of another checkout, e.g. a parent commit unpacked by
-        # ``git archive`` into a git-ignored directory) timed in turns
+        # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
+        # this checkout and of each DIR (the root of another checkout, e.g. a
+        # parent commit unpacked by ``git archive`` into a git-ignored
+        # directory) timed in turns through this checkout's wrappers
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -15,9 +16,13 @@ the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
 — and checks that the kernels were launched on those paths, that every
 launch equals its plain version on the path's own inputs and that the
 results are right; then the blob filter's two routes against each other and
-the sequential tracker forms.  Prints the registers and spills ptxas reports
-for every kernel and the thread blocks per SM each blob entry point's launch
-gets.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
+the sequential tracker forms.  The two scans of ``csrc/scan.cu`` are also held
+against their plain versions on stress sequences that reach their rare
+branches, from 1 to 20000 frames, and timed bare (the C launch alone) and
+through their wrappers.  Prints the registers and spills ptxas reports for
+every kernel, the thread blocks per SM each blob entry point's launch gets,
+and the device kernels (by ``torch.profiler``) of each served path and of
+each scan wrapper's call.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
 line) without them.  Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -139,7 +144,9 @@ def main() -> int:
 
     from openglottal_tpu_torch.data.synthetic import (
         blob_stress_masks,
+        gate_stress_sequence,
         synthetic_video,
+        thresh_stress_sequence,
     )
     from openglottal_tpu_torch.models import gate as gate_mod
     from openglottal_tpu_torch.models import tracker as tracker_mod
@@ -309,6 +316,72 @@ def main() -> int:
             k = tracker_mod.lmap_ema(l0, d, act, alpha)
             p = tracker_mod.lmap_ema(l0, d, act, alpha, use_plain=True)
             hold("lmap_ema", k.view(torch.int32), p.view(torch.int32))
+
+    # the two one-block scans on stress sequences that reach their rare
+    # branches (jumps of max_shift and one ulp either side of it, holds,
+    # expiry, re-acquisition, boxes outside and larger than the frame, a
+    # carried-in valid state; n_px at the fallback edge, an inactive tail),
+    # at lengths on both sides of the kernels' 4096-frame tile, from buffers
+    # at 16-B aligned and unaligned addresses
+    def gate_state_bits(st):
+        """The carry as 6 int32 (floats by their bits), for exact compares."""
+        v = [x.item() if isinstance(x, torch.Tensor) else x for x in st]
+        f = np.array(v[1:3], np.float32).view(np.int32)
+        return torch.tensor([int(bool(v[0])), int(f[0]), int(f[1]), int(v[3]),
+                             int(v[4]), int(v[5])])
+
+    def hold_gate(has, raw, st, params=gate_mod.GateParams()):
+        ks, (kv, kb) = gate_mod.gate_scan_carry(st, has, raw, 256, 256, params)
+        ps, (pv, pb) = gate_mod.gate_scan_carry(st, has, raw, 256, 256, params,
+                                                use_plain=True)
+        hold("gate_scan", kv, pv)
+        hold("gate_scan", kb, pb)
+        hold("gate_scan", gate_state_bits(ks), gate_state_bits(ps))
+        return ks, kv, kb
+
+    def unaligned(x, by):
+        """x copied to an address ``by`` elements past a fresh allocation."""
+        return torch.empty(x.numel() + by, dtype=x.dtype, device=dev
+                           )[by:].view(x.shape).copy_(x)
+
+    scan_lengths = (1, 2, 33, 502, 4097, 20000)
+    for t_ in scan_lengths:
+        h_np, b_np, s0 = gate_stress_sequence(t_, seed=t_)
+        has = torch.from_numpy(h_np).to(dev)
+        raw = torch.from_numpy(b_np).to(dev)
+        for st in (gate_mod.gate_init(), gate_mod.GateState(*s0)):
+            hold_gate(has, raw, st)
+        hold_gate(unaligned(has, 3), unaligned(raw, 1), gate_mod.GateState(*s0))
+        th0, cur, npx, act = (torch.from_numpy(np.asarray(x)).to(dev)
+                              for x in thresh_stress_sequence(t_, seed=t_))
+        for beta, args in ((0.7, (cur, npx, act)), (0.35, (cur, npx, act)),
+                           (0.7, (unaligned(cur, 1), unaligned(npx, 3),
+                                  unaligned(act, 5)))):
+            k = tracker_mod._thresh_chain(th0, *args, beta)
+            p = tracker_mod._thresh_chain(th0, *args, beta, use_plain=True)
+            hold("thresh_chain", k.view(torch.int32), p.view(torch.int32))
+    # other gate parameters: no drift clamp and odd padding, no hold at all
+    h_np, b_np, s0 = gate_stress_sequence(502, seed=7)
+    for params in (gate_mod.GateParams(1e6, 3, 1),
+                   gate_mod.GateParams(30.0, 7, 0)):
+        hold_gate(torch.from_numpy(h_np).to(dev), torch.from_numpy(b_np).to(dev),
+                  gate_mod.GateState(*s0), params)
+    # one segment in three calls, cut at the one call's tile boundary (4096)
+    # and inside its second tile (5596), the carry passed on as the kernel
+    # left it: equal to the one call
+    h_np, b_np, s0 = gate_stress_sequence(20000, seed=1)
+    has = torch.from_numpy(h_np).to(dev)
+    raw = torch.from_numpy(b_np).to(dev)
+    whole_st, whole_v, whole_b = hold_gate(has, raw, gate_mod.GateState(*s0))
+    st, vs, bs = gate_mod.GateState(*s0), [], []
+    for a, b in ((0, 4096), (4096, 5596), (5596, 20000)):
+        st, (v, bx) = gate_mod.gate_scan_carry(st, has[a:b], raw[a:b], 256, 256)
+        vs.append(v)
+        bs.append(bx)
+    hold("gate_scan", torch.cat(vs), whole_v)
+    hold("gate_scan", torch.cat(bs), whole_b)
+    hold("gate_scan", gate_state_bits(st), gate_state_bits(whole_st))
+
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
     # boxes fit the 128x128 window never take it)
@@ -353,46 +426,58 @@ def main() -> int:
                 lambda: tracker_mod.lmap_ema(l0, d, act, 0.98,
                                              use_plain=True), 1)})
 
-    # ── in turns against other checkouts' blob kernels (--against) ──────
+    # ── in turns against other checkouts' kernels (--against) ───────────
     @contextlib.contextmanager
-    def blobs_library(other):
-        """The blob wrappers launch the kernels of library ``other`` (same C
-        interface) inside the block."""
-        saved = _build._libs["blobs"]
-        _build._libs["blobs"] = other
-        blobs_cuda._configured = False
+    def kernel_libraries(libs):
+        """The wrappers launch the kernels of ``libs`` ({source: library},
+        the same C interfaces) inside the block."""
+        saved = {n: _build._libs[n] for n in libs}
+        _build._libs.update(libs)
+        blobs_cuda._configured = scan_cuda._configured = False
         try:
             yield
         finally:
-            _build._libs["blobs"] = saved
-            blobs_cuda._configured = False
+            _build._libs.update(saved)
+            blobs_cuda._configured = scan_cuda._configured = False
+
+    def identical(got, want):
+        """Exact equality of a kernel's output(s), floats by their bits."""
+        if isinstance(got, tuple):
+            return all(identical(g, w_) for g, w_ in zip(got, want))
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
 
     def in_turns(items, walls=None):
-        """The blob kernels of this checkout and of every --against checkout
-        on the same inputs: each held exactly equal to the plain version,
-        then timed in turns (this, a, b, b, a, this; each ``ms`` is the mean
-        of a library's two turns).  items: (label, kernel fn, plain output).
-        walls: {label: fn returning wall ms per video}, served with each
-        library in the same turns, twice over."""
+        """The kernels of this checkout and of every --against checkout on
+        the same inputs, through this checkout's wrappers: each held exactly
+        equal to the plain version (where ``items`` gives its output), then
+        timed in turns (this, a, b, b, a, this; each ``ms`` is the mean of a
+        checkout's two turns).  items: (label, kernel fn, plain output or
+        None).  walls: {label: fn returning wall ms per video}, served with
+        each checkout's kernels in the same turns, twice over."""
         built = _build.build_others(
-            {f"blobs_against{i}": Path(d) / "openglottal_tpu_torch/csrc/blobs.cu"
-             for i, d in enumerate(against)}, ("-Xptxas", "-v"))
-        libs = {"this": lib, **{d: built[f"blobs_against{i}"][0]
-                                for i, d in enumerate(against)}}
+            {f"{src}_against{i}": Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
+             for i, d in enumerate(against) for src in _build.SOURCES},
+            ("-Xptxas", "-v"))
+        libs = {"this": {src: _build.load(src) for src in _build.SOURCES},
+                **{d: {src: built[f"{src}_against{i}"][0]
+                       for src in _build.SOURCES}
+                   for i, d in enumerate(against)}}
         order = [*libs, *reversed(libs)]
         each = {label: {tag: [] for tag in libs} for label, _, _ in items}
         wall = {label: {tag: [] for tag in libs} for label in walls or {}}
         for tag in order + order:
-            with blobs_library(libs[tag]):
+            with kernel_libraries(libs[tag]):
                 for label, fn in (walls or {}).items():
                     wall[label][tag] += fn()
         for tag in order:
-            with blobs_library(libs[tag]):
+            with kernel_libraries(libs[tag]):
                 for label, kfn, want in items:
-                    if not each[label][tag]:
+                    if want is not None and not each[label][tag]:
                         got = kfn()
                         torch.cuda.synchronize()
-                        if not torch.equal(got, want):
+                        if not identical(got, want):
                             raise AssertionError(f"{tag}: {label} differs from "
                                                  f"its plain version")
                     each[label][tag].append(time_cuda(kfn, 20))
@@ -404,7 +489,8 @@ def main() -> int:
                 g[tag].append(sum(v) / len(v))
         say("against", order=order, timing=TIMING,
             compared="exact equality with the plain version, every library",
-            ptxas={d: ptxas_summary(built[f"blobs_against{i}"][1])
+            ptxas={d: {src: ptxas_summary(built[f"{src}_against{i}"][1])
+                       for src in _build.SOURCES}
                    for i, d in enumerate(against)},
             ms={k: {t: sum(v) / len(v) for t, v in g.items()}
                 for k, g in groups.items()},
@@ -423,6 +509,96 @@ def main() -> int:
                               kfn, pfn()))
         return items
 
+    # the two one-block scans: the C launch alone, and the wrapper call
+    def bare_gate(has, raw, frame_h=256, frame_w=256,
+                  params=gate_mod.GateParams(), cycles=None):
+        """og_gate_scan launched alone on buffers made here once (each launch
+        starts from the carry the one before left); with ``cycles`` (an int64
+        tensor of 1) og_gate_scan_walk_cycles, which stores the walk's SM
+        cycles there."""
+        t_ = has.numel()
+        keep = (has.contiguous(), raw.to(torch.float32).contiguous(),
+                torch.empty((t_,), dtype=torch.bool, device=dev),
+                torch.empty((t_, 4), dtype=torch.int32, device=dev),
+                torch.zeros(6, dtype=torch.int32, device=dev))
+        h_, r_, ov, ob, buf = keep
+        args = (h_.data_ptr(), r_.data_ptr(), ov.data_ptr(), ob.data_ptr(),
+                buf[4:].data_ptr(), buf.data_ptr(), t_, float(frame_h),
+                float(frame_w), float(params.max_shift_px),
+                int(params.padding), int(params.max_hold_frames))
+
+        fn = "og_gate_scan" if cycles is None else "og_gate_scan_walk_cycles"
+        extra = () if cycles is None else (cycles.data_ptr(),)
+
+        def run():
+            _build.check(getattr(scan_cuda.lib(), fn)(*args, *extra,
+                                                      scan_cuda.stream()), fn)
+            return keep
+        return run
+
+    def bare_thresh(th0, cur, npx, act, beta, cycles=None):
+        """og_thresh_chain launched alone on buffers made here once (with
+        ``cycles``: og_thresh_chain_walk_cycles, as bare_gate)."""
+        keep = (th0.to(torch.float32).reshape(1).contiguous(),
+                cur.to(torch.float32).contiguous(),
+                npx.to(torch.float32).contiguous(), act.contiguous(),
+                torch.empty(cur.shape, dtype=torch.float32, device=dev))
+        args = (*(x.data_ptr() for x in keep), keep[1].numel(),
+                float(np.float32(beta)), float(np.float32(1.0 - beta)))
+
+        fn = ("og_thresh_chain" if cycles is None
+              else "og_thresh_chain_walk_cycles")
+        extra = () if cycles is None else (cycles.data_ptr(),)
+
+        def run():
+            _build.check(getattr(scan_cuda.lib(), fn)(*args, *extra,
+                                                      scan_cuda.stream()), fn)
+            return keep
+        return run
+
+    def scan_cases(gate_in, thresh_in):
+        """(kernel, T, wrapper fn, bare fn, plain output) of the two scans on
+        the given inputs, whole and cut to their first frame.  gate_in: (has,
+        raw, frame_h, frame_w, params); thresh_in: (th0, cur, n_px, active,
+        beta)."""
+        has, raw, fh, fw, params = gate_in
+        th0, cur, npx, act, beta = thresh_in
+        cases = []
+        for t_ in (has.numel(), 1):
+            h_, r_ = has[:t_], raw[:t_]
+            cases.append((
+                "gate_scan", t_,
+                lambda h_=h_, r_=r_: gate_mod.gate_scan(h_, r_, fh, fw, params),
+                bare_gate(h_, r_, fh, fw, params),
+                gate_mod.gate_scan(h_, r_, fh, fw, params, use_plain=True)))
+        for t_ in (cur.numel(), 1):
+            c_, n_, a_ = cur[:t_], npx[:t_], act[:t_]
+            cases.append((
+                "thresh_chain", t_,
+                lambda c_=c_, n_=n_, a_=a_: tracker_mod._thresh_chain(
+                    th0, c_, n_, a_, beta),
+                bare_thresh(th0, c_, n_, a_, beta),
+                tracker_mod._thresh_chain(th0, c_, n_, a_, beta,
+                                          use_plain=True)))
+        return cases
+
+    def scan_items(cases, where):
+        """In-turn items of scan_cases: the wrapper held against the plain
+        output, the bare launch timed beside it."""
+        items = []
+        for name, t_, wfn, bfn, want in cases:
+            items.append((f"{name} wrapper {where} T={t_}", wfn, want))
+            items.append((f"{name} bare {where} T={t_}", bfn, None))
+        return items
+
+    def stress_scan_cases():
+        h_np, b_np, _ = gate_stress_sequence(T_FRAMES, seed=0)
+        th = thresh_stress_sequence(T_FRAMES, seed=0)
+        return scan_cases(
+            (torch.from_numpy(h_np).to(dev), torch.from_numpy(b_np).to(dev),
+             256, 256, gate_mod.GateParams()),
+            (*(torch.from_numpy(np.asarray(x)).to(dev) for x in th), 0.7))
+
     say("kernels", ok=True, compared="exact equality with the plain version",
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress),
@@ -431,7 +607,7 @@ def main() -> int:
 
     if kernels_only:
         if against:
-            in_turns(stress_items())
+            in_turns(stress_items() + scan_items(stress_scan_cases(), "stress"))
         return 0
 
     # ── the main paths ──────────────────────────────────────────────────
@@ -780,6 +956,129 @@ def main() -> int:
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
+    # ── the two scans at the served inputs: bare, wrapper, T = 1 ────────
+    def device_kernels(fn):
+        """{name: count} of the device work (kernels, copies, fills) that one
+        call of fn() runs, by torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if (getattr(e, "device_time_total", 0) > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA):
+                out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
+        return out
+
+    def time_enqueue(fn, reps: int) -> float:
+        """Mean host milliseconds to enqueue fn() while the device is kept
+        busy (what a host-bound path pays for the call)."""
+        fn()
+        torch.cuda.synchronize()
+        keep_device_busy()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    def fresh_walk(t_):
+        """A gate input that is fresh on every frame: a detection on every
+        frame, each centre within 1 px of the one before."""
+        i = np.arange(t_)
+        cx = 128 + 60 * np.sin(i / 97.0)
+        cy = 128 + 60 * np.cos(i / 89.0)
+        b = np.stack([cx - 20, cy - 15, cx + 20, cy + 15], 1)
+        return (torch.ones(t_, dtype=torch.bool, device=dev),
+                torch.from_numpy(b.astype(np.float32)).to(dev))
+
+    served = {name: (inputs, kw) for name, inputs, kw in recorded["guided-vft"]
+              if name in ("gate_scan", "thresh_chain")}
+    (g_has, g_raw), g_kw = served["gate_scan"]
+    (t_th0, t_cur, t_npx, t_act), t_kw = served["thresh_chain"]
+    served_scans = scan_cases(
+        (g_has, g_raw, g_kw["frame_h"], g_kw["frame_w"], g_kw["params"]),
+        (t_th0, t_cur, t_npx, t_act, t_kw["beta"]))
+    scan_times = {}
+    for name, t_, wfn, bfn, want in served_scans:
+        got = wfn()
+        torch.cuda.synchronize()
+        if not identical(got, want):
+            raise AssertionError(f"{name}, T={t_}: kernel and plain version "
+                                 f"differ")
+        scan_times[f"{name} T={t_}"] = {
+            "bare_ms": time_cuda(bfn, 50), "wrapper_ms": time_cuda(wfn, 50),
+            "wrapper_host_ms": time_enqueue(wfn, 50),
+            "wrapper_device_kernels": device_kernels(wfn)}
+    # the serial floor: the clock64() cycles of the walk (thread 0's serial
+    # part) at the served inputs, on the stress sequences and on long inputs
+    # that are fresh on every frame / active with no fallback on every step
+    # (with the bare launch's time there)
+    so = scan_cuda.lib()
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.og_gate_scan_walk_cycles.argtypes = [vp] * 6 + [ci, cf, cf, cf, ci, ci,
+                                                       vp, vp]
+    so.og_thresh_chain_walk_cycles.argtypes = [vp] * 5 + [ci, cf, cf, vp, vp]
+
+    def walk_cycles(make_bare, *inputs):
+        c = torch.zeros(1, dtype=torch.int64, device=dev)
+        make_bare(*inputs, cycles=c)()
+        torch.cuda.synchronize()
+        return int(c.item())
+
+    long_ms = {"gate_scan": {}, "thresh_chain": {}}
+    cycles = {"gate_scan": {f"served T={g_has.numel()}": walk_cycles(
+                  bare_gate, g_has, g_raw, g_kw["frame_h"], g_kw["frame_w"],
+                  g_kw["params"])},
+              "thresh_chain": {f"served T={t_cur.numel()}": walk_cycles(
+                  bare_thresh, t_th0, t_cur, t_npx, t_act, t_kw["beta"])}}
+    h_np, b_np, _ = gate_stress_sequence(T_FRAMES, seed=0)
+    cycles["gate_scan"][f"stress T={T_FRAMES}"] = walk_cycles(
+        bare_gate, torch.from_numpy(h_np).to(dev), torch.from_numpy(b_np).to(dev))
+    cycles["thresh_chain"][f"stress T={T_FRAMES}"] = walk_cycles(
+        bare_thresh, *(torch.from_numpy(np.asarray(x)).to(dev)
+                       for x in thresh_stress_sequence(T_FRAMES, seed=0)), 0.7)
+    for t_ in (4097, 20000):
+        h_, r_ = fresh_walk(t_)
+        th_in = (torch.tensor(100.0, device=dev),
+                 torch.rand(t_, device=dev) * 255,
+                 torch.full((t_,), 900.0, device=dev),
+                 torch.ones(t_, dtype=torch.bool, device=dev), 0.7)
+        long_ms["gate_scan"][f"T={t_}"] = time_cuda(bare_gate(h_, r_), 10)
+        long_ms["thresh_chain"][f"T={t_}"] = time_cuda(bare_thresh(*th_in),
+                                                       10)
+        cycles["gate_scan"][f"fresh T={t_}"] = walk_cycles(bare_gate, h_, r_)
+        cycles["thresh_chain"][f"active T={t_}"] = walk_cycles(bare_thresh,
+                                                              *th_in)
+    torch.cuda._sleep(300 * BUSY_CYCLES)     # ~3 s: read the clock under load
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    sm_mhz = float(clocks.split(",")[0])
+    serial = {}
+    for name, c in cycles.items():
+        key = next(k for k in c if k.startswith("served"))
+        serial[name] = {
+            "walk_cycles": c,
+            "walk_cycles_per_frame": {k: n / int(k.split("T=")[1])
+                                      for k, n in c.items()},
+            "serial_floor_ms_served": c[key] / (sm_mhz * 1e3),
+            "bare_ms_long": long_ms[name]}
+    path_kernels = {p: sum(device_kernels(
+        lambda p=p: pipes["bf16"].extract_features(videos[2], p)).values())
+        for p in ("guided-vft", "unet", "vft")}
+    say("scans", compared="exact equality with the plain version",
+        served_path="guided-vft", timing=TIMING, times=scan_times,
+        serial_floor=serial, sm_clock_mhz_now_max=clocks,
+        n_device_kernels_per_video_bf16=path_kernels)
+
     if against:
         items = []
         for path, record in recorded.items():
@@ -790,7 +1089,8 @@ def main() -> int:
                     items.append((f"{name} {path} "
                                   f"{'x'.join(map(str, shape))} #{k}",
                                   kfn, pfn()))
-        in_turns(items + stress_items(),
+        in_turns(items + stress_items() + scan_items(served_scans, "served")
+                 + scan_items(stress_scan_cases(), "stress"),
                  {f"{p}/bf16": (lambda p=p: serve(pipes["bf16"], p))
                   for p in ("guided-vft", "vft")})
 
@@ -817,6 +1117,11 @@ def main() -> int:
             "library_ms": None, "shapes": e["shapes"],
             "ms_each_launch": e["ms"],
             "ms_each_launch_on_other_paths": elsewhere.get(name, {}),
+            # the scans of scan.cu: also the C launch alone (``ms`` is the
+            # wrapper's device time, helper launches included)
+            **({"bare_ms": scan_times[key]["bare_ms"]}
+               if (key := f"{name} T={e['shapes'][0][0]}") in scan_times
+               else {}),
         })
     print(json.dumps({"kernels": kernels, "timing": TIMING}), flush=True)
     print(smi, flush=True)

@@ -171,3 +171,100 @@ def blob_stress_masks(h: int, w: int, seed: int = 13) -> np.ndarray:
                rng.random((h, w)) < 0.62,
                np.zeros((h, w), bool), np.ones((h, w), bool)]
     return np.stack(frames)
+
+
+def _centre_x(box) -> np.float32:
+    """The gate's float32 centre x of a box: (x1 + x2) * 0.5, each step
+    rounded."""
+    return np.float32(np.float32(box[0] + box[2]) * np.float32(0.5))
+
+
+def gate_stress_sequence(t: int, seed: int = 0, frame_h: int = 256,
+                         frame_w: int = 256, max_shift: float = 30.0,
+                         max_hold: int = 3):
+    """(has (t,) bool, boxes (t, 4) float32, state0) that drive the gate FSM
+    (``models/gate.py``, default ``GateParams``) through its rare branches:
+    centre jumps of exactly ``max_shift`` (along an axis and along a 3-4-5
+    diagonal) and one float32 ulp above and below it (``np.nextafter`` on a
+    box corner until the float32 jump crosses), rejected jumps, holds of 1 to
+    ``max_hold + 2`` missing frames (so expiry and re-acquisition), boxes far
+    outside the frame and boxes larger than it (the clamp's lo > hi case).
+    ``state0`` = (valid, cx, cy, w, h, miss) is a valid carried-in state whose
+    centre the first box jumps from by exactly ``max_shift``."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    state0 = (True, f32(100.0), f32(120.0), 40, 36, 1)
+    shift = f32(max_shift)
+    prev = np.array([85.0, 102.0, 115.0, 138.0], np.float32)  # centre 100, 120
+    has = np.ones(t, bool)
+    boxes = np.zeros((t, 4), np.float32)
+
+    def jump_by_ulps(box, above: bool):
+        """box moved right by max_shift, its x2 bumped one ulp at a time
+        until the float32 jump is above (or below) max_shift."""
+        b = box + np.array([shift, 0, shift, 0], np.float32)
+        target = np.inf if above else -np.inf
+        while True:
+            d = f32(_centre_x(b) - _centre_x(box))
+            if (d > shift) if above else (d < shift):
+                return b
+            b[2] = np.nextafter(b[2], f32(target))
+
+    kinds = ("walk", "axis", "diagonal", "above", "below", "reject", "gap",
+             "outside", "oversized")
+    weights = np.array([40, 8, 6, 8, 8, 8, 10, 6, 6], float)
+    i = 0
+    while i < t:
+        kind = "axis" if i == 0 else kinds[rng.choice(len(kinds),
+                                                      p=weights / weights.sum())]
+        if kind == "gap":
+            n = min(int(rng.integers(1, max_hold + 3)), t - i)
+            has[i:i + n] = False
+            boxes[i:i + n] = rng.uniform(-20, frame_w + 20, (n, 4))
+            i += n
+            continue
+        if kind == "walk":
+            b = prev + np.repeat(rng.normal(0, 4, 2), 2)[[0, 2, 1, 3]]
+            b[2:] += rng.uniform(-3, 3, 2)
+        elif kind == "axis":
+            d = shift * rng.choice([-1, 1])
+            b = prev + (np.array([d, 0, d, 0], np.float32) if rng.random() < .5
+                        else np.array([0, d, 0, d], np.float32))
+        elif kind == "diagonal":     # |(18, 24)| = 30 exactly in float32
+            sx, sy = rng.choice([-1, 1], 2)
+            b = prev + np.array([18 * sx, 24 * sy, 18 * sx, 24 * sy],
+                                np.float32) * (shift / 30)
+        elif kind in ("above", "below"):
+            b = jump_by_ulps(prev, kind == "above")
+        elif kind == "reject":
+            b = prev + np.float32(max_shift + rng.uniform(1, 60))
+        elif kind == "outside":
+            x, y = rng.choice([-1, 1], 2) * rng.uniform(400, 5000, 2)
+            b = np.array([x, y, x + 30, y + 20], np.float32)
+        else:                        # oversized: wider and taller than the frame
+            b = np.array([-rng.uniform(10, 90), -rng.uniform(10, 90),
+                          frame_w + rng.uniform(10, 90),
+                          frame_h + rng.uniform(10, 90)], np.float32)
+        boxes[i] = b
+        # keep the walk near the frame: restart from a central box when the
+        # last box left it
+        c = _centre_x(b)
+        prev = (b.astype(np.float32) if -50 < c < frame_w + 50
+                else np.array([85.0, 102.0, 115.0, 138.0], np.float32))
+        i += 1
+    return has, boxes, state0
+
+
+def thresh_stress_sequence(t: int, seed: int = 0):
+    """(thresh0, cur (t,), n_px (t,), active (t,) bool) for the tracker's
+    threshold chain: ``n_px`` at the fallback edge (10, and one float32 ulp
+    above it) among empty and full counts, integer and fractional
+    percentiles, and an inactive tail of ``t // 8`` frames."""
+    rng = np.random.default_rng(seed)
+    cur = (rng.integers(0, 256, t) + rng.choice([0.0, 0.3, 0.5, 0.7], t)
+           ).astype(np.float32)
+    n_px = rng.choice(np.array([0.0, 5.0, 10.0, np.nextafter(np.float32(10),
+                                                             np.float32(11)),
+                                11.0, 900.0], np.float32), t)
+    active = np.arange(t) < t - t // 8
+    return np.float32(rng.uniform(20, 200)), cur, n_px.astype(np.float32), active

@@ -14,11 +14,13 @@ Counterpart of ``openglottal_tpu/models/gate.py`` (a ``lax.scan`` there):
     (``clip(lo > hi) -> hi`` semantics preserved).
 
 The FSM is ~30 scalar ops per frame and strictly sequential.  On a CUDA
-tensor it runs as ONE launch of a one-thread kernel (``csrc/scan.cu``
-``og_gate_scan``: state in registers, ``(has, raw)`` in, ``(valid, box)`` out,
-no host round-trip).  Its plain version is the Python loop below over numpy
-float32 scalars on the host (IEEE single arithmetic step by step, which eager
-0-d tensors would only repeat more slowly); CPU tensors take it.
+tensor it runs as ONE launch of a one-block kernel (``csrc/scan.cu``
+``og_gate_scan``: the block stages the frames in shared memory and does in
+parallel what does not read the carry, one thread walks the FSM with the
+state in registers; ``(has, raw)`` in, ``(valid, box)`` out, no host
+round-trip).  Its plain version is the Python loop below over numpy float32
+scalars on the host (IEEE single arithmetic step by step, which eager 0-d
+tensors would only repeat more slowly); CPU tensors take it.
 """
 
 from __future__ import annotations
@@ -130,24 +132,64 @@ def gate_scan_plain(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
     return st, (torch.from_numpy(ov).to(dev), torch.from_numpy(ob).to(dev))
 
 
-def _state_tensors(state: GateState, device):
-    vals = [v for v in state]
+def _state_buffer(state: GateState, device) -> torch.Tensor:
+    """The carry as the kernel takes it: one int32 buffer of 6, ``state_i`` =
+    (valid, w, h, miss) followed by ``state_f`` = (cx, cy) as float32 bits."""
+    vals = list(state)
     if any(isinstance(v, torch.Tensor) for v in vals):
-        vals = [v if isinstance(v, torch.Tensor) else torch.tensor(v)
-                for v in vals]
-        sf = torch.stack([vals[1].float(), vals[2].float()]).to(device)
-        si = torch.stack([vals[0].to(torch.int32), vals[3].to(torch.int32),
-                          vals[4].to(torch.int32), vals[5].to(torch.int32)]
-                         ).to(device)
-        return sf.contiguous(), si.contiguous()
-    host_f = [float(vals[1]), float(vals[2])]
-    host_i = [int(bool(vals[0])), int(vals[3]), int(vals[4]), int(vals[5])]
-    if not any(host_f) and not any(host_i):
+        vals = [torch.as_tensor(v, device=device) for v in vals]
+        ints = torch.stack([vals[0].to(torch.int32), vals[3].to(torch.int32),
+                            vals[4].to(torch.int32), vals[5].to(torch.int32)])
+        flts = torch.stack([vals[1].to(torch.float32),
+                            vals[2].to(torch.float32)])
+        return torch.cat([ints, flts.view(torch.int32)])
+    host = [int(bool(vals[0])), int(vals[3]), int(vals[4]), int(vals[5]),
+            *np.array([vals[1], vals[2]], np.float32).view(np.int32).tolist()]
+    if not any(host):
         # the initial state: filled on the device, no host-to-device copy
-        return (torch.zeros(2, dtype=torch.float32, device=device),
-                torch.zeros(4, dtype=torch.int32, device=device))
-    return (torch.tensor(host_f, dtype=torch.float32, device=device),
-            torch.tensor(host_i, dtype=torch.int32, device=device))
+        return torch.zeros(6, dtype=torch.int32, device=device)
+    return torch.tensor(host, dtype=torch.int32, device=device)
+
+
+def _check_inputs(has: torch.Tensor, boxes: torch.Tensor) -> None:
+    if has.dim() != 1 or boxes.shape != (has.shape[0], 4):
+        raise ValueError(f"gate_scan: has {tuple(has.shape)} / boxes "
+                         f"{tuple(boxes.shape)} are not (T,) and (T, 4)")
+    if boxes.device != has.device:
+        raise ValueError("gate_scan: has and boxes lie on different devices")
+
+
+def _gate_scan_cuda(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
+                    frame_h: int, frame_w: int, params: GateParams):
+    """One launch of ``og_gate_scan`` over a non-empty segment on the card.
+    Returns (the carry buffer after it, out_valid, out_boxes)."""
+    t = has.shape[0]
+    dev = has.device
+    # a bool or uint8 ``has`` goes by its storage (the kernel reads any
+    # non-zero byte as a detection); other dtypes are compared with 0
+    if has.dtype not in (torch.bool, torch.uint8):
+        has = has != 0
+    has_c = has.contiguous()
+    raw = boxes.to(torch.float32).contiguous()
+    buf = _state_buffer(state, dev)
+    ov = torch.empty((t,), dtype=torch.bool, device=dev)   # written 0 / 1
+    ob = torch.empty((t, 4), dtype=torch.int32, device=dev)
+    so = scan_cuda.lib()
+    with torch.cuda.device(dev):
+        err = so.og_gate_scan(
+            has_c.data_ptr(), raw.data_ptr(), ov.data_ptr(), ob.data_ptr(),
+            buf[4:].data_ptr(), buf.data_ptr(), t, float(frame_h),
+            float(frame_w), float(params.max_shift_px), int(params.padding),
+            int(params.max_hold_frames), scan_cuda.stream())
+    _build.check(err, "gate_scan")
+    scan_cuda.launched("gate_scan", (has, boxes), frame_h=frame_h,
+                       frame_w=frame_w, params=params)
+    return buf, ov, ob
+
+
+def _empty_outputs(device):
+    return (torch.empty((0,), dtype=torch.bool, device=device),
+            torch.empty((0, 4), dtype=torch.int32, device=device))
 
 
 def gate_scan_carry(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
@@ -159,31 +201,16 @@ def gate_scan_carry(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
 
     Returns (new_state, (out_valid (T,) bool, out_boxes (T, 4) int32)).
     """
-    if has.dim() != 1 or boxes.shape != (has.shape[0], 4):
-        raise ValueError(f"gate_scan: has {tuple(has.shape)} / boxes "
-                         f"{tuple(boxes.shape)} are not (T,) and (T, 4)")
-    if boxes.device != has.device:
-        raise ValueError("gate_scan: has and boxes lie on different devices")
+    _check_inputs(has, boxes)
     if use_plain or not has.is_cuda:
         return gate_scan_plain(state, has, boxes, frame_h, frame_w, params)
-    t = has.shape[0]
-    has_u8 = has.to(torch.uint8).contiguous()
-    raw = boxes.to(torch.float32).contiguous()
-    sf, si = _state_tensors(state, has.device)
-    ov = torch.empty((t,), dtype=torch.uint8, device=has.device)
-    ob = torch.empty((t, 4), dtype=torch.int32, device=has.device)
-    so = scan_cuda.lib()
-    with torch.cuda.device(has.device):
-        err = so.og_gate_scan(
-            has_u8.data_ptr(), raw.data_ptr(), ov.data_ptr(), ob.data_ptr(),
-            sf.data_ptr(), si.data_ptr(), t, float(frame_h), float(frame_w),
-            float(params.max_shift_px), int(params.padding),
-            int(params.max_hold_frames), scan_cuda.stream())
-    _build.check(err, "gate_scan")
-    scan_cuda.launched("gate_scan", (has, boxes), frame_h=frame_h,
-                       frame_w=frame_w, params=params)
-    new_state = GateState(si[0] != 0, sf[0], sf[1], si[1], si[2], si[3])
-    return new_state, (ov.bool(), ob)
+    if has.shape[0] == 0:
+        return state, _empty_outputs(has.device)
+    buf, ov, ob = _gate_scan_cuda(state, has, boxes, frame_h, frame_w, params)
+    si, sf = buf[:4], buf[4:].view(torch.float32)
+    # valid is the low byte of state_i[0], which the kernel writes as 0 or 1
+    valid = si[:1].view(torch.bool)[0]
+    return GateState(valid, sf[0], sf[1], si[1], si[2], si[3]), (ov, ob)
 
 
 def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
@@ -195,8 +222,17 @@ def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
     boxes: (T, 4) f32  — raw max-conf (x1, y1, x2, y2) per frame.
 
     Returns (out_valid (T,) bool, out_boxes (T, 4) int32).  Frames where
-    out_valid is False correspond to the reference returning None.
+    out_valid is False correspond to the reference returning None.  (The
+    carry is not made into a state: on the card that would be six more
+    tensor operations on the host per video.)
     """
-    _, (ov, ob) = gate_scan_carry(gate_init(), has, boxes, frame_h, frame_w,
-                                  params, use_plain)
+    _check_inputs(has, boxes)
+    if use_plain or not has.is_cuda:
+        _, out = gate_scan_plain(gate_init(), has, boxes, frame_h, frame_w,
+                                 params)
+        return out
+    if has.shape[0] == 0:
+        return _empty_outputs(has.device)
+    _, ov, ob = _gate_scan_cuda(gate_init(), has, boxes, frame_h, frame_w,
+                                params)
     return ov, ob

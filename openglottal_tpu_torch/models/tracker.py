@@ -207,8 +207,9 @@ def _thresh_chain(thresh0, cur, n_px, active, beta: float,
     ONE fused multiply-add, fma(beta, th, that product) (measured: the
     unfused form differs from it in the last bit on ~40% of steps).  Both
     versions here compute exactly that.  The T steps run in order: on a CUDA
-    tensor as ONE launch of a one-thread kernel (``csrc/scan.cu``
-    ``og_thresh_chain``), on a CPU tensor as the plain host loop."""
+    tensor as ONE launch of a one-block kernel whose one thread walks the
+    chain (``csrc/scan.cu`` ``og_thresh_chain``), on a CPU tensor as the plain
+    host loop."""
     if cur.dim() != 1 or n_px.shape != cur.shape or active.shape != cur.shape:
         raise ValueError("thresh_chain: cur, n_px, active must be (T,)")
     if use_plain or not cur.is_cuda:
@@ -218,8 +219,13 @@ def _thresh_chain(thresh0, cur, n_px, active, beta: float,
                           ).reshape(1).contiguous()
     cur_c = cur.to(torch.float32).contiguous()
     npx_c = n_px.to(torch.float32).contiguous()
-    act_c = active.to(torch.uint8).contiguous()
     out = torch.empty_like(cur_c)
+    if out.shape[0] == 0:
+        return out
+    # a bool or uint8 ``active`` goes by its storage (the kernel reads any
+    # non-zero byte as active); other dtypes are compared with 0
+    act_c = (active if active.dtype in (torch.bool, torch.uint8)
+             else active != 0).contiguous()
     so = scan_cuda.lib()
     with torch.cuda.device(dev):
         err = so.og_thresh_chain(

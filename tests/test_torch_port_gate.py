@@ -5,11 +5,13 @@ loop that the one-thread CUDA kernel is held against on the card); the JAX
 side runs the ``lax.scan``.  Outputs are bool / int32 and must be identical.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from openglottal_tpu.models import gate as jgate
+from openglottal_tpu_torch.data.synthetic import gate_stress_sequence
 from openglottal_tpu_torch.models import gate as tgate
 
 
@@ -124,3 +126,61 @@ def test_gate_rejects_bad_shapes():
     with pytest.raises(ValueError):
         tgate.gate_scan(torch.ones(4, dtype=torch.bool), torch.zeros((3, 4)),
                         256, 256)
+
+
+def _carry_bits(st):
+    """A carry of either package as 6 ints (floats by their bits)."""
+    v = [np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+         for x in st]
+    f = np.array([v[1], v[2]], np.float32).view(np.int32)
+    return [int(bool(v[0])), int(f[0]), int(f[1]), int(v[3]), int(v[4]),
+            int(v[5])]
+
+
+def _stress_both(t, carried, cuts=()):
+    """The stress sequence of length t through the JAX package's
+    gate_scan_carry in one call and through the port in segments cut at
+    ``cuts``, from gate_init (what gate_scan runs) or from the sequence's
+    carried-in valid state.  Returns (jax, port) as ((valid, boxes), carry)."""
+    has, boxes, s0 = gate_stress_sequence(t, seed=t)
+    if carried:
+        jst = jgate.GateState(jnp.bool_(s0[0]), jnp.float32(s0[1]),
+                              jnp.float32(s0[2]), jnp.int32(s0[3]),
+                              jnp.int32(s0[4]), jnp.int32(s0[5]))
+        tst = tgate.GateState(*s0)
+    else:
+        jst, tst = jgate.gate_init(), tgate.gate_init()
+    jnew, (jv, jb) = jgate.gate_scan_carry(jst, has, boxes, 256, 256)
+    vs, bs = [], []
+    for a, b in zip((0, *cuts), (*cuts, t)):
+        tst, (v, bx) = tgate.gate_scan_carry(tst, torch.from_numpy(has[a:b]),
+                                             torch.from_numpy(boxes[a:b]),
+                                             256, 256)
+        vs.append(v)
+        bs.append(bx)
+    return (((np.asarray(jv), np.asarray(jb)), _carry_bits(jnew)),
+            ((torch.cat(vs).numpy(), torch.cat(bs).numpy()),
+             _carry_bits(tst)))
+
+
+# the sequences the card's check holds the CUDA kernel to: jumps of exactly
+# max_shift and one float32 ulp either side, rejections, holds, expiry,
+# re-acquisition, boxes outside and larger than the frame; 4097 frames cross
+# the kernel's 4096-frame tile
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("t", [33, 4097])
+def test_gate_stress_sequence_bit_equal(t, carried):
+    ((jv, jb), jc), ((tv, tb), tc) = _stress_both(t, carried)
+    assert 0 < jv.sum() < t
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tb, jb)
+    assert tc == jc
+
+
+def test_gate_stress_carry_chunks_cut_at_4096():
+    """Segments cut inside a tile and at the tile boundary, the carry passed
+    on: equal to the JAX package's one call."""
+    ((jv, jb), jc), ((tv, tb), tc) = _stress_both(4097, True, (1000, 4096))
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tb, jb)
+    assert tc == jc

@@ -11,6 +11,7 @@ from openglottal_tpu.models import tracker as jtracker
 from openglottal_tpu.ops import blur as jblur
 from openglottal_tpu.ops import histogram as jhist
 from openglottal_tpu_torch import features as tfeat
+from openglottal_tpu_torch.data.synthetic import thresh_stress_sequence
 from openglottal_tpu_torch.models import tracker as ttracker
 from openglottal_tpu_torch.ops import blur as tblur
 from openglottal_tpu_torch.ops import histogram as thist
@@ -83,6 +84,16 @@ def test_percentile_from_hist_exact(q):
         assert float(got) == float(want)
 
 
+def _thresh_both(th0, cur, n_px, active, beta):
+    got = ttracker._thresh_chain(torch.tensor(th0), torch.from_numpy(cur),
+                                 torch.from_numpy(n_px),
+                                 torch.from_numpy(active), beta).numpy()
+    want = np.asarray(jtracker._thresh_chain(
+        jnp.asarray(th0), jnp.asarray(cur), jnp.asarray(n_px),
+        jnp.asarray(active), beta))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("seed,beta", [(0, 0.7), (1, 0.7), (2, 0.9), (3, 0.35)])
 def test_thresh_chain_bit_equal(seed, beta):
     """T sequential float32 steps: identical bits, including the fallback
@@ -94,13 +105,15 @@ def test_thresh_chain_bit_equal(seed, beta):
     n_px = rng.choice([0.0, 5.0, 10.0, 11.0, 400.0], t).astype(np.float32)
     active = np.arange(t) < 280
     th0 = np.float32(rng.uniform(20, 200))
-    got = ttracker._thresh_chain(torch.tensor(th0), torch.from_numpy(cur),
-                                 torch.from_numpy(n_px),
-                                 torch.from_numpy(active), beta).numpy()
-    want = np.asarray(jtracker._thresh_chain(
-        jnp.asarray(th0), jnp.asarray(cur), jnp.asarray(n_px),
-        jnp.asarray(active), beta))
-    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    _thresh_both(th0, cur, n_px, active, beta)
+
+
+# the sequences the card's check holds the CUDA kernel to: n_px at 10 and one
+# float32 ulp above it, an inactive tail; T = 1 is the sequential trackers'
+# launch
+@pytest.mark.parametrize("t", [1, 600])
+def test_thresh_chain_stress_sequence_bit_equal(t):
+    _thresh_both(*thresh_stress_sequence(t, seed=t), 0.7)
 
 
 def _wave(kind, t=160):
