@@ -7,7 +7,9 @@
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
         # parent commit unpacked by ``git archive`` into a git-ignored
-        # directory) timed in turns through this checkout's wrappers
+        # directory) timed in turns through this checkout's wrappers, and
+        # this checkout's motion-map launch in turns with the stage an older
+        # checkout served in its place (eager absdiff and blur + og_lmap_ema)
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -16,14 +18,19 @@ the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
 — and checks that the kernels were launched on those paths, that every
 launch equals its plain version on the path's own inputs and that the
 results are right; then the blob filter's two routes against each other and
-the sequential tracker forms.  The two scans of ``csrc/scan.cu`` are also held
-against their plain versions on stress sequences that reach their rare
-branches, from 1 to 20000 frames, and timed bare (the C launch alone) and
-through their wrappers.  Prints the registers and spills ptxas reports for
-every kernel, the thread blocks per SM each blob entry point's launch gets,
-and the device kernels (by ``torch.profiler``) of each served path and of
-each scan wrapper's call.  Needs a CUDA device and nvcc; fails (non-zero exit, no result
-line) without them.  Every phase prints one JSON line; the last line is
+the sequential tracker forms (every launch held too).  The two scans of
+``csrc/scan.cu`` are also held against their plain versions on stress
+sequences that reach their rare branches, from 1 to 20000 frames, and timed
+bare (the C launch alone) and through their wrappers; the motion map on
+random frames of every ksize class, edge and stress shapes and unaligned
+buffers, and timed at vft's served inputs in every band/cluster layout (its
+``motion_map`` line: bare and wrapper ms at the served T and at T = 1, the
+bound, the eager absdiff-and-blur it replaces, per-phase SM cycles).  Prints
+the registers and spills ptxas reports for every kernel, the thread blocks
+per SM each blob entry point's launch gets, and the device kernels (by
+``torch.profiler``) of each served path and of each scan wrapper's call.
+Needs a CUDA device and nvcc; fails (non-zero exit, no result line) without
+them.  Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -106,7 +113,8 @@ def ptxas_summary(log: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, stack_bytes}} from the
     output of ``nvcc -Xptxas -v``."""
     def plain_name(sym):
-        # the last component of an Itanium-mangled (nested) name
+        # the last component of an Itanium-mangled (nested) name, with its
+        # integer template arguments (motion_map_kernel<2,6>)
         if not sym.startswith("_Z"):
             return sym
         pos, parts = (3 if sym.startswith("_ZN") else 2), []
@@ -115,7 +123,14 @@ def ptxas_summary(log: str) -> dict:
             pos += len(n)
             parts.append(sym[pos:pos + int(n)])
             pos += int(n)
-        return parts[-1] if parts else sym
+        if not parts:
+            return sym
+        targs = re.match(r"I((?:Lin?\d+E)+)E", sym[pos:])
+        if targs:
+            vals = [("-" if v.startswith("n") else "") + v.lstrip("n")
+                    for v in re.findall(r"Li(n?\d+)E", targs.group(1))]
+            return f"{parts[-1]}<{','.join(vals)}>"
+        return parts[-1]
 
     out, fn = {}, None
     for line in log.splitlines():
@@ -151,6 +166,7 @@ def main() -> int:
     from openglottal_tpu_torch.models import gate as gate_mod
     from openglottal_tpu_torch.models import tracker as tracker_mod
     from openglottal_tpu_torch.ops import _build, blobs, blobs_cuda, scan_cuda
+    from openglottal_tpu_torch.ops.blur import gaussian_blur
     from openglottal_tpu_torch.pipelines import GlottalPipelines
 
     args = sys.argv[1:]
@@ -225,6 +241,11 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name}: kernel and plain version differ "
                                  f"(max abs diff {err})")
+
+    def unaligned(x, by):
+        """x copied to an address ``by`` elements past a fresh allocation."""
+        return torch.empty(x.numel() + by, dtype=x.dtype, device=dev
+                           )[by:].view(x.shape).copy_(x)
 
     rng = np.random.default_rng(0)
     stress = []
@@ -304,18 +325,45 @@ def main() -> int:
         k = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7)
         p = tracker_mod._thresh_chain(th0, cur, npx, act, 0.7, use_plain=True)
         hold("thresh_chain", k.view(torch.int32), p.view(torch.int32))
-        # the motion-map recurrence: random maps, an inactive prefix and tail
-        tl, hl, wl = 300, 61, 97
-        d = torch.from_numpy(r.uniform(0, 60, (tl, hl, wl)).astype(np.float32)
-                             ).to(dev)
-        l0 = torch.from_numpy(r.uniform(0, 40, (hl, wl)).astype(np.float32)
-                              ).to(dev)
-        act = torch.from_numpy((np.arange(tl) >= 2) & (np.arange(tl) < tl - 9)
-                               ).to(dev)
-        for alpha in (0.98, 0.3):
-            k = tracker_mod.lmap_ema(l0, d, act, alpha)
-            p = tracker_mod.lmap_ema(l0, d, act, alpha, use_plain=True)
-            hold("lmap_ema", k.view(torch.int32), p.view(torch.int32))
+
+    # the motion map (blurred absdiff and recurrence in one launch) on random
+    # integer-valued frames with an inactive prefix and tail: every ksize
+    # class (1 tap, cv2's table, the served 13, the most the kernel takes),
+    # T = 1 and T not a multiple of the 32-frame chunk, frames one row or
+    # column wider than the blur's radius, the guided-vft window and the
+    # 256x256 stress frame, and buffers at unaligned addresses
+    def map_inputs(tl, hl, wl, seed):
+        r = np.random.default_rng(seed)
+        fr = torch.from_numpy(r.integers(0, 256, (tl, hl, wl)).astype(
+            np.float32)).to(dev)
+        p0 = torch.from_numpy(r.integers(0, 256, (hl, wl)).astype(
+            np.float32)).to(dev)
+        l0 = torch.from_numpy(r.uniform(0, 40, (hl, wl)).astype(
+            np.float32)).to(dev)
+        act = torch.from_numpy((np.arange(tl) >= min(2, tl - 1))
+                               & (np.arange(tl) < max(tl - 9, 1))).to(dev)
+        return p0, fr, l0, act
+
+    def hold_map(p0, fr, l0, act, alpha, ksize):
+        k = tracker_mod.motion_map(p0, fr, l0, act, alpha, ksize)
+        p = tracker_mod.motion_map(p0, fr, l0, act, alpha, ksize,
+                                   use_plain=True)
+        hold("motion_map", k.view(torch.int32), p.view(torch.int32))
+
+    map_cases = [((300, 61, 97), a, ks) for a in (0.98, 0.3)
+                 for ks in (1, 5, 13, 31)]
+    map_cases += [((1, 48, 40), 0.98, 13), ((33, 48, 40), 0.98, 13),
+                  ((45, 61, 97), 0.3, 13), ((502, 48, 40), 0.98, 13),
+                  ((40, 7, 50), 0.98, 13), ((40, 50, 7), 0.98, 13),
+                  ((40, 16, 16), 0.3, 31), ((500, 128, 128), 0.98, 13),
+                  ((4, 256, 256), 0.98, 13), ((4, 256, 256), 0.3, 31),
+                  # many rounds of the cluster's slices
+                  ((4100, 48, 40), 0.98, 13)]
+    for i, ((tl, hl, wl), alpha, ksize) in enumerate(map_cases):
+        hold_map(*map_inputs(tl, hl, wl, i), alpha, ksize)
+    p0, fr, l0, act = map_inputs(77, 61, 97, 99)
+    hold_map(unaligned(p0, 3), unaligned(fr, 1), unaligned(l0, 2),
+             unaligned(act, 5), 0.98, 13)
 
     # the two one-block scans on stress sequences that reach their rare
     # branches (jumps of max_shift and one ulp either side of it, holds,
@@ -338,11 +386,6 @@ def main() -> int:
         hold("gate_scan", kb, pb)
         hold("gate_scan", gate_state_bits(ks), gate_state_bits(ps))
         return ks, kv, kb
-
-    def unaligned(x, by):
-        """x copied to an address ``by`` elements past a fresh allocation."""
-        return torch.empty(x.numel() + by, dtype=x.dtype, device=dev
-                           )[by:].view(x.shape).copy_(x)
 
     scan_lengths = (1, 2, 33, 502, 4097, 20000)
     for t_ in scan_lengths:
@@ -414,17 +457,13 @@ def main() -> int:
                               "shape": [h, w] if name == "cc" else [t, h, w],
                               "kernel_ms": time_cuda(kfn, 20),
                               "plain_ms": time_cuda(pfn, 1)})
-    for tl, hl, wl in ((500, 48, 40), (500, 128, 128)):
-        d = torch.rand((tl, hl, wl), device=dev) * 60
-        l0 = torch.rand((hl, wl), device=dev) * 40
-        act = torch.arange(tl, device=dev) >= 2
+    for tl, hl, wl in ((500, 48, 40), (500, 128, 128), (4, 256, 256)):
+        args = (*map_inputs(tl, hl, wl, 7), 0.98, 13)
         stress_ms.append({
-            "kernel": "lmap_ema", "shape": [tl, hl, wl],
-            "kernel_ms": time_cuda(
-                lambda: tracker_mod.lmap_ema(l0, d, act, 0.98), 20),
+            "kernel": "motion_map", "shape": [tl, hl, wl],
+            "kernel_ms": time_cuda(lambda: tracker_mod.motion_map(*args), 20),
             "plain_ms": time_cuda(
-                lambda: tracker_mod.lmap_ema(l0, d, act, 0.98,
-                                             use_plain=True), 1)})
+                lambda: tracker_mod.motion_map(*args, use_plain=True), 1)})
 
     # ── in turns against other checkouts' kernels (--against) ───────────
     @contextlib.contextmanager
@@ -448,6 +487,24 @@ def main() -> int:
             got, want = got.view(torch.int32), want.view(torch.int32)
         return torch.equal(got, want)
 
+    built_against = {}
+
+    def against_libraries():
+        """{tag: {source: library}} of this checkout and of every --against
+        checkout (built once, all nvcc processes started together), and the
+        builds with their compiler output."""
+        if not built_against:
+            built_against["built"] = _build.build_others(
+                {f"{src}_against{i}":
+                 Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
+                 for i, d in enumerate(against) for src in _build.SOURCES},
+                ("-Xptxas", "-v"))
+        built = built_against["built"]
+        return ({"this": {src: _build.load(src) for src in _build.SOURCES},
+                 **{d: {src: built[f"{src}_against{i}"][0]
+                        for src in _build.SOURCES}
+                    for i, d in enumerate(against)}}, built)
+
     def in_turns(items, walls=None):
         """The kernels of this checkout and of every --against checkout on
         the same inputs, through this checkout's wrappers: each held exactly
@@ -456,14 +513,7 @@ def main() -> int:
         checkout's two turns).  items: (label, kernel fn, plain output or
         None).  walls: {label: fn returning wall ms per video}, served with
         each checkout's kernels in the same turns, twice over."""
-        built = _build.build_others(
-            {f"{src}_against{i}": Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
-             for i, d in enumerate(against) for src in _build.SOURCES},
-            ("-Xptxas", "-v"))
-        libs = {"this": {src: _build.load(src) for src in _build.SOURCES},
-                **{d: {src: built[f"{src}_against{i}"][0]
-                       for src in _build.SOURCES}
-                   for i, d in enumerate(against)}}
+        libs, built = against_libraries()
         order = [*libs, *reversed(libs)]
         each = {label: {tag: [] for tag in libs} for label, _, _ in items}
         wall = {label: {tag: [] for tag in libs} for label in walls or {}}
@@ -673,13 +723,13 @@ def main() -> int:
             ("guided-vft", {"dual_cc_batch": 1, "dual_min_prop_batch": 1,
                             "min_prop_batch": 2, "gate_scan": 1,
                             "thresh_chain": 1, "cc": 0, "cc_batch": 0,
-                            "lmap_ema": 0}),
+                            "motion_map": 0}),
             ("unet", {"gate_scan": 1}),
             # vft: the tracker's init labels one ROI mask (2 single-frame CC
             # launches); the ROI filter and the output filter are one
             # top_n_blobs_batch each, by the split route (2 single-region CC
             # launches + 2 + 2 single-region broadcasts apiece)
-            ("vft", {"gate_scan": 1, "cc": 2, "lmap_ema": 1,
+            ("vft", {"gate_scan": 1, "cc": 2, "motion_map": 1,
                      "cc_batch": 4, "min_prop_batch": 8, "thresh_chain": 1,
                      "dual_cc_batch": 0, "dual_min_prop_batch": 0})):
         for tag, pipe in pipes.items():
@@ -767,6 +817,7 @@ def main() -> int:
     gray = seq_pipe._to_gray(clip)
     n_valid = int(seq_pipe._detect_gate(gray)[0].sum())
     sequential = {}
+    seq_recorded = {}
     for pipeline, n_cc, n_steps in (
             # init: 2 launches; a vft step labels the ROI mask and the output
             # mask (4 launches) and runs for every gated crop, the inactive
@@ -777,11 +828,15 @@ def main() -> int:
         seq_pipe.extract_features(clip, pipeline)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        feats, got = counted(lambda: seq_pipe.extract_features(clip, pipeline))
+        record = []
+        feats, got = counted(lambda: seq_pipe.extract_features(clip, pipeline),
+                             record)
         wall = (time.perf_counter() - t0) * 1e3
+        seq_recorded[pipeline] = record
         expect_counts(f"{pipeline}, sequential", got,
-                      {"cc": n_cc, "lmap_ema": n_steps, "thresh_chain": n_steps,
-                       "gate_scan": 1, "cc_batch": 0, "dual_cc_batch": 0})
+                      {"cc": n_cc, "motion_map": n_steps,
+                       "thresh_chain": n_steps, "gate_scan": 1, "cc_batch": 0,
+                       "dual_cc_batch": 0})
         check_features(f"{pipeline}, sequential", feats, expect_f0=None,
                        frames=len(clip))
         diff = float(np.abs(feats["_area"] - a_par).max())
@@ -843,7 +898,7 @@ def main() -> int:
         "gate_scan": ("openglottal_tpu/models/gate.py:98", "guided-vft"),
         "thresh_chain": ("openglottal_tpu/models/tracker.py:216",
                          "guided-vft"),
-        "lmap_ema": ("openglottal_tpu/models/tracker.py:204", "vft"),
+        "motion_map": ("openglottal_tpu/models/tracker.py:204", "vft"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
@@ -902,13 +957,16 @@ def main() -> int:
             return (lambda: gate_mod.gate_scan(has, raw, *args),
                     lambda: gate_mod.gate_scan(has, raw, *args, use_plain=True),
                     n * (1 + 16 + 1 + 16), n * 40)
-        if name == "lmap_ema":
-            l0, d, act = inputs
-            return (lambda: tracker_mod.lmap_ema(l0, d, act, kw["alpha"]),
-                    lambda: tracker_mod.lmap_ema(l0, d, act, kw["alpha"],
-                                                 use_plain=True),
-                    l0.numel() * 4 + d.numel() * 8 + act.numel(),
-                    d.numel() * 2)
+        if name == "motion_map":
+            p0, fr, l0, act = inputs
+            args = (p0, fr, l0, act, kw["alpha"], kw["ksize"])
+            # per pixel-step: the subtract, 2K products and 2K - 2 sums of
+            # the blur, alpha*d and the fma (2); the frames read once, the
+            # maps written once, prev0 and lmap0 read once
+            return (lambda: tracker_mod.motion_map(*args),
+                    lambda: tracker_mod.motion_map(*args, use_plain=True),
+                    fr.numel() * 8 + p0.numel() * 8 + act.numel(),
+                    fr.numel() * (4 * kw["ksize"] + 2))
         th0, cur, npx, act = inputs
         n = cur.numel()
         return (lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"]),
@@ -953,6 +1011,24 @@ def main() -> int:
         if held.get(path, 0) != len(record) or not record:
             raise AssertionError(f"{path}: {held.get(path, 0)} of "
                                  f"{len(record)} launches were held")
+    # and every launch of the sequential trackers (one motion map per frame)
+    for pipeline, record in seq_recorded.items():
+        for name, inputs, kw in record:
+            kfn, pfn, _, _ = runners(name, inputs, kw)
+            got, want = kfn(), pfn()
+            if isinstance(got, tuple):
+                for g, w_ in zip(got, want):
+                    hold(name, g, w_)
+            elif got.dtype.is_floating_point:
+                hold(name, got.view(torch.int32), want.view(torch.int32))
+            else:
+                hold(name, got, want)
+            key = f"{pipeline} sequential"
+            held[key] = held.get(key, 0) + 1
+        if held.get(f"{pipeline} sequential", 0) != len(record) or not record:
+            raise AssertionError(f"{pipeline} sequential: not every launch "
+                                 f"was held")
+    reset_counts()
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -1079,7 +1155,160 @@ def main() -> int:
         serial_floor=serial, sm_clock_mhz_now_max=clocks,
         n_device_kernels_per_video_bf16=path_kernels)
 
+    # ── the motion map at vft's served inputs: bare, wrapper, T = 1 ─────
+    # og_motion_map_as takes the band rows and cluster ranks explicitly; the
+    # first three are the one-block-per-band design (every band's frames
+    # through one SM), the others split each band's frames over a cluster
+    so.og_motion_map_as.argtypes = [vp] * 5 + [ci, ci, ci, vp, ci, cf, cf,
+                                               ci, ci, vp, vp]
+    so.og_motion_map_layout.argtypes = [ci] * 6 + [vp]
+    layout_keys = ("rows", "ranks", "chunk", "slice", "staging_buffers",
+                   "smem_bytes", "blocks", "blocks_per_sm",
+                   "clusters_at_once")
+    phase_keys = ("prologue", "wait_for_copies", "absdiff_h_blur",
+                  "w_blur_and_push", "barriers", "maps_out", "walk")
+
+    def map_layout(t_, h_, w_, ksize, rows=0, ranks=0):
+        info = (ctypes.c_longlong * 9)()
+        _build.check(so.og_motion_map_layout(t_, h_, w_, ksize, rows, ranks,
+                                             info), "og_motion_map_layout")
+        return dict(zip(layout_keys, info))
+
+    def bare_map(p0, fr, l0, act, alpha, ksize, rows=0, ranks=0,
+                 cycles=None):
+        """og_motion_map_as launched alone on buffers made here once (with
+        ``cycles``, an int64 tensor of 7: block 0's phase cycles)."""
+        t_, h_, w_ = fr.shape
+        keep = (fr.contiguous(), p0.contiguous(), l0.contiguous(),
+                act.contiguous(), torch.empty_like(fr))
+        taps = scan_cuda.taps(ksize)
+        args = (*(x.data_ptr() for x in keep), t_, h_, w_, taps, ksize,
+                float(np.float32(alpha)), float(np.float32(1.0 - alpha)),
+                rows, ranks, None if cycles is None else cycles.data_ptr())
+
+        def run():
+            _build.check(so.og_motion_map_as(*args, scan_cuda.stream()),
+                         "og_motion_map_as")
+            return keep[4]
+        return run
+
+    (m_p0, m_fr, m_l0, m_act), m_kw = next(
+        (inp, kw) for name, inp, kw in recorded["vft"] if name == "motion_map")
+    m_alpha, m_ks = m_kw["alpha"], m_kw["ksize"]
+    m_want = tracker_mod.motion_map(m_p0, m_fr, m_l0, m_act, m_alpha, m_ks,
+                                    use_plain=True)
+    m_first = (m_p0, m_fr[:1], m_l0, m_act[:1], m_alpha, m_ks)
+    m_args = (m_p0, m_fr, m_l0, m_act, m_alpha, m_ks)
+    shapes = {"rows=1 ranks=1": (1, 1), "rows=2 ranks=1": (2, 1),
+              "rows=4 ranks=1": (4, 1), "rows=1 ranks=2": (1, 2),
+              "rows=2 ranks=2": (2, 2), "rows=2 ranks=4": (2, 4),
+              "rows=2 ranks=5": (2, 5), "rows=2 ranks=6": (2, 6),
+              "rows=4 ranks=8": (4, 8), "default": (0, 0)}
+    runs = {k: bare_map(*m_args, rows=r_, ranks=k_)
+            for k, (r_, k_) in shapes.items()}
+    for k, fn in runs.items():
+        if not identical(fn(), m_want):
+            raise AssertionError(f"motion_map {k}: differs from its plain "
+                                 f"version")
+    sweep = {k: [] for k in runs}
+    for k in [*runs, *reversed(runs)]:
+        sweep[k].append(time_cuda(runs[k], 50))
+    t_sh = tuple(m_fr.shape)
+    m_cycles = torch.zeros(7, dtype=torch.int64, device=dev)
+    bare_map(*m_args, cycles=m_cycles)()
+    torch.cuda.synchronize()
+    one_cycles = torch.zeros(7, dtype=torch.int64, device=dev)
+    bare_map(*m_first, cycles=one_cycles)()
+    # the same frames through a 1-tap blur: what the phases cost without
+    # the blur's arithmetic
+    k1_cycles = torch.zeros(7, dtype=torch.int64, device=dev)
+    d_lay = map_layout(*t_sh, m_ks)
+    bare_map(*m_args[:5], 1, rows=d_lay["rows"], ranks=d_lay["ranks"],
+             cycles=k1_cycles)()
+    torch.cuda.synchronize()
+    m_wrapper = lambda: tracker_mod.motion_map(*m_args)     # noqa: E731
+    m_bytes = m_fr.numel() * 8 + m_p0.numel() * 8 + m_act.numel()
+    m_ops = m_fr.numel() * (4 * m_ks + 2)
+    # the eager stage this kernel replaces: absdiff and blur as eager
+    # PyTorch (the plain version's own), queued
+    eager_blur = lambda: gaussian_blur(                     # noqa: E731
+        (m_fr - tracker_mod._prev_chain(m_p0, m_fr)).abs(), m_ks)
+    default_layout = d_lay
+    kname = (f"motion_map_kernel<{default_layout['rows']},"
+             f"{6 if m_ks == 13 else -1}>")
+    motion_map_line = {
+        "served_shape": list(t_sh), "ksize": m_ks, "alpha": m_alpha,
+        "timing": TIMING,
+        "bare_ms": time_cuda(runs["default"], 50),
+        "wrapper_ms": time_cuda(m_wrapper, 50),
+        "bare_ms_t1": time_cuda(bare_map(*m_first), 50),
+        "wrapper_ms_t1": time_cuda(
+            lambda: tracker_mod.motion_map(*m_first), 50),
+        "bound_ms": max(m_bytes / HBM_BYTES_PER_S, m_ops / FP32_OPS_PER_S)
+        * 1e3,
+        "bound_by": ("bytes" if m_bytes / HBM_BYTES_PER_S
+                     >= m_ops / FP32_OPS_PER_S else "operations"),
+        "eager_absdiff_blur_ms": time_cuda(eager_blur, 20),
+        "eager_absdiff_blur_device_kernels": sum(
+            device_kernels(eager_blur).values()),
+        "wrapper_device_kernels": device_kernels(m_wrapper),
+        "layout": default_layout,
+        "layout_t1": map_layout(1, *t_sh[1:], m_ks),
+        "ptxas": {k: v for k, v in ptxas_summary(logs["scan"]).items()
+                  if k.startswith("motion_map_kernel")},
+        "served_kernel": kname,
+        "phase_cycles": dict(zip(phase_keys, m_cycles.tolist())),
+        "phase_cycles_t1": dict(zip(phase_keys, one_cycles.tolist())),
+        "phase_cycles_ksize1": dict(zip(phase_keys, k1_cycles.tolist())),
+        "sm_clock_mhz_now_max": clocks,
+        "rows_ranks_in_turns_ms": {k: sum(v) / len(v)
+                                   for k, v in sweep.items()},
+        "rows_ranks_layouts": {k: map_layout(*t_sh, m_ks, r_, k_)
+                               for k, (r_, k_) in shapes.items()},
+    }
+    say("motion_map", compared="exact equality with the plain version, "
+        "every layout", **motion_map_line)
+    scan_times[f"motion_map T={t_sh[0]}"] = {
+        "bare_ms": motion_map_line["bare_ms"]}
+
     if against:
+        # the motion-map stage: this checkout's one launch in turns with an
+        # older checkout's stage as it served it (the eager absdiff and blur,
+        # then its og_lmap_ema through the old C interface), held equal
+        libs, _ = against_libraries()
+        stages = {"this": m_wrapper}
+        for d in against:
+            old = getattr(libs[d]["scan"], "og_lmap_ema", None)
+            if old is None:
+                continue
+            old.argtypes = [vp] * 4 + [ci, ci, cf, cf, vp]
+            old.restype = ctypes.c_int
+
+            def old_stage(old=old):
+                dd = eager_blur()
+                a8 = m_act.to(torch.uint8).contiguous()
+                o = torch.empty_like(dd)
+                _build.check(old(m_l0.data_ptr(), dd.data_ptr(),
+                                 a8.data_ptr(), o.data_ptr(), dd.shape[0],
+                                 m_l0.numel(), float(np.float32(m_alpha)),
+                                 float(np.float32(1.0 - m_alpha)),
+                                 scan_cuda.stream()), "og_lmap_ema")
+                return o
+            stages[d] = old_stage
+        for tag, fn in stages.items():
+            if not identical(fn(), m_want):
+                raise AssertionError(f"motion-map stage of {tag} differs "
+                                     f"from the plain version")
+        stage_ms = {tag: [] for tag in stages}
+        for tag in [*stages, *reversed(stages)]:
+            stage_ms[tag].append(time_cuda(stages[tag], 50))
+        say("against_motion_map_stage", timing=TIMING,
+            shape=list(t_sh), order=[*stages, *reversed(stages)],
+            compared="exact equality with the plain version",
+            ms={k: sum(v) / len(v) for k, v in stage_ms.items()},
+            ms_each_turn=stage_ms,
+            device_kernels={k: sum(device_kernels(fn).values())
+                            for k, fn in stages.items()})
         items = []
         for path, record in recorded.items():
             for k, (name, inputs, kw) in enumerate(record):
@@ -1091,8 +1320,11 @@ def main() -> int:
                                   kfn, pfn()))
         in_turns(items + stress_items() + scan_items(served_scans, "served")
                  + scan_items(stress_scan_cases(), "stress"),
-                 {f"{p}/bf16": (lambda p=p: serve(pipes["bf16"], p))
-                  for p in ("guided-vft", "vft")})
+                 # (vft's motion map is one launch of this checkout's
+                 # og_motion_map, which an older library may lack: its stage
+                 # is compared on its own above)
+                 {"guided-vft/bf16": lambda: serve(pipes["bf16"],
+                                                   "guided-vft")})
 
     kernels = []
     for name, (replaces, path) in kernel_table.items():

@@ -4,9 +4,11 @@
 //                       (a lax.scan over per-frame detection summaries)
 //   og_thresh_chain  <- openglottal_tpu/models/tracker.py _thresh_chain
 //                       (a lax.scan over T scalars)
-//   og_lmap_ema      <- openglottal_tpu/models/tracker.py _linear_prefix as
+//   og_motion_map    <- openglottal_tpu/models/tracker.py _linear_prefix as
 //                       vft_parallel uses it (an associative scan over
-//                       (T,H,W)), i.e. the motion-map update of vft_step
+//                       (T,H,W)), with the blurred absdiff that feeds it
+//                       (gaussian_blur(|frame - prev|), tracker.py:325), i.e.
+//                       the motion-map update of vft_step
 //
 // None replaces a Pallas kernel; each replaces an XLA scan.  The first two are
 // a few scalar operations per frame that must run in frame order and stay
@@ -16,16 +18,13 @@
 // notes above the kernels say what bounds them and how the block keeps
 // everything but the carried recurrence off its one serial thread.
 //
-// og_lmap_ema is the motion map lmap_t = alpha*d_t + (1-alpha)*lmap_{t-1} per
-// pixel.  The reference computes it by parallel prefix because its compiler
-// wants one, and pays log T passes over (T,H,W) plus a reassociated result.
-// Here a thread owns a pixel and walks T in order with the state in a
-// register: neighbouring threads read neighbouring addresses of every frame,
-// d is read once and the maps are written once (8 B per pixel-step, the
-// bound), and the result is the sequential tracker's, bit for bit.  Its
-// parallelism is H*W threads (a size-locked crop: a few thousand), so on a
-// small crop the T dependent fused multiply-adds per thread, not bytes, set
-// the time.
+// og_motion_map computes, per pixel, d_t = blur(|frame_t - frame_{t-1}|) and
+// lmap_t = alpha*d_t + (1-alpha)*lmap_{t-1}, all in one launch: d never
+// reaches device memory.  The reference computes the recurrence by parallel
+// prefix because its compiler wants one, and pays log T passes over (T,H,W)
+// plus a reassociated result; here each pixel walks T in order, so the result
+// is the sequential tracker's, bit for bit.  The note above the kernel says
+// how the blur, which is most of the work, is spread over the card.
 //
 // Float arithmetic uses the round-to-nearest intrinsics throughout, so that
 // where a multiply and an add are fused is written down here and not left to
@@ -33,8 +32,9 @@
 // pixel population.  The threshold step is fma(beta, th, round((1-beta)*c)),
 // the form the reference's scan takes (see models/tracker.py _thresh_chain);
 // the motion-map step is fma(1-alpha, lmap, round(alpha*d)), the form the
-// reference's sequential scan takes (models/tracker.py lmap_ema); the gate
-// uses no fused operation.
+// reference's sequential scan takes (models/tracker.py lmap_ema_plain); the
+// blur is a product per tap and a left-to-right sum, unfused, as eager
+// PyTorch computes it (ops/blur.py); the gate uses no fused operation.
 //
 // Plain C interface; nothing allocates or synchronises; each function returns
 // cudaGetLastError().
@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -632,26 +634,804 @@ thresh_chain_kernel(const float* __restrict__ thresh0,
   if (tid == 0 && walk_cycles) *walk_cycles = cycles;
 }
 
-// lmap0: (n,) state before the first step; d, out: (t, n); active: (t,).
-// Inactive steps keep the state and still write it out.
-__global__ void lmap_ema_kernel(const float* __restrict__ lmap0,
-                                const float* __restrict__ d,
-                                const uint8_t* __restrict__ active,
-                                float* __restrict__ out, int t, int n,
-                                float alpha, float one_minus_alpha) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float lm = lmap0[p];
-  const float* src = d + p;
-  float* dst = out + p;
-#pragma unroll 8
-  for (int i = 0; i < t; ++i) {
-    const float di = src[static_cast<size_t>(i) * n];
-    // pinned rounding: round32(alpha*d), then one fused multiply-add
-    const float nxt = __fmaf_rn(one_minus_alpha, lm, __fmul_rn(alpha, di));
-    lm = active[i] ? nxt : lm;
-    dst[static_cast<size_t>(i) * n] = lm;
+// ── the motion map ──────────────────────────────────────────────────────
+//
+// Replaces the motion-map update of vft_parallel / vft_step
+// (openglottal_tpu/models/tracker.py: _linear_prefix over gaussian_blur of
+// the absdiff).  For frames (t, h, w), the frame before the first prev0 (h,
+// w), the map before the first lmap0 (h, w) and active (t,):
+//
+//   d_i    = blur(|frames[i] - frames[i-1]|)   (frames[-1] = prev0)
+//   lmap_i = active_i ? fma(1-alpha, lmap_{i-1}, round32(alpha*d_i))
+//                     : lmap_{i-1}
+//
+// and every lmap_i is stored.  The blur is ops/blur.py's: reflect-101
+// borders (by index math here: no padded copy), the h axis first, then the w
+// axis, each product rounded (__fmul_rn) and the taps summed from tap 0 left
+// to right (__fadd_rn), unfused.  Inactive steps keep the map and still
+// store it.
+//
+// Bytes bound: 4 B read + 4 B written per pixel-step (the frames, the maps);
+// at a served (502, 48, 40) that is 7.7 MB, 2.3 us at 3.35 TB/s.  The
+// operations (a subtract, 2K multiplies and 2K-2 adds of the blur, a multiply
+// and an fma per pixel-step; ~55 at K = 13) are 1.6 us at the card's
+// float32 rate; the serial floor is t dependent fmas per pixel (502 x 4
+// cycles, ~1 us).  The blur is most of the work, and it does not read the
+// carry.
+//
+// The design.  A block owns a band of `rows` output rows by the full width.
+// The blur of a band needs its rows and r = K/2 more on either side, so the
+// smaller the band the more often each input row is read (7x at two rows and
+// K = 13).  Bands of one block each, walking all t frames, put every band's
+// t frames through one SM: measured 0.110-0.177 ms at (502, 48, 40) for
+// bands of 1, 2 and 4 rows (chip_smoke.py's motion_map line).  So the frames
+// of a band are split too, over a cluster of `ranks` blocks.  Each round,
+// rank j blurs its slice of the round's frames and pushes each d into the
+// shared memory of the rank that walks that pixel (distributed shared
+// memory: rank j walks pixels [j*npx, (j+1)*npx) of the band); after one
+// cluster barrier every rank walks its pixels through all the round's frames
+// from its own shared memory.  d never reaches device memory, and no carry
+// passes between blocks.
+//
+// A rank blurs its slice in chunks of up to 32 frames.  A chunk's staged
+// input (the band's input rows of each frame of the chunk and of the frame
+// before it) is copied into shared memory by the tensor memory accelerator,
+// one bulk copy per frame issued by lane 0 of each warp in turn, the next
+// chunk's copies in flight while this one is computed (cp.async issued by
+// every thread moved ~9 B per SM cycle here).  Then:
+//   1. all threads: the absdiff and the h-axis blur; a thread takes a column
+//      and a run of frames, keeps the previous frame's input rows in
+//      registers and computes the band's rows from one pass over the
+//      column's rows; results go to a tile whose rows carry r reflected
+//      columns on either side;
+//   2. all threads: the w-axis blur, four columns a thread, pushed to the
+//      walkers' tiles (a row of the round's frames per pixel).
+// The walk keeps the map in a register and writes each map over its d (four
+// frames a float4, the next 16 frames' loads ahead of the chain, one fma a
+// step where 16 active flags in a row are set: the flags are one ballot word
+// per 32 frames); then the block stores the round's maps coalesced.  The
+// sequential trackers' t = 1 is the same kernel with a cluster of one block.
+//
+// What limits it (clock64() per phase of block 0, chip_smoke.py, NVIDIA H100
+// 80GB HBM3 at 700 W): at (502, 48, 40) with 2-row bands over clusters of 4
+// (96 blocks) the launch takes ~29 us, ~50k SM cycles, of which the two
+// blur phases are ~60 % at about one instruction per SM cycle.  Phase 1's
+// time does not fall with K (a 1-tap blur takes as long as 13 taps), so it
+// is the 7x re-read of the staged rows through L2 (~29 MB for the launch)
+// that holds it; the walk is ~16 cycles a step.
+
+constexpr int kMaxTaps = 31;
+constexpr int kMaxChunk = 32;      // frames a rank stages at once
+constexpr int kMaxRanks = 8;       // blocks of a cluster (portable size)
+constexpr int kMapThreads = 512;
+constexpr int kTargetBlocks = 132; // the H100's SMs
+constexpr size_t kMaxSmem = 227 * 1024;
+
+struct MapTaps {
+  float k[kMaxTaps];
+};
+
+// Reflect-101 of a row or column index that lies less than n outside [0, n).
+__device__ __forceinline__ int reflect101(int i, int n) {
+  i = i < 0 ? -i : i;
+  return i >= n ? 2 * (n - 1) - i : i;
+}
+
+// Shared layout: taps | an mbarrier per staging buffer | active words of a
+// round | the h-blur tile (chunk * rows * (w + 2r) floats) | the walker's
+// tile (a row of the round's d per pixel this rank walks, then its maps) |
+// nbuf staging buffers of chunk + 1 frames, up to `rows + 2r` rows of w
+// floats each, copied in whole 16-B granules.
+struct MapLayout {
+  int rows, ranks, chunk, slice, nbuf, radius;
+  size_t frame_bytes, buffer_bytes, bar_off, act_off, hb_off, walk_off,
+      buf_off, smem;
+  // where block 0's thread 0 adds up the SM cycles of its phases: the
+  // prologue, waiting for a chunk's copies, phase 1, phase 2, the cluster
+  // barriers, the maps' stores, the walk (nullptr: not measured;
+  // chip_smoke.py only)
+  long long* phase_cycles;
+};
+
+// A walker-tile row: the round's frames, rounded up to 4 mod 8 floats, so
+// that a walker's float4 loads and stores (8 threads a phase, rows apart) fall
+// on distinct banks.
+__host__ __device__ inline int walk_pitch(int frames) {
+  return ((frames + 3) & ~7) + 4;
+}
+
+inline MapLayout map_layout(int h, int w, int ksize, int rows, int ranks,
+                            int chunk, int slice, int nbuf) {
+  MapLayout L;
+  L.phase_cycles = nullptr;
+  L.rows = rows;
+  L.ranks = ranks;
+  L.chunk = chunk;
+  L.slice = slice;
+  L.nbuf = nbuf;
+  L.radius = ksize / 2;
+  const int srows = h < rows + 2 * L.radius ? h : rows + 2 * L.radius;
+  L.frame_bytes = staged_bytes(srows * w, 4);
+  L.buffer_bytes = static_cast<size_t>(chunk + 1) * L.frame_bytes;
+  L.bar_off = round16(kMaxTaps * 4);
+  L.act_off = L.bar_off + 16;
+  // + 1 word: a batch of the walk reads the word after its first frame's
+  L.hb_off = L.act_off +
+             round16(static_cast<size_t>((ranks * slice + 31) / 32 + 1) * 4);
+  // + 3 floats: the w blur's last group of four reads past its row
+  L.walk_off = L.hb_off + round16((static_cast<size_t>(chunk) * rows *
+                                    (w + 2 * L.radius) + 3) * 4);
+  // the walker's tile: the round's d of this rank's pixels of the walk, a
+  // row of walk_pitch(ranks * slice) floats per pixel
+  const size_t walk_px = (static_cast<size_t>(rows) * w + ranks - 1) / ranks;
+  L.buf_off = L.walk_off + round16(walk_px * walk_pitch(ranks * slice) * 4);
+  L.smem = L.buf_off + nbuf * L.buffer_bytes;
+  return L;
+}
+
+// Rows of a band where the caller names none: 2 (the fastest of 1, 2, 4 and
+// 8 at (502, 48, 40): chip_smoke.py's motion_map line), more where the bands
+// alone would exceed one block per SM.
+inline int default_map_rows(int h) {
+  int rows = h < 2 ? 1 : 2;
+  while (rows < 16 && (h + rows - 1) / rows > kTargetBlocks) rows *= 2;
+  return rows;
+}
+
+// For bands of `rows` rows split over `ranks` blocks: the largest staging
+// chunk, and the longest slice a round gives each rank, that fit shared
+// memory; chunk 0 where nothing fits.
+inline MapLayout choose_map_layout(int t, int h, int w, int ksize, int rows,
+                                   int ranks) {
+  const int per_rank = (t + ranks - 1) / ranks;
+  for (int c = per_rank < kMaxChunk ? per_rank : kMaxChunk; c >= 1; c /= 2) {
+    const MapLayout base = map_layout(h, w, ksize, rows, ranks, c, c, 2);
+    if (base.smem > kMaxSmem) continue;
+    const size_t per_frame =
+        static_cast<size_t>(ranks) *
+        ((static_cast<size_t>(rows) * w + ranks - 1) / ranks) * 4;
+    const size_t room = (kMaxSmem - base.smem) / per_frame + c;
+    for (int slice = room >= static_cast<size_t>(per_rank)
+                         ? per_rank
+                         : static_cast<int>(room);
+         slice >= c; --slice) {
+      // one staging buffer where the launch has one chunk, else two
+      const int chunks = ((t + ranks * slice - 1) / (ranks * slice)) *
+                         ((slice + c - 1) / c);
+      const MapLayout L = map_layout(h, w, ksize, rows, ranks, c, slice,
+                                     chunks > 1 ? 2 : 1);
+      if (L.smem <= kMaxSmem) return L;
+    }
   }
+  MapLayout none = map_layout(h, w, ksize, rows, ranks, 1, 1, 1);
+  none.chunk = 0;
+  return none;
+}
+
+__device__ __forceinline__ const float* map_source(const float* frames,
+                                                   const float* prev0, int g,
+                                                   int h, int w, int rlo) {
+  return g < 0 ? prev0 + static_cast<size_t>(rlo) * w
+               : frames + (static_cast<size_t>(g) * h + rlo) * w;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// All threads of every block of the cluster arrive and wait; shared-memory
+// writes before it are visible to every block after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (this block's shared memory) in block `rank`'s shared
+// memory, as a shared::cluster address.
+__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(s),
+               "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// The staging by the tensor memory accelerator: whole 16-B granules, one bulk
+// copy per frame; the copies complete a transaction count on the buffer's
+// mbarrier, on which the block waits.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed; traps (the launch
+// fails) rather than spin for ever should the copies never land.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <int kRows, int kRadius>
+__global__ void __launch_bounds__(kMapThreads)
+motion_map_kernel(const float* __restrict__ frames,
+                  const float* __restrict__ prev0,
+                  const float* __restrict__ lmap0,
+                  const uint8_t* __restrict__ active, float* __restrict__ out,
+                  int t, int h, int w, MapTaps taps, int ksize, float alpha,
+                  float one_minus_alpha, MapLayout L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* taps_s = reinterpret_cast<float*>(smem);
+  unsigned* act_s = reinterpret_cast<unsigned*>(smem + L.act_off);
+  float* hb = reinterpret_cast<float*>(smem + L.hb_off);
+  float* wt = reinterpret_cast<float*>(smem + L.walk_off);
+  unsigned char* const buf0 = smem + L.buf_off;
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31;
+  const int r = kRadius >= 0 ? kRadius : ksize / 2;
+  const int nt = 2 * r + 1;
+  const int ranks = L.ranks;
+  const int rank = ranks > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int b0 = (blockIdx.x / ranks) * kRows;
+  const int rb = min(kRows, h - b0);           // rows of this band
+  const int rlo = max(0, b0 - r);
+  const int srows = min(h, b0 + rb + r) - rlo;
+  const int band_px = rb * w;
+  const int wp = w + 2 * r;                    // h-blur tile row, padded
+  const int chunk = L.chunk, slice = L.slice;
+  const int round_frames = ranks * slice;
+  const int nrounds = (t + round_frames - 1) / round_frames;
+  const int chunks_per_slice = (slice + chunk - 1) / chunk;
+  // rank j walks pixels [j * npx, (j + 1) * npx) of the band
+  const int npx = (band_px + ranks - 1) / ranks;
+  const float inv_npx = 1.0f / static_cast<float>(npx);
+  const int walk_lo = min(band_px, rank * npx);
+  const int walk_hi = min(band_px, walk_lo + npx);
+  const int walk_n = walk_hi - walk_lo;
+  const int pitch = walk_pitch(round_frames);
+  // the taps: from the kernel's parameters where the unrolled loops index
+  // them by constants, from shared memory where the loops are not unrolled
+  auto tap = [&](int d) { return kRadius >= 0 ? taps.k[d] : taps_s[d]; };
+  const bool timed = L.phase_cycles && blockIdx.x == 0 && tid == 0;
+  long long phase[7] = {0, 0, 0, 0, 0, 0, 0};
+  long long clock_at = timed ? clock64() : 0;
+  auto mark = [&](int i) {
+    if (timed) {
+      const long long c = clock64();
+      phase[i] += c - clock_at;
+      clock_at = c;
+    }
+  };
+
+  // this rank's chunks, in order over all rounds: chunk q is chunk q %
+  // chunks_per_slice of round q / chunks_per_slice; returns its first frame
+  // and its frame count (0: past the end)
+  auto chunk_at = [&](int q, int& t0, int& f0) {
+    const int u = q / chunks_per_slice;
+    const int c = q - u * chunks_per_slice;
+    f0 = c * chunk;                              // first frame in the slice
+    t0 = u * round_frames + rank * slice + f0;
+    return max(0, min(min(chunk, slice - f0), t - t0));
+  };
+  // chunk q: lane 0 of every warp copies its share of the frames (frame f
+  // by warp f % warps: one warp issues its copies one after another) into
+  // buffer q % nbuf, the 16-B granules that hold each frame's rows (the bytes
+  // outside the rows share a granule with them, so they lie in the same
+  // allocation), so that the first row starts at staged_ptr(buffer, source).
+  // The buffer's mbarrier expects one arrival per warp, each with its bytes;
+  // its phase flips once per use
+  const unsigned bar0 = smem_addr(smem + L.bar_off);
+  const int warps = nthreads >> 5;
+  auto stage_chunk = [&](int q) {
+    if (lane != 0) return;
+    int t0, f0;
+    const int n = chunk_at(q, t0, f0);
+    const int b = q & (L.nbuf - 1);
+    unsigned char* const buf = buf0 + b * L.buffer_bytes;
+    const int last = n > 0 ? n : -1;
+    auto span = [&](int f, uintptr_t& lo) {
+      const uintptr_t a = reinterpret_cast<uintptr_t>(
+          map_source(frames, prev0, t0 - 1 + f, h, w, rlo));
+      lo = a & ~uintptr_t{15};
+      return static_cast<unsigned>(
+          ((a + srows * w * 4 + 15) & ~uintptr_t{15}) - lo);
+    };
+    unsigned total = 0;
+    uintptr_t lo;
+    for (int f = tid >> 5; f <= last; f += warps) total += span(f, lo);
+    // the block's reads of this buffer (two chunks ago) come before the
+    // copies that overwrite it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar0 + 8 * b, total);
+    for (int f = tid >> 5; f <= last; f += warps) {
+      const unsigned bytes = span(f, lo);
+      bulk_copy(smem_addr(buf + f * L.frame_bytes),
+                reinterpret_cast<const void*>(lo), bytes, bar0 + 8 * b);
+    }
+  };
+
+  if (kRadius < 0)
+    for (int d = tid; d < nt; d += nthreads) taps_s[d] = taps.k[d];
+  if (tid == 0) {
+    mbar_init(bar0, warps);
+    mbar_init(bar0 + 8, warps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  stage_chunk(0);
+  // the walker's map: one pixel per thread where this rank has no more pixels
+  // than threads (every served shape), else in the output between rounds
+  float lm = 0.0f;
+  const bool one_px = walk_hi - walk_lo <= nthreads;
+  if (one_px && walk_lo + tid < walk_hi)
+    lm = lmap0[static_cast<size_t>(b0) * w + walk_lo + tid];
+  mark(0);
+
+  const int nq = nrounds * chunks_per_slice;
+  for (int q = 0; q < nq; ++q) {
+    int t0, f0;
+    const int n = chunk_at(q, t0, f0);
+    unsigned char* const buf = buf0 + (q & (L.nbuf - 1)) * L.buffer_bytes;
+    if (L.nbuf == 2 && q + 1 < nq) stage_chunk(q + 1);
+    mbar_wait(bar0 + 8 * (q & (L.nbuf - 1)), (q / L.nbuf) & 1);
+    __syncthreads();
+    mark(1);
+
+    if (n > 0) {
+      // 1. absdiff and h-axis blur: item (column x, run of frames)
+      const int runs = max(1, nthreads / w);
+      const int run_len = (n + runs - 1) / runs;
+      for (int i = tid; i < w * runs; i += nthreads) {
+        const int x = i % w;
+        const int fa = (i / w) * run_len;
+        const int fb = min(n, fa + run_len);
+        if (fa >= fb) continue;
+        // input row b0 - r + q' of the band, as an offset into a staged
+        // frame (rows past the band's last are clamped: never stored)
+        auto row_at = [&](int qq) {
+          const int y = min(b0 - r + qq, b0 + rb - 1 + r);
+          return (reflect101(y, h) - rlo) * w + x;
+        };
+        auto staged = [&](int f) {   // staged frame f: frame t0 - 1 + f
+          return reinterpret_cast<const float*>(staged_ptr(
+              buf + f * L.frame_bytes,
+              map_source(frames, prev0, t0 - 1 + f, h, w, rlo)));
+        };
+        if (kRadius >= 0) {
+          constexpr int kIn = kRows + 2 * (kRadius >= 0 ? kRadius : 0);
+          int off[kIn];
+          float prv[kIn];
+#pragma unroll
+          for (int qq = 0; qq < kIn; ++qq) off[qq] = row_at(qq);
+          {
+            const float* s = staged(fa);
+#pragma unroll
+            for (int qq = 0; qq < kIn; ++qq) prv[qq] = s[off[qq]];
+          }
+          for (int f = fa; f < fb; ++f) {
+            const float* s = staged(f + 1);
+            float acc[kRows];
+#pragma unroll
+            for (int qq = 0; qq < kIn; ++qq) {
+              const float c = s[off[qq]];
+              const float a = fabsf(__fsub_rn(c, prv[qq]));
+              prv[qq] = c;
+#pragma unroll
+              for (int j = 0; j < kRows; ++j) {
+                const int d = qq - j;
+                if (d < 0 || d > 2 * (kRadius >= 0 ? kRadius : 0)) continue;
+                const float p = __fmul_rn(tap(d), a);
+                acc[j] = d == 0 ? p : __fadd_rn(acc[j], p);
+              }
+            }
+            float* row = hb + static_cast<size_t>(f) * kRows * wp + r + x;
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) {
+              if (j < rb) {
+                row[j * wp] = acc[j];
+                if (x >= 1 && x <= r) row[j * wp - 2 * x] = acc[j];
+                if (x >= w - 1 - r && x <= w - 2)
+                  row[j * wp + 2 * (w - 1 - x)] = acc[j];
+              }
+            }
+          }
+        } else {
+          for (int f = fa; f < fb; ++f) {
+            const float* s = staged(f + 1);
+            const float* p0 = staged(f);
+            float acc[kRows];
+            for (int qq = 0; qq < rb + 2 * r; ++qq) {
+              const int o = row_at(qq);
+              const float a = fabsf(__fsub_rn(s[o], p0[o]));
+#pragma unroll
+              for (int j = 0; j < kRows; ++j) {
+                const int d = qq - j;
+                if (d < 0 || d >= nt) continue;
+                const float p = __fmul_rn(tap(d), a);
+                acc[j] = d == 0 ? p : __fadd_rn(acc[j], p);
+              }
+            }
+            float* row = hb + static_cast<size_t>(f) * kRows * wp + r + x;
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) {
+              if (j < rb) {
+                row[j * wp] = acc[j];
+                if (x >= 1 && x <= r) row[j * wp - 2 * x] = acc[j];
+                if (x >= w - 1 - r && x <= w - 2)
+                  row[j * wp + 2 * (w - 1 - x)] = acc[j];
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    mark(2);
+
+    if (n > 0) {
+      // 2. w-axis blur: item (frame f, band row j, four columns from x)
+      // (the item's row fj = f * rb + j and group g advance by the thread
+      // count without a division per item)
+      const int groups = (w + 3) / 4;
+      const int step_rows = nthreads / groups;
+      const int step_g = nthreads - step_rows * groups;
+      int fj = tid / groups;
+      int g = tid - fj * groups;
+      for (int i = tid; i < n * rb * groups;
+           i += nthreads, fj += step_rows, g += step_g) {
+        if (g >= groups) {
+          g -= groups;
+          ++fj;
+        }
+        const int x = g * 4;
+        const int f = rb == kRows ? fj / kRows : fj / rb;
+        const int j = fj - f * rb;
+        const float* src = hb + (static_cast<size_t>(f) * kRows + j) * wp + x;
+        float acc[4];
+        if (kRadius >= 0) {
+          constexpr int kWin = 4 + 2 * (kRadius >= 0 ? kRadius : 0);
+          float v[kWin];
+#pragma unroll
+          for (int e = 0; e < kWin; ++e) v[e] = src[e];
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            acc[o] = __fmul_rn(tap(0), v[o]);
+#pragma unroll
+            for (int d = 1; d < kWin - 3; ++d)
+              acc[o] = __fadd_rn(acc[o], __fmul_rn(tap(d), v[o + d]));
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            acc[o] = __fmul_rn(tap(0), src[o]);
+            for (int d = 1; d < nt; ++d)
+              acc[o] = __fadd_rn(acc[o], __fmul_rn(tap(d), src[o + d]));
+          }
+        }
+        // to the walker of each pixel: column k of its row of the walker's
+        // tile
+        const int k = rank * slice + f0 + f;
+        const int p0 = j * w + x;
+        // p0 / npx by a float reciprocal, corrected to the exact quotient
+        int dest = __float2int_rz(__int2float_rn(p0) * inv_npx);
+        dest -= dest * npx > p0;
+        dest += (dest + 1) * npx <= p0;
+        int bound = (dest + 1) * npx;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          if (x + o >= w) break;
+          while (p0 + o >= bound) {
+            ++dest;
+            bound += npx;
+          }
+          const int at = (p0 + o - (bound - npx)) * pitch + k;
+          if (dest == rank) {
+            wt[at] = acc[o];
+          } else {
+            st_cluster(map_rank(wt + at, dest), acc[o]);
+          }
+        }
+      }
+    }
+    mark(3);
+
+    const int u = q / chunks_per_slice;
+    if (q - u * chunks_per_slice != chunks_per_slice - 1) continue;
+
+    // the round is blurred: its active words (frame u * round_frames + 32 v
+    // + lane is bit lane of word v), then every push into every walker's
+    // tile is complete
+    const int rt0 = u * round_frames;
+    const int rn = min(round_frames, t - rt0);
+    for (int v0 = tid - lane; v0 < rn; v0 += nthreads) {
+      const int i = v0 + lane;
+      const unsigned word = __ballot_sync(
+          0xffffffffu, i < rn && active[rt0 + i] != 0);
+      if (lane == 0) act_s[v0 >> 5] = word;
+    }
+    if (ranks > 1) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+    mark(4);
+
+    // 3. the walk: frame rt0 + k of pixel p is column k of row p - walk_lo
+    // of this rank's tile, and its map replaces it there.  Four frames a
+    // float4; the next 16 frames' loads are in flight while the chain walks
+    // these; where all 16 are active the step is one fma
+    for (int p = walk_lo + tid; p < walk_hi; p += nthreads) {
+      if (!one_px)
+        lm = u == 0 ? lmap0[static_cast<size_t>(b0) * w + p]
+                    : out[(static_cast<size_t>(rt0 - 1) * h + b0) * w + p];
+      float* row = wt + static_cast<size_t>(p - walk_lo) * pitch;
+      auto step = [&](float& d, bool on) {
+        // pinned rounding: round32(alpha*d), then one fused multiply-add
+        const float nxt = __fmaf_rn(one_minus_alpha, lm, __fmul_rn(alpha, d));
+        lm = on ? nxt : lm;
+        d = lm;
+      };
+      auto walk4 = [&](float4& v, unsigned bits) {
+        step(v.x, bits & 1);
+        step(v.y, (bits >> 1) & 1);
+        step(v.z, (bits >> 2) & 1);
+        step(v.w, (bits >> 3) & 1);
+      };
+      float4* r4 = reinterpret_cast<float4*>(row);
+      int k = 0;
+      float4 cur[4], nxt[4];
+      if (rn >= 16) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cur[e] = r4[e];
+      }
+      for (; k + 16 <= rn; k += 16) {
+        const bool more = k + 32 <= rn;
+        if (more) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) nxt[e] = r4[(k >> 2) + 4 + e];
+        }
+        const unsigned long long two =
+            act_s[k >> 5] |
+            static_cast<unsigned long long>(act_s[(k >> 5) + 1]) << 32;
+        const unsigned bits = static_cast<unsigned>(two >> (k & 31)) & 0xffffu;
+        if (bits == 0xffffu) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) walk4(cur[e], 0xfu);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) walk4(cur[e], (bits >> (4 * e)) & 0xfu);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) r4[(k >> 2) + e] = cur[e];
+        if (more) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cur[e] = nxt[e];
+        }
+      }
+      for (; k < rn; ++k) step(row[k], (act_s[k >> 5] >> (k & 31)) & 1);
+    }
+    mark(6);
+    __syncthreads();
+    // the maps out, coalesced: frame rt0 + k, this rank's pixels
+    {
+      const size_t frame = static_cast<size_t>(h) * w;
+      float* o = out + (static_cast<size_t>(rt0) * h + b0) * w + walk_lo;
+      if (walk_n > 0 && walk_n <= nthreads) {
+        const int per = nthreads / walk_n;
+        const int q = tid % walk_n;
+        if (tid < per * walk_n)
+          for (int k = tid / walk_n; k < rn; k += per)
+            o[k * frame + q] = wt[static_cast<size_t>(q) * pitch + k];
+      } else {
+        for (int i = tid; i < rn * walk_n; i += nthreads) {
+          const int k = i / walk_n;
+          const int q = i - k * walk_n;
+          o[k * frame + q] = wt[static_cast<size_t>(q) * pitch + k];
+        }
+      }
+    }
+    mark(5);
+    // the next round's pushes wait until every walker is done with its tile
+    // (the last round needs no barrier: every push came before the first)
+    if (u + 1 < nrounds) {
+      if (ranks > 1) {
+        cluster_sync();
+      } else {
+        __syncthreads();
+      }
+    }
+    mark(4);
+  }
+  if (timed)
+    for (int i = 0; i < 7; ++i) L.phase_cycles[i] = phase[i];
+}
+
+using MapKernel = void (*)(const float*, const float*, const float*,
+                          const uint8_t*, float*, int, int, int, MapTaps, int,
+                          float, float, MapLayout);
+
+inline MapKernel map_kernel(int rows, int ksize) {
+#define OG_MAP_PICK(R)                                                        \
+  if (rows == R)                                                              \
+    return ksize == 13 ? motion_map_kernel<R, 6> : motion_map_kernel<R, -1>;
+  OG_MAP_PICK(1)
+  OG_MAP_PICK(2)
+  OG_MAP_PICK(4)
+  OG_MAP_PICK(8)
+  OG_MAP_PICK(16)
+#undef OG_MAP_PICK
+  return nullptr;
+}
+
+inline cudaLaunchConfig_t map_config(const MapLayout& L, int h,
+                                     cudaLaunchAttribute* attr,
+                                     cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((h + L.rows - 1) / L.rows) * L.ranks);
+  cfg.blockDim = dim3(kMapThreads);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Blocks of L's kernel an SM holds, and clusters the card holds at once.
+inline cudaError_t map_occupancy(const MapLayout& L, int h, int ksize,
+                                 int* per_sm, int* clusters) {
+  const MapKernel kernel = map_kernel(L.rows, ksize);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.smem));
+  if (e == cudaSuccess && per_sm)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      kMapThreads, L.smem);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = map_config(L, h, attr, nullptr);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return e;
+}
+
+// The layout of a launch; rows, ranks 0: the defaults.  Default ranks: the
+// most (up to kMaxRanks and the frame count) whose clusters the card holds
+// all at once, every band in one wave (measured at (502, 48, 40): 4 ranks of
+// 2-row bands, 96 blocks, 0.029 ms; 5 ranks, 120 blocks of which 22 clusters
+// fit at once, 0.049 ms).  Picks are kept per shape.
+inline cudaError_t pick_map_layout(int t, int h, int w, int ksize, int rows,
+                                   int ranks, MapLayout* out) {
+  if (rows <= 0) rows = default_map_rows(h);
+  if (ranks > 0) {
+    *out = choose_map_layout(t, h, w, ksize, rows, ranks);
+    return cudaSuccess;
+  }
+  struct Pick {
+    int t, h, w, ksize, rows;
+    MapLayout L;
+  };
+  static Pick picks[32];
+  static int npicks = 0;
+  static std::mutex mu;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < npicks && i < 32; ++i) {
+      const Pick& q = picks[i];
+      if (q.t == t && q.h == h && q.w == w && q.ksize == ksize &&
+          q.rows == rows) {
+        *out = q.L;
+        return cudaSuccess;
+      }
+    }
+  }
+  const int bands = (h + rows - 1) / rows;
+  int most = kTargetBlocks / bands;
+  most = most < 1 ? 1 : (most > kMaxRanks ? kMaxRanks : most);
+  most = most > t ? t : most;
+  MapLayout L = choose_map_layout(t, h, w, ksize, rows, 1);
+  for (int k = most; k > 1; --k) {
+    const MapLayout c = choose_map_layout(t, h, w, ksize, rows, k);
+    if (c.chunk == 0) continue;
+    int clusters = 0;
+    const cudaError_t e = map_occupancy(c, h, ksize, nullptr, &clusters);
+    if (e != cudaSuccess) return e;
+    if (clusters >= bands) {
+      L = c;
+      break;
+    }
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  picks[npicks++ % 32] = Pick{t, h, w, ksize, rows, L};
+  *out = L;
+  return cudaSuccess;
+}
+
+inline bool map_args_ok(int t, int h, int w, int ksize, int rows, int ranks) {
+  return t > 0 && ksize >= 1 && ksize <= kMaxTaps && ksize % 2 == 1 &&
+         h > ksize / 2 && w > ksize / 2 &&
+         (rows == 0 || rows == 1 || rows == 2 || rows == 4 || rows == 8 ||
+          rows == 16) &&
+         ranks >= 0 && ranks <= kMaxRanks && ranks <= t;
+}
+
+// rows, ranks <= 0: pick_map_layout picks them.  Refuses
+// (cudaErrorInvalidValue) what the wrapper refuses too: an even or too large
+// ksize, frames no larger than the blur's radius; and frames so wide that
+// one frame's rows of a band do not fit shared memory.
+int launch_motion_map(const void* frames, const void* prev0, const void* lmap0,
+                      const void* active, void* out, int t, int h, int w,
+                      const float* taps, int ksize, float alpha,
+                      float one_minus_alpha, int rows, int ranks,
+                      void* phase_cycles, void* stream) {
+  if (rows < 0) rows = 0;
+  if (ranks < 0) ranks = 0;
+  if (!map_args_ok(t, h, w, ksize, rows, ranks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapLayout L;
+  cudaError_t e = pick_map_layout(t, h, w, ksize, rows, ranks, &L);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (L.chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  L.phase_cycles = static_cast<long long*>(phase_cycles);
+  MapTaps tp{};
+  for (int d = 0; d < ksize; ++d) tp.k[d] = taps[d];
+  const MapKernel kernel = map_kernel(L.rows, ksize);
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(L.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      map_config(L, h, attr, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(frames),
+                         static_cast<const float*>(prev0),
+                         static_cast<const float*>(lmap0),
+                         static_cast<const uint8_t*>(active),
+                         static_cast<float*>(out), t, h, w, tp, ksize, alpha,
+                         one_minus_alpha, L);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_gate_scan(const void* has, const void* raw, void* out_valid,
@@ -750,17 +1530,50 @@ int og_thresh_chain_walk_cycles(const void* thresh0, const void* cur,
                              one_minus_beta, walk_cycles, stream);
 }
 
-int og_lmap_ema(const void* lmap0, const void* d, const void* active,
-                void* out, int t, int n, float alpha, float one_minus_alpha,
-                void* stream) {
-  if (t <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kThreads = 128;
-  lmap_ema_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lmap0), static_cast<const float*>(d),
-      static_cast<const uint8_t*>(active), static_cast<float*>(out), t, n,
-      alpha, one_minus_alpha);
-  return static_cast<int>(cudaGetLastError());
+int og_motion_map(const void* frames, const void* prev0, const void* lmap0,
+                  const void* active, void* out, int t, int h, int w,
+                  const float* taps, int ksize, float alpha,
+                  float one_minus_alpha, void* stream) {
+  return launch_motion_map(frames, prev0, lmap0, active, out, t, h, w, taps,
+                           ksize, alpha, one_minus_alpha, 0, 0, nullptr,
+                           stream);
+}
+
+// The same launch with bands of `rows` (1, 2, 4, 8 or 16) output rows split
+// over clusters of `ranks` (1 to 8) blocks (0: the launch's own choice), and
+// with phase_cycles (7 long longs on the device, or null) the SM cycles of
+// block 0's phases.  For measurement only (chip_smoke.py).
+int og_motion_map_as(const void* frames, const void* prev0, const void* lmap0,
+                     const void* active, void* out, int t, int h, int w,
+                     const float* taps, int ksize, float alpha,
+                     float one_minus_alpha, int rows, int ranks,
+                     void* phase_cycles, void* stream) {
+  return launch_motion_map(frames, prev0, lmap0, active, out, t, h, w, taps,
+                           ksize, alpha, one_minus_alpha, rows, ranks,
+                           phase_cycles, stream);
+}
+
+// The layout such a launch takes: {rows, ranks, frames a rank stages at once,
+// frames a rank blurs per round, staging buffers, shared bytes, blocks,
+// blocks per SM, clusters the card holds at once}.  For measurement only.
+int og_motion_map_layout(int t, int h, int w, int ksize, int rows, int ranks,
+                         long long* info) {
+  if (rows < 0) rows = 0;
+  if (ranks < 0) ranks = 0;
+  if (!map_args_ok(t, h, w, ksize, rows, ranks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapLayout L;
+  cudaError_t e = pick_map_layout(t, h, w, ksize, rows, ranks, &L);
+  int per_sm = 0, clusters = 0;
+  if (e == cudaSuccess && L.chunk > 0)
+    e = map_occupancy(L, h, ksize, &per_sm, &clusters);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long v[9] = {L.rows, L.ranks, L.chunk, L.slice, L.nbuf,
+                          static_cast<long long>(L.smem),
+                          ((h + L.rows - 1) / L.rows) * L.ranks, per_sm,
+                          clusters};
+  for (int i = 0; i < 9; ++i) info[i] = v[i];
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // extern "C"

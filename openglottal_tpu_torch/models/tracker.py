@@ -13,12 +13,13 @@ Frames arrive as (T, H, W) tensors of integer pixel values; the carry is
 (prev_frame, motion_map, threshold).  Each tracker has two forms with the
 same outputs.  The frame-parallel form (``vft_parallel``, ``ygvft_parallel``)
 batches every per-frame stage over T and runs the two recurrences — the
-per-pixel motion map and the scalar threshold — as one kernel launch each
-(``csrc/scan.cu``).  The sequential form (``*_step``, ``*_scan_carry``,
-``*_scan``) is a Python loop over frames that carries the state explicitly:
-the debug form, and what segment-wise streaming needs.  Both forms take the
-same pinned float32 rounding in the recurrences, so they differ only where
-a batched and a single-frame blur round differently.
+per-pixel motion map, with the blurred absdiff that feeds it, and the scalar
+threshold — as one kernel launch each (``csrc/scan.cu``).  The sequential
+form (``*_step``, ``*_scan_carry``, ``*_scan``) is a Python loop over frames
+that carries the state explicitly: the debug form, and what segment-wise
+streaming needs.  Both forms go
+through the same kernels (the sequential one at T = 1) with the same pinned
+float32 rounding, so their motion maps and thresholds agree bit for bit.
 """
 
 from __future__ import annotations
@@ -98,9 +99,10 @@ def vft_initialize(init_frames, p: VFTParams, use_plain: bool = False):
 
 
 def lmap_ema_plain(lmap0, d, active, alpha: float):
-    """Plain version of the motion-map recurrence: a loop over T, one step =
-    fma(1-alpha, lmap, round32(alpha*d)) — see :func:`lmap_ema`; the fused
-    multiply-add is taken in float64, where the product is exact."""
+    """Plain version of the motion-map recurrence over a (T, H, W) stack of
+    blurred absdiffs: a loop over T, one step = fma(1-alpha, lmap,
+    round32(alpha*d)) — see :func:`motion_map`; the fused multiply-add is
+    taken in float64, where the product is exact."""
     a = float(np.float32(alpha))
     b = float(np.float32(1.0 - alpha))
     lm = lmap0.to(torch.float32)
@@ -112,38 +114,73 @@ def lmap_ema_plain(lmap0, d, active, alpha: float):
     return out
 
 
-def lmap_ema(lmap0, d, active, alpha: float, use_plain: bool = False):
-    """Motion-map recurrence lmap_t = alpha*d_t + (1-alpha)*lmap_{t-1} over a
-    (T, H, W) stack of blurred absdiffs, identity on inactive steps; returns
-    all T maps.  The T steps run in order per pixel, so the result is the
-    sequential tracker's and not a reassociated prefix.  The rounding of a
-    step is pinned to the form the reference's sequential scan takes as
-    compiled for the CPU: round32(alpha*d), then ONE fused multiply-add
-    fma(1-alpha, lmap, that product) (found by comparing bits; the unfused
-    form and the other fused form both differ from it).  On a CUDA tensor it
-    is ONE launch of ``csrc/scan.cu`` ``og_lmap_ema`` (a thread per pixel),
-    on a CPU tensor the plain loop."""
-    if d.dim() != 3 or lmap0.shape != d.shape[1:] or active.shape != d.shape[:1]:
-        raise ValueError("lmap_ema: want lmap0 (H, W), d (T, H, W), active (T,)")
-    if d.device != lmap0.device or active.device != d.device:
-        raise ValueError("lmap_ema: tensors lie on different devices")
-    if d.shape[0] == 0 or d[0].numel() == 0:
-        raise ValueError(f"lmap_ema: empty shape {tuple(d.shape)}")
-    active = active.bool()
-    if use_plain or not d.is_cuda:
-        return lmap_ema_plain(lmap0, d, active, alpha)
+def motion_map_plain(prev0, frames, lmap0, active, alpha: float, ksize: int):
+    """Plain version of :func:`motion_map`: the eager absdiff and blur, then
+    the recurrence's loop."""
+    ff = frames.to(torch.float32)
+    d = gaussian_blur((ff - _prev_chain(prev0.to(torch.float32), ff)).abs(),
+                      ksize)
+    return lmap_ema_plain(lmap0, d, active.bool(), alpha)
+
+
+MAX_KSIZE = 31     # the most taps the kernel's blur takes
+
+
+def motion_map(prev0, frames, lmap0, active, alpha: float, ksize: int,
+               use_plain: bool = False):
+    """Every motion map of a (T, H, W) stack of integer-valued frames:
+    d_t = gaussian_blur(|frames[t] - prev_t|, ksize) with prev_t = prev0 for
+    t = 0 and frames[t-1] after (:func:`_prev_chain`), then lmap_t =
+    alpha*d_t + (1-alpha)*lmap_{t-1} from ``lmap0``, identity on inactive
+    steps.  Returns the T maps, float32.
+
+    The T steps run in order per pixel, so the result is the sequential
+    tracker's and not a reassociated prefix.  The rounding of a step is
+    pinned to the form the reference's sequential scan takes as compiled for
+    the CPU: round32(alpha*d), then ONE fused multiply-add fma(1-alpha, lmap,
+    that product) (found by comparing bits; the unfused form and the other
+    fused form both differ from it); the blur rounds as eager PyTorch's
+    (``ops/blur.py``).  On a CUDA tensor it is ONE launch of ``csrc/scan.cu``
+    ``og_motion_map``, which computes the blurred absdiff too (it never
+    reaches device memory), bit-equal to the plain version; on a CPU tensor
+    the plain version.  ``ksize`` is odd and at most 31, and each side of
+    the frame is longer than its radius ``ksize // 2``."""
+    if (frames.dim() != 3 or prev0.shape != frames.shape[1:]
+            or lmap0.shape != frames.shape[1:]
+            or active.shape != frames.shape[:1]):
+        raise ValueError("motion_map: want prev0 (H, W), frames (T, H, W), "
+                         "lmap0 (H, W), active (T,)")
+    if len({frames.device, prev0.device, lmap0.device, active.device}) != 1:
+        raise ValueError("motion_map: tensors lie on different devices")
+    t, h, w = frames.shape
+    if t == 0 or h == 0 or w == 0:
+        raise ValueError(f"motion_map: empty shape {tuple(frames.shape)}")
+    if ksize < 1 or ksize % 2 == 0 or ksize > MAX_KSIZE:
+        raise ValueError(f"motion_map: ksize {ksize} is not odd in "
+                         f"[1, {MAX_KSIZE}]")
+    if min(h, w) <= ksize // 2:
+        raise ValueError(f"motion_map: frame {h}x{w} is not larger than the "
+                         f"blur's radius {ksize // 2} (reflect-101 border)")
+    if use_plain or not frames.is_cuda:
+        return motion_map_plain(prev0, frames, lmap0, active, alpha, ksize)
+    ff = frames.to(torch.float32).contiguous()
+    p0 = prev0.to(torch.float32).contiguous()
     l0 = lmap0.to(torch.float32).contiguous()
-    d_c = d.to(torch.float32).contiguous()
-    act_c = active.to(torch.uint8).contiguous()
-    out = torch.empty_like(d_c)
+    # a bool or uint8 ``active`` goes by its storage (the kernel reads any
+    # non-zero byte as active); other dtypes are compared with 0
+    act = (active if active.dtype in (torch.bool, torch.uint8)
+           else active != 0).contiguous()
+    out = torch.empty_like(ff)
     so = scan_cuda.lib()
-    with torch.cuda.device(d.device):
-        err = so.og_lmap_ema(
-            l0.data_ptr(), d_c.data_ptr(), act_c.data_ptr(), out.data_ptr(),
-            d_c.shape[0], l0.numel(), float(np.float32(alpha)),
-            float(np.float32(1.0 - alpha)), scan_cuda.stream())
-    _build.check(err, "lmap_ema")
-    scan_cuda.launched("lmap_ema", (lmap0, d, active), alpha=alpha)
+    with torch.cuda.device(frames.device):
+        err = so.og_motion_map(
+            ff.data_ptr(), p0.data_ptr(), l0.data_ptr(), act.data_ptr(),
+            out.data_ptr(), t, h, w, scan_cuda.taps(ksize), ksize,
+            float(np.float32(alpha)), float(np.float32(1.0 - alpha)),
+            scan_cuda.stream())
+    _build.check(err, "motion_map")
+    scan_cuda.launched("motion_map", (prev0, frames, lmap0, active),
+                       alpha=alpha, ksize=ksize)
     return out
 
 
@@ -322,8 +359,8 @@ def vft_parallel(init_frames, frames, active=None,
     # prev chain: the scan's carry keeps prev = last init frame until the
     # first active step, then follows frames; an inactive prefix maps to the
     # same chain as long as callers pass the frames the scan would see
-    d = gaussian_blur((ff - _prev_chain(prev0, ff)).abs(), p.gaussian_ksize)
-    lmaps = lmap_ema(lmap0, d, active, p.alpha, use_plain)
+    lmaps = motion_map(prev0, ff, lmap0, active, p.alpha, p.gaussian_ksize,
+                       use_plain)
 
     rthr = _roi_threshold(lmaps, p.roi_threshold_ratio)
     roi = largest_blob_batch(lmaps > rthr[:, None, None], use_plain,
@@ -347,8 +384,8 @@ def _ema_steps(carry, frame, roi_fn, p, use_plain: bool):
     prev, lmap, thresh = carry
     ff = frame.to(torch.float32)
     one = torch.ones((1,), dtype=torch.bool, device=ff.device)
-    d = gaussian_blur((ff - prev).abs(), p.gaussian_ksize)
-    lmap = lmap_ema(lmap, d[None], one, p.alpha, use_plain)[0]
+    lmap = motion_map(prev, ff[None], lmap, one, p.alpha, p.gaussian_ksize,
+                      use_plain)[0]
     roi = roi_fn(lmap)
     # percentile(frame[roi]) if more than 10 px else the old threshold
     cur, n_px = percentile_from_hist(masked_histogram_u8(ff, roi),

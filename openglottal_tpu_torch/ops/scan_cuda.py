@@ -2,10 +2,10 @@
 
 ``og_gate_scan`` runs the temporal gate FSM (``models/gate.py``),
 ``og_thresh_chain`` the tracker's scalar threshold recurrence and
-``og_lmap_ema`` its per-pixel motion-map recurrence (``models/tracker.py``)
-over a whole video in one launch each.  The wrappers
-and the plain versions live beside the functions they serve; this module
-holds the loaded library and the launch counts.
+``og_motion_map`` its per-pixel motion map with the blurred absdiff that
+feeds it (``models/tracker.py``) over a whole video in one launch each.  The
+wrappers and the plain versions live beside the functions they serve; this
+module holds the loaded library and the launch counts.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import ctypes
 import torch
 
 from openglottal_tpu_torch.ops import _build
+from openglottal_tpu_torch.ops.blur import gaussian_kernel_1d
 
-LAUNCHES = {"gate_scan": 0, "thresh_chain": 0, "lmap_ema": 0}
+LAUNCHES = {"gate_scan": 0, "thresh_chain": 0, "motion_map": 0}
 
 # Measurement hook, as in ``blobs_cuda``: a list here receives
 # (wrapper name, inputs, keyword arguments) of every launch.
@@ -41,13 +42,25 @@ def lib() -> ctypes.CDLL:
     so = _build.load("scan")
     if not _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        so.og_gate_scan.argtypes = [p, p, p, p, p, p, i, f, f, f, i, i, p]
-        so.og_thresh_chain.argtypes = [p, p, p, p, p, i, f, f, p]
-        so.og_lmap_ema.argtypes = [p, p, p, p, i, i, f, f, p]
-        for fn in (so.og_gate_scan, so.og_thresh_chain, so.og_lmap_ema):
-            fn.restype = ctypes.c_int
+        for name, args in (
+                ("og_gate_scan", [p, p, p, p, p, p, i, f, f, f, i, i, p]),
+                ("og_thresh_chain", [p, p, p, p, p, i, f, f, p]),
+                ("og_motion_map", [p] * 5 + [i, i, i, p, i, f, f, p])):
+            # a library built from another checkout (chip_smoke.py
+            # --against) may lack a later entry point
+            fn = getattr(so, name, None)
+            if fn is not None:
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
         _configured = True
     return so
+
+
+def taps(ksize: int):
+    """The blur's float32 taps (``ops/blur.gaussian_kernel_1d``) as a C
+    array for ``og_motion_map``, which copies them into its launch."""
+    k = gaussian_kernel_1d(ksize)
+    return (ctypes.c_float * len(k))(*k.tolist())
 
 
 def stream() -> int:

@@ -46,7 +46,6 @@ def main() -> int:
     from openglottal_tpu_torch.models import tracker
     from openglottal_tpu_torch.models.gate import gate_scan
     from openglottal_tpu_torch.ops import _build, blobs, histogram
-    from openglottal_tpu_torch.ops.blur import gaussian_blur
 
     _build.build_all()
     videos = [np.ascontiguousarray(
@@ -159,11 +158,8 @@ def main() -> int:
         act = torch.arange(len(idx), device=crops.device) >= n0
         prev0, lmap0, th0 = timed(st, "tracker_init", lambda:
                                   tracker.vft_initialize(crops[:n0], p))
-        d = timed(st, "absdiff_blur", lambda: gaussian_blur(
-            (crops - tracker._prev_chain(prev0, crops)).abs(),
-            p.gaussian_ksize))
-        lmaps = timed(st, "lmap_ema", lambda: tracker.lmap_ema(
-            lmap0, d, act, p.alpha))
+        lmaps = timed(st, "motion_map", lambda: tracker.motion_map(
+            prev0, crops, lmap0, act, p.alpha, p.gaussian_ksize))
         roi_raw = timed(st, "roi_threshold", lambda: lmaps > (
             tracker._roi_threshold(lmaps, p.roi_threshold_ratio)
             [:, None, None]))

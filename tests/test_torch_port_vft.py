@@ -1,6 +1,7 @@
 """Port vs JAX package on the CPU: what the ``vft`` pipeline adds below the
-entry point — the size-locked crop resize, the motion-map recurrence, and
-both forms (frame-parallel, sequential) of both trackers.
+entry point — the size-locked crop resize, the motion map (blurred absdiff
+and recurrence), and both forms (frame-parallel, sequential) of both
+trackers.
 
 Inputs are made with numpy from a seed and go through both packages; the
 port runs on CPU tensors, where each kernel wrapper takes its plain version.
@@ -120,13 +121,14 @@ def test_resize_bilinear_static_matches_jax():
     np.testing.assert_array_equal(same, img)
 
 
-# ── the motion-map recurrence ───────────────────────────────────────────────
+# ── the motion map (blurred absdiff + recurrence, one kernel launch) ──────
 
 @pytest.mark.parametrize("alpha", [0.98, 0.3])
 def test_lmap_ema_bit_equal_to_the_sequential_scan(alpha):
     """With a 1-tap blur the reference's absdiff is exact, so its scan's
-    motion map isolates the recurrence: the port's step equals it bit for
-    bit, step by step, and over a chain with an inactive prefix and tail."""
+    motion map isolates the recurrence: :func:`motion_map` equals it bit for
+    bit, step by step (T = 1 calls, as the sequential trackers make), and
+    over a chain with an inactive prefix and tail."""
     rng = np.random.default_rng(int(alpha * 100))
     t, h, w = 6, 16, 16
     p = jtracker.VFTParams(alpha=alpha, gaussian_ksize=1)
@@ -139,33 +141,99 @@ def test_lmap_ema_bit_equal_to_the_sequential_scan(alpha):
         prev, lmap = np.array(carry[0]), np.array(carry[1])
         carry, _ = jtracker.vft_scan_carry(carry, jnp.asarray(frames[i:i + 1]),
                                            params=p)
-        d = torch.from_numpy(np.abs(frames[i] - prev))
-        got = ttracker.lmap_ema(torch.from_numpy(lmap), d[None], one, alpha)[0]
+        got = ttracker.motion_map(torch.from_numpy(prev),
+                                  torch.from_numpy(frames[i:i + 1]),
+                                  torch.from_numpy(lmap), one, alpha, 1)[0]
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(carry[1]),
                                       err_msg=f"step {i}")
     active = np.array([False, True, True, True, True, False])
     carry = (jnp.asarray(prev0), jnp.asarray(lmap0), jnp.float32(100.0))
     carry, _ = jtracker.vft_scan_carry(carry, jnp.asarray(frames),
                                        jnp.asarray(active), params=p)
-    prevs = np.concatenate([prev0[None], frames[:-1]])
-    prevs[1] = prev0                      # step 0 was inactive: prev is kept
-    d = torch.from_numpy(np.abs(frames - prevs))
-    got = ttracker.lmap_ema(torch.from_numpy(lmap0), d,
-                            torch.from_numpy(active), alpha).numpy()
+    # the scan keeps prev = prev0 over the inactive step 0; the frame-parallel
+    # form sees the frames the scan would, so its frame 0 is prev0 again
+    seen = frames.copy()
+    seen[0] = prev0
+    got = ttracker.motion_map(torch.from_numpy(prev0), torch.from_numpy(seen),
+                              torch.from_numpy(lmap0),
+                              torch.from_numpy(active), alpha, 1).numpy()
     np.testing.assert_array_equal(_bits(got[-1]), _bits(carry[1]))
     np.testing.assert_array_equal(got[0], lmap0)       # inactive: identity
     np.testing.assert_array_equal(got[-1], got[-2])
-    assert scan_cuda.LAUNCHES["lmap_ema"] == 0         # CPU: no launch counted
+    assert scan_cuda.LAUNCHES["motion_map"] == 0       # CPU: no launch counted
 
 
 def test_lmap_ema_rejects_bad_inputs():
-    d = torch.zeros((3, 4, 5))
+    """:func:`motion_map` refuses mismatched shapes, an even or too large
+    ksize and frames no larger than the blur's radius (reflect-101 needs a
+    pixel beyond it), before it computes anything."""
+    fr = torch.zeros((3, 4, 5))
+    p0, l0 = torch.zeros((4, 5)), torch.zeros((4, 5))
+    act = torch.ones(3).bool()
     with pytest.raises(ValueError):
-        ttracker.lmap_ema(torch.zeros((4, 4)), d, torch.ones(3).bool(), 0.9)
+        ttracker.motion_map(p0, fr, torch.zeros((4, 4)), act, 0.9, 1)
     with pytest.raises(ValueError):
-        ttracker.lmap_ema(torch.zeros((4, 5)), d, torch.ones(2).bool(), 0.9)
+        ttracker.motion_map(p0, fr, l0, torch.ones(2).bool(), 0.9, 1)
     with pytest.raises(ValueError):
-        ttracker.lmap_ema(torch.zeros((4, 5)), d[0], torch.ones(3).bool(), 0.9)
+        ttracker.motion_map(p0, fr[0], l0, act, 0.9, 1)
+    with pytest.raises(ValueError):
+        ttracker.motion_map(p0, fr, l0, act, 0.9, 4)
+    with pytest.raises(ValueError):
+        ttracker.motion_map(p0, fr, l0, act, 0.9, 33)
+    with pytest.raises(ValueError):                     # h = 4 <= r = 6
+        ttracker.motion_map(p0, fr, l0, act, 0.9, 13)
+    with pytest.raises(ValueError):                     # w = 5 <= r = 5
+        ttracker.motion_map(torch.zeros((12, 5)), torch.zeros((3, 12, 5)),
+                            torch.zeros((12, 5)), act, 0.9, 11)
+    ttracker.motion_map(torch.zeros((12, 6)), torch.zeros((3, 12, 6)),
+                        torch.zeros((12, 6)), act, 0.9, 11)   # w = r + 1
+
+
+def _map_case(t=8, h=48, w=40, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (h, w)).astype(np.float32),
+            rng.integers(0, 256, (t, h, w)).astype(np.float32),
+            rng.uniform(0, 40, (h, w)).astype(np.float32))
+
+
+def test_motion_map_matches_the_jax_sequential_carries_at_ksize_13():
+    """The served ksize over 8 steps of 48x40 integer-valued frames, against
+    the JAX package's sequential scan carried frame by frame.  The blur is
+    the only inexact stage: XLA may fuse its multiply-adds, so the maps are
+    held at atol 1e-4 as the blur itself is (tests/test_torch_port_ops.py);
+    measured max |difference| 2.3e-5 here."""
+    prev0, frames, lmap0 = _map_case()
+    p = jtracker.VFTParams()
+    got = ttracker.motion_map(torch.from_numpy(prev0),
+                              torch.from_numpy(frames),
+                              torch.from_numpy(lmap0),
+                              torch.ones(8, dtype=torch.bool), p.alpha,
+                              p.gaussian_ksize).numpy()
+    carry = (jnp.asarray(prev0), jnp.asarray(lmap0), jnp.float32(100.0))
+    for i in range(frames.shape[0]):
+        carry, _ = jtracker.vft_scan_carry(carry, jnp.asarray(frames[i:i + 1]),
+                                           params=p)
+        np.testing.assert_allclose(got[i], np.asarray(carry[1]), atol=1e-4,
+                                   rtol=0, err_msg=f"step {i}")
+
+
+def test_motion_map_t1_calls_chain_bit_equal_to_one_call():
+    """T = 1 calls chained through the carry (the sequential trackers) equal
+    one call over T (the frame-parallel tracker) bit for bit, inactive steps
+    included: the contract the kernel's chunks and rounds keep."""
+    prev0, frames, lmap0 = _map_case(t=7, h=20, w=17, seed=8)
+    active = torch.tensor([True, False, True, True, True, True, False])
+    fr = torch.from_numpy(frames)
+    whole = ttracker.motion_map(torch.from_numpy(prev0), fr,
+                                torch.from_numpy(lmap0), active, 0.98, 13)
+    prev, lm = torch.from_numpy(prev0), torch.from_numpy(lmap0)
+    for i in range(fr.shape[0]):
+        lm = ttracker.motion_map(prev, fr[i:i + 1], lm, active[i:i + 1],
+                                 0.98, 13)[0]
+        prev = fr[i]
+        np.testing.assert_array_equal(_bits(lm.numpy()),
+                                      _bits(whole[i].numpy()),
+                                      err_msg=f"step {i}")
 
 
 # ── the trackers on 12 size-locked crops ────────────────────────────────────
