@@ -18,7 +18,12 @@ the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
 — and checks that the kernels were launched on those paths, that every
 launch equals its plain version on the path's own inputs and that the
 results are right; then the blob filter's two routes against each other and
-the sequential tracker forms (every launch held too).  The two scans of
+the sequential tracker forms (every launch held too); then all five
+pipelines (with ``crop-unet`` and ``unet-only``) on colour 256x256, gray
+240x320 and colour 200x240 video through ``extract_features`` and
+``run_pipeline_full`` (its ``entry_points`` line: launches held, walls,
+device kernels and host syncs per video, the union-find's layout, card vs
+CPU and bf16 vs f32 waveforms).  The two scans of
 ``csrc/scan.cu`` are also held against their plain versions on stress
 sequences that reach their rare branches, from 1 to 20000 frames, and timed
 bare (the C launch alone) and through their wrappers; the motion map on
@@ -39,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -147,6 +153,148 @@ def ptxas_summary(log: str) -> dict:
         if m and fn is not None:
             fn["registers"] = int(m[1])
     return out
+
+
+# the entry points' inputs: (a) colour 256², (b) gray 240x320 (not square,
+# not 256²), (c) a short colour clip smaller than 256 on its long side
+ENTRY_INPUTS = (("colour_256x256", T_FRAMES), ("gray_240x320", T_FRAMES),
+                ("colour_200x240", 64))
+
+
+def tint(frames):
+    """A colour video from a gray one: the three channels made unequal."""
+    import numpy as np
+
+    f = frames.astype(np.int16)
+    f[..., 0] = f[..., 0] * 7 // 8
+    f[..., 2] = np.minimum(f[..., 2] + 12, 255)
+    return f.astype(np.uint8)
+
+
+def entry_video(kind: str, seed: int, t: int):
+    """One of the ENTRY_INPUTS videos, cut from ``synthetic_video``: (t,
+    256, 256, 3) colour, (t, 240, 320) gray or (t, 200, 240, 3) colour."""
+    import numpy as np
+
+    from openglottal_tpu_torch.data.synthetic import synthetic_video
+
+    if kind == "colour_256x256":
+        return tint(synthetic_video(t=t, size=256, seed=seed)[0])
+    if kind == "gray_240x320":
+        f = synthetic_video(t=t, size=320, seed=seed, center=(160.0, 160.0))[0]
+        return np.ascontiguousarray(f[:, 40:280, :, 0])
+    f = synthetic_video(t=t, size=240, seed=seed, center=(120.0, 120.0))[0]
+    return tint(np.ascontiguousarray(f[:, 20:220]))
+
+
+def entry_points(pipes, cpu_pipe, counted, expect_counts, check_features,
+                 hold_record, host_syncs, device_kernels, layout_of) -> dict:
+    """All five pipelines on each ENTRY_INPUTS video through
+    ``extract_features`` (bf16): the launches of each run counted (from 0)
+    and held equal to their plain versions, the features checked (f0 of the
+    synthetic glottis), walls over two distinct videos, device kernels and
+    host syncs per video, the union-find layout of each blob launch; then
+    ``run_pipeline_full`` (shapes, masks against areas, areas equal to
+    ``extract_features``'); 12-frame float32 waveforms on the card against
+    the CPU, and bf16 against float32 for the U-Net pipelines.  Raises on
+    any failed check; returns the phase's line."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.ops import blobs_cuda
+    from openglottal_tpu_torch.pipelines import PIPELINES
+
+    bf16, f32 = pipes["bf16"], pipes["f32"]
+    expected = {
+        "vft": {"gate_scan": 1, "cc": 2, "motion_map": 2, "cc_batch": 4,
+                "min_prop_batch": 8, "thresh_chain": 1},
+        "guided-vft": {"gate_scan": 1, "thresh_chain": 1, "dual_cc_batch": 1,
+                       "dual_min_prop_batch": 1, "min_prop_batch": 2},
+        "unet": {"gate_scan": 1}, "crop-unet": {"gate_scan": 1},
+        "unet-only": {}}
+    line = {k: {} for k in ("inputs", "launches", "features",
+                            "wall_ms_per_video", "n_device_kernels_per_video",
+                            "host_syncs_per_video", "host_sync_sites",
+                            "union_find_layouts")}
+    line["launches_held"] = 0
+    waves, first = {}, {}
+    for kind, t in ENTRY_INPUTS:
+        vids = [entry_video(kind, s, t) for s in (0, 1)]
+        first[kind] = vids[0]
+        line["inputs"][kind] = list(vids[0].shape)
+        for pipeline in PIPELINES:
+            key = f"{kind}:{pipeline}/bf16"
+            bf16.extract_features(vids[1], pipeline)          # warm-up
+            record = []
+            feats, got = counted(
+                lambda: bf16.extract_features(vids[0], pipeline), record)
+            expect_counts(key, got, {k: expected[pipeline].get(k, 0)
+                                     for k in got})
+            line["launches"][key] = got
+            line["features"][key] = check_features(key, feats, frames=t)
+            waves[(kind, pipeline)] = feats["_area"]
+            hold_record(key, record)
+            line["launches_held"] += len(record)
+            shapes = sorted({tuple(inp[0].shape[-2:]) for name, inp, _ in record
+                             if name in blobs_cuda.LAUNCHES})
+            line["union_find_layouts"][key] = {
+                f"{h}x{w}": {**layout_of(h, w), "grids": (
+                    "shared memory" if layout_of(h, w)["smem_bytes"] > 0
+                    else "device memory")} for h, w in shapes}
+            ms = []
+            for v in vids:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bf16.extract_features(v, pipeline)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            line["wall_ms_per_video"][key] = ms
+            line["n_device_kernels_per_video"][key] = sum(device_kernels(
+                lambda: bf16.extract_features(vids[0], pipeline)).values())
+            (line["host_syncs_per_video"][key],
+             line["host_sync_sites"][key]) = host_syncs(
+                lambda: bf16.extract_features(vids[0], pipeline))
+            masks, valid, boxes, areas = bf16.run_pipeline_full(vids[0],
+                                                                pipeline)
+            a = areas.cpu().numpy()
+            if (masks.shape != (t, *vids[0].shape[1:3])
+                    or masks.dtype != torch.bool or a.shape != (t,)):
+                raise AssertionError(f"{key}: run_pipeline_full shapes "
+                                     f"{tuple(masks.shape)} {a.shape}")
+            if (valid is None) != (pipeline == "unet-only"):
+                raise AssertionError(f"{key}: run_pipeline_full gate outputs")
+            if pipeline in ("unet-only", "crop-unet", "guided-vft") and not \
+                    np.array_equal(a, masks.sum((1, 2)).float().cpu().numpy()):
+                raise AssertionError(f"{key}: areas are not the masks' counts")
+            if not np.array_equal(a, feats["_area"]):
+                raise AssertionError(f"{key}: run_pipeline_full areas differ "
+                                     f"from extract_features'")
+    # 12 frames, float32: the card (CUDA kernels) against the CPU (plain
+    # versions), and bf16 against float32 for the U-Net pipelines
+    card_vs_cpu, bf16_vs_f32 = {}, {}
+    for kind in ("colour_256x256", "gray_240x320"):
+        small = first[kind][:12]
+        for pipeline in PIPELINES:
+            a = cpu_pipe.extract_features(small, pipeline)["_area"]
+            b = f32.extract_features(small, pipeline)["_area"]
+            rel = float(np.abs(a - b).sum() / max(a.sum(), 1.0))
+            card_vs_cpu[f"{kind}:{pipeline}"] = rel
+            if rel >= 0.05:
+                raise AssertionError(f"{kind}:{pipeline}: card vs CPU "
+                                     f"relative L1 {rel} on 12 frames")
+        for pipeline in ("unet-only", "crop-unet"):
+            w32 = f32.extract_features(first[kind], pipeline)["_area"]
+            rel = float(np.abs(waves[(kind, pipeline)] - w32).sum()
+                        / w32.sum())
+            bf16_vs_f32[f"{kind}:{pipeline}"] = rel
+            if rel >= 0.05:
+                raise AssertionError(f"{kind}:{pipeline}: bf16 vs f32 "
+                                     f"relative L1 {rel}")
+    line["card_vs_cpu_rel_l1_12_frames_f32"] = card_vs_cpu
+    line["bf16_vs_f32_rel_l1"] = bf16_vs_f32
+    line["compared"] = ("every recorded launch exactly equal to its plain "
+                        "version; run_pipeline_full areas equal to "
+                        "extract_features'")
+    return line
 
 
 def main() -> int:
@@ -667,7 +815,9 @@ def main() -> int:
         return np.ascontiguousarray(frames[..., 0])
 
     videos = [video(s) for s in range(4)]
+    # the demo U-Net also serves as the crop U-Net's weights
     weights = dict(unet_variables="weights/demo_unet.npz",
+                   crop_unet_variables="weights/demo_unet.npz",
                    yolo_variables="weights/demo_yolo.npz", conf=0.25)
     pipes = {"bf16": GlottalPipelines(dtype=torch.bfloat16, **weights),
              "f32": GlottalPipelines(dtype=torch.float32, **weights)}
@@ -710,6 +860,39 @@ def main() -> int:
         finally:
             blobs_cuda.RECORD = scan_cuda.RECORD = None
 
+    def host_syncs(fn):
+        """(count, sites) of the host synchronisations one call of fn()
+        makes, by PyTorch's sync debug mode."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (switching the debug mode on warns once itself, from torch/cuda)
+        hits = [w for w in caught if "synchroniz" in str(w.message)
+                and not w.filename.endswith("torch/cuda/__init__.py")]
+        return len(hits), sorted(
+            {f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno}" for w in hits})
+
+    def device_kernels(fn):
+        """{name: count} of the device work (kernels, copies, fills) that one
+        call of fn() runs, by torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if (getattr(e, "device_time_total", 0) > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA):
+                out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
+        return out
+
     def expect_counts(where, got, expected):
         for k, n in expected.items():
             if got[k] != n:
@@ -725,11 +908,12 @@ def main() -> int:
                             "thresh_chain": 1, "cc": 0, "cc_batch": 0,
                             "motion_map": 0}),
             ("unet", {"gate_scan": 1}),
-            # vft: the tracker's init labels one ROI mask (2 single-frame CC
-            # launches); the ROI filter and the output filter are one
-            # top_n_blobs_batch each, by the split route (2 single-region CC
-            # launches + 2 + 2 single-region broadcasts apiece)
-            ("vft", {"gate_scan": 1, "cc": 2, "motion_map": 1,
+            # vft: the tracker's init blurs its seed map (a T = 1 motion map)
+            # and labels one ROI mask (2 single-frame CC launches); the ROI
+            # filter and the output filter are one top_n_blobs_batch each,
+            # by the split route (2 single-region CC launches + 2 + 2
+            # single-region broadcasts apiece)
+            ("vft", {"gate_scan": 1, "cc": 2, "motion_map": 2,
                      "cc_batch": 4, "min_prop_batch": 8, "thresh_chain": 1,
                      "dual_cc_batch": 0, "dual_min_prop_batch": 0})):
         for tag, pipe in pipes.items():
@@ -748,7 +932,7 @@ def main() -> int:
             if pipeline != "unet":
                 # gate facts of this video, and the plain-kernel run
                 gray = pipe._to_gray(videos[0])
-                valid, boxes = pipe._detect_gate(gray)
+                valid, boxes = pipe._gated(None, gray)
                 side = (boxes[:, 2:] - boxes[:, :2]).max().item()
                 extra = {"gate_valid_share": float(valid.float().mean()),
                          "max_box_side": side}
@@ -815,13 +999,14 @@ def main() -> int:
                                 **weights)
     clip = videos[0][:32]
     gray = seq_pipe._to_gray(clip)
-    n_valid = int(seq_pipe._detect_gate(gray)[0].sum())
+    n_valid = int(seq_pipe._gated(None, gray)[0].sum())
     sequential = {}
     seq_recorded = {}
     for pipeline, n_cc, n_steps in (
-            # init: 2 launches; a vft step labels the ROI mask and the output
-            # mask (4 launches) and runs for every gated crop, the inactive
-            # init crops included; a guided step labels the output mask (2)
+            # init: 2 launches and the seed map's blur (a motion map); a vft
+            # step labels the ROI mask and the output mask (4 launches) and
+            # runs for every gated crop, the inactive init crops included; a
+            # guided step labels the output mask (2)
             ("vft", 2 + 4 * n_valid, n_valid),
             ("guided-vft", 2 * (len(clip) - 2), len(clip) - 2)):
         a_par = pipes["bf16"].extract_features(clip, pipeline)["_area"]
@@ -834,7 +1019,7 @@ def main() -> int:
         wall = (time.perf_counter() - t0) * 1e3
         seq_recorded[pipeline] = record
         expect_counts(f"{pipeline}, sequential", got,
-                      {"cc": n_cc, "motion_map": n_steps,
+                      {"cc": n_cc, "motion_map": n_steps + 1,
                        "thresh_chain": n_steps, "gate_scan": 1, "cc_batch": 0,
                        "dual_cc_batch": 0})
         check_features(f"{pipeline}, sequential", feats, expect_f0=None,
@@ -854,19 +1039,8 @@ def main() -> int:
     # host synchronisations per video, counted by PyTorch's sync debug mode
     syncs, sync_sites = {}, {}
     for pipeline in ("guided-vft", "unet", "vft"):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                pipes["bf16"].extract_features(videos[2], pipeline)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        # (switching the debug mode on warns once itself, from torch/cuda)
-        hits = [w for w in caught if "synchroniz" in str(w.message)
-                and not w.filename.endswith("torch/cuda/__init__.py")]
-        syncs[pipeline] = len(hits)
-        sync_sites[pipeline] = sorted(
-            {f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno}" for w in hits})
+        syncs[pipeline], sync_sites[pipeline] = host_syncs(
+            lambda: pipes["bf16"].extract_features(videos[2], pipeline))
 
     # agreement with a reference on a small input: the same 12 frames on the
     # CPU (plain kernels) and on the card (CUDA kernels), float32
@@ -1011,8 +1185,10 @@ def main() -> int:
         if held.get(path, 0) != len(record) or not record:
             raise AssertionError(f"{path}: {held.get(path, 0)} of "
                                  f"{len(record)} launches were held")
-    # and every launch of the sequential trackers (one motion map per frame)
-    for pipeline, record in seq_recorded.items():
+
+    def hold_record(key, record):
+        """Every launch of a recorded run held equal to its plain version
+        on the run's own inputs."""
         for name, inputs, kw in record:
             kfn, pfn, _, _ = runners(name, inputs, kw)
             got, want = kfn(), pfn()
@@ -1023,33 +1199,29 @@ def main() -> int:
                 hold(name, got.view(torch.int32), want.view(torch.int32))
             else:
                 hold(name, got, want)
-            key = f"{pipeline} sequential"
             held[key] = held.get(key, 0) + 1
-        if held.get(f"{pipeline} sequential", 0) != len(record) or not record:
-            raise AssertionError(f"{pipeline} sequential: not every launch "
-                                 f"was held")
+        if held.get(key, 0) != len(record):
+            raise AssertionError(f"{key}: not every launch was held")
+
+    # and every launch of the sequential trackers (one motion map per frame)
+    for pipeline, record in seq_recorded.items():
+        if not record:
+            raise AssertionError(f"{pipeline} sequential: no launch recorded")
+        hold_record(f"{pipeline} sequential", record)
     reset_counts()
+
+    # ── every pipeline on colour and any-size video (the entry points) ──
+    entry_line = entry_points(pipes, cpu_pipe, counted, expect_counts,
+                              check_features, hold_record, host_syncs,
+                              device_kernels, layout_of)
+    reset_counts()
+    for key, got in entry_line["launches"].items():
+        path_launches[key] = got
+    say("entry_points", **entry_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
     # ── the two scans at the served inputs: bare, wrapper, T = 1 ────────
-    def device_kernels(fn):
-        """{name: count} of the device work (kernels, copies, fills) that one
-        call of fn() runs, by torch.profiler."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if (getattr(e, "device_time_total", 0) > 0
-                    and e.device_type == torch.autograd.DeviceType.CUDA):
-                out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
-        return out
-
     def time_enqueue(fn, reps: int) -> float:
         """Mean host milliseconds to enqueue fn() while the device is kept
         busy (what a host-bound path pays for the call)."""
@@ -1192,8 +1364,10 @@ def main() -> int:
             return keep[4]
         return run
 
-    (m_p0, m_fr, m_l0, m_act), m_kw = next(
-        (inp, kw) for name, inp, kw in recorded["vft"] if name == "motion_map")
+    # the served launch (the other one on the path is the init's T = 1 blur)
+    (m_p0, m_fr, m_l0, m_act), m_kw = max(
+        ((inp, kw) for name, inp, kw in recorded["vft"]
+         if name == "motion_map"), key=lambda x: x[0][1].shape[0])
     m_alpha, m_ks = m_kw["alpha"], m_kw["ksize"]
     m_want = tracker_mod.motion_map(m_p0, m_fr, m_l0, m_act, m_alpha, m_ks,
                                     use_plain=True)
@@ -1309,6 +1483,28 @@ def main() -> int:
             ms_each_turn=stage_ms,
             device_kernels={k: sum(device_kernels(fn).values())
                             for k, fn in stages.items()})
+        # the og_motion_map of each older checkout that has one, through
+        # this wrapper in turns with this one on the same inputs; not held
+        # equal (an older kernel may round its blur otherwise): the values
+        # that differ in bits from this plain version are counted
+        maps = {tag: lib_ for tag, lib_ in libs.items()
+                if hasattr(lib_["scan"], "og_motion_map")}
+        map_ms = {tag: [] for tag in maps}
+        bits_differing = {}
+        for tag in [*maps, *reversed(maps)]:
+            with kernel_libraries(maps[tag]):
+                if tag not in bits_differing:
+                    got = m_wrapper()
+                    bits_differing[tag] = int((got.view(torch.int32)
+                                               != m_want.view(torch.int32)
+                                               ).sum())
+                map_ms[tag].append(time_cuda(m_wrapper, 50))
+        if bits_differing["this"] != 0:
+            raise AssertionError("motion_map differs from its plain version")
+        say("against_motion_map", timing=TIMING, shape=list(t_sh),
+            order=[*maps, *reversed(maps)],
+            ms={k: sum(v) / len(v) for k, v in map_ms.items()},
+            ms_each_turn=map_ms, values_differing_from_plain=bits_differing)
         items = []
         for path, record in recorded.items():
             for k, (name, inputs, kw) in enumerate(record):
@@ -1333,17 +1529,21 @@ def main() -> int:
         if e is None or launches == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
         # a kernel launched more than once per video reports the mean over
-        # its launches, bound included
-        n = len(e["ms"])
-        t_bytes = sum(e["bytes"]) / n / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(e["ops"]) / n / FP32_OPS_PER_S * 1e3
+        # its launches at the largest shape (the served one), bound included;
+        # every launch stays in ms_each_launch
+        big = max(math.prod(s) for s in e["shapes"])
+        at = [i for i, s in enumerate(e["shapes"]) if math.prod(s) == big]
+        n = len(at)
+        t_bytes = sum(e["bytes"][i] for i in at) / n / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(e["ops"][i] for i in at) / n / FP32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces, "path": path, "launches": launches,
             "launches_by_path": {k: v[name] for k, v in path_launches.items()
                                  if k.endswith("/bf16")},
-            "max_abs_err": max_err[name], "ms": sum(e["ms"]) / n,
-            "plain_ms": sum(e["plain_ms"]) / n,
+            "max_abs_err": max_err[name],
+            "ms": sum(e["ms"][i] for i in at) / n,
+            "plain_ms": sum(e["plain_ms"][i] for i in at) / n,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "shapes": e["shapes"],
@@ -1352,7 +1552,8 @@ def main() -> int:
             # the scans of scan.cu: also the C launch alone (``ms`` is the
             # wrapper's device time, helper launches included)
             **({"bare_ms": scan_times[key]["bare_ms"]}
-               if (key := f"{name} T={e['shapes'][0][0]}") in scan_times
+               if (key := f"{name} T={max(s[0] for s in e['shapes'])}")
+               in scan_times
                else {}),
         })
     print(json.dumps({"kernels": kernels, "timing": TIMING}), flush=True)

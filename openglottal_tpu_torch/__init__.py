@@ -6,8 +6,11 @@ so a reader finds each counterpart; PyTorch idiom inside.  The package
 imports ``torch`` and numpy only.  The hand-written CUDA kernels live in
 ``csrc/`` and are compiled with ``nvcc`` at first use (``ops/_build.py``).
 
-Ported so far: the ``guided-vft`` and ``unet`` serving pipelines for
-monochrome 256x256 video.  Everything else raises ``NotImplementedError``.
+Ported so far: the five serving pipelines (``vft``, ``guided-vft``,
+``unet``, ``crop-unet``, ``unet-only``) for gray or BGR video of any frame
+size, through ``GlottalPipelines.extract_features`` and
+``run_pipeline_full``.  Meshes, int8, the windowed decoder, cohort serving
+and streaming raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -33,8 +33,9 @@
 // the form the reference's scan takes (see models/tracker.py _thresh_chain);
 // the motion-map step is fma(1-alpha, lmap, round(alpha*d)), the form the
 // reference's sequential scan takes (models/tracker.py lmap_ema_plain); the
-// blur is a product per tap and a left-to-right sum, unfused, as eager
-// PyTorch computes it (ops/blur.py); the gate uses no fused operation.
+// blur is fma(k0, x0, round(k1*x1)) and then one fma per tap, the form the
+// reference's compiled blur takes (ops/blur.py); the gate uses no fused
+// operation.
 //
 // Plain C interface; nothing allocates or synchronises; each function returns
 // cudaGetLastError().
@@ -647,16 +648,16 @@ thresh_chain_kernel(const float* __restrict__ thresh0,
 //
 // and every lmap_i is stored.  The blur is ops/blur.py's: reflect-101
 // borders (by index math here: no padded copy), the h axis first, then the w
-// axis, each product rounded (__fmul_rn) and the taps summed from tap 0 left
-// to right (__fadd_rn), unfused.  Inactive steps keep the map and still
-// store it.
+// axis, each rounded as the reference rounds it: fma(k0, x0, round32(k1 *
+// x1)), then one __fmaf_rn per tap (blur_step).  Inactive steps keep the map
+// and still store it.
 //
 // Bytes bound: 4 B read + 4 B written per pixel-step (the frames, the maps);
 // at a served (502, 48, 40) that is 7.7 MB, 2.3 us at 3.35 TB/s.  The
-// operations (a subtract, 2K multiplies and 2K-2 adds of the blur, a multiply
-// and an fma per pixel-step; ~55 at K = 13) are 1.6 us at the card's
-// float32 rate; the serial floor is t dependent fmas per pixel (502 x 4
-// cycles, ~1 us).  The blur is most of the work, and it does not read the
+// operations (a subtract, a product and K-1 fmas per axis of the blur, a
+// multiply and an fma per pixel-step; ~54 at K = 13, an fma counting two) are
+// 0.8 us at the card's float32 rate; the serial floor is t dependent fmas per
+// pixel (502 x 4 cycles, ~1 us).  The blur is most of the work, and it does not read the
 // carry.
 //
 // The design.  A block owns a band of `rows` output rows by the full width.
@@ -710,6 +711,18 @@ constexpr size_t kMaxSmem = 227 * 1024;
 struct MapTaps {
   float k[kMaxTaps];
 };
+
+// One tap of the blur, rounded as the reference's compiled CPU code rounds
+// it (ops/blur.py): tap 0's input is held until tap 1, which fuses it over
+// the rounded product of tap 1; every later tap is one fused step; a 1-tap
+// blur is the one product.  acc is the running sum, x tap d's input.
+template <typename Tap>
+__device__ __forceinline__ float blur_step(float acc, int d, int nt, float x,
+                                           const Tap& tap) {
+  if (d == 0) return nt == 1 ? __fmul_rn(tap(0), x) : x;
+  if (d == 1) return __fmaf_rn(tap(0), acc, __fmul_rn(tap(1), x));
+  return __fmaf_rn(tap(d), x, acc);
+}
 
 // Reflect-101 of a row or column index that lies less than n outside [0, n).
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -1049,7 +1062,7 @@ motion_map_kernel(const float* __restrict__ frames,
           }
           for (int f = fa; f < fb; ++f) {
             const float* s = staged(f + 1);
-            float acc[kRows];
+            float acc[kRows] = {};
 #pragma unroll
             for (int qq = 0; qq < kIn; ++qq) {
               const float c = s[off[qq]];
@@ -1059,8 +1072,7 @@ motion_map_kernel(const float* __restrict__ frames,
               for (int j = 0; j < kRows; ++j) {
                 const int d = qq - j;
                 if (d < 0 || d > 2 * (kRadius >= 0 ? kRadius : 0)) continue;
-                const float p = __fmul_rn(tap(d), a);
-                acc[j] = d == 0 ? p : __fadd_rn(acc[j], p);
+                acc[j] = blur_step(acc[j], d, nt, a, tap);
               }
             }
             float* row = hb + static_cast<size_t>(f) * kRows * wp + r + x;
@@ -1078,7 +1090,7 @@ motion_map_kernel(const float* __restrict__ frames,
           for (int f = fa; f < fb; ++f) {
             const float* s = staged(f + 1);
             const float* p0 = staged(f);
-            float acc[kRows];
+            float acc[kRows] = {};
             for (int qq = 0; qq < rb + 2 * r; ++qq) {
               const int o = row_at(qq);
               const float a = fabsf(__fsub_rn(s[o], p0[o]));
@@ -1086,8 +1098,7 @@ motion_map_kernel(const float* __restrict__ frames,
               for (int j = 0; j < kRows; ++j) {
                 const int d = qq - j;
                 if (d < 0 || d >= nt) continue;
-                const float p = __fmul_rn(tap(d), a);
-                acc[j] = d == 0 ? p : __fadd_rn(acc[j], p);
+                acc[j] = blur_step(acc[j], d, nt, a, tap);
               }
             }
             float* row = hb + static_cast<size_t>(f) * kRows * wp + r + x;
@@ -1126,7 +1137,7 @@ motion_map_kernel(const float* __restrict__ frames,
         const int f = rb == kRows ? fj / kRows : fj / rb;
         const int j = fj - f * rb;
         const float* src = hb + (static_cast<size_t>(f) * kRows + j) * wp + x;
-        float acc[4];
+        float acc[4] = {};
         if (kRadius >= 0) {
           constexpr int kWin = 4 + 2 * (kRadius >= 0 ? kRadius : 0);
           float v[kWin];
@@ -1134,17 +1145,15 @@ motion_map_kernel(const float* __restrict__ frames,
           for (int e = 0; e < kWin; ++e) v[e] = src[e];
 #pragma unroll
           for (int o = 0; o < 4; ++o) {
-            acc[o] = __fmul_rn(tap(0), v[o]);
 #pragma unroll
-            for (int d = 1; d < kWin - 3; ++d)
-              acc[o] = __fadd_rn(acc[o], __fmul_rn(tap(d), v[o + d]));
+            for (int d = 0; d < kWin - 3; ++d)
+              acc[o] = blur_step(acc[o], d, nt, v[o + d], tap);
           }
         } else {
 #pragma unroll
           for (int o = 0; o < 4; ++o) {
-            acc[o] = __fmul_rn(tap(0), src[o]);
-            for (int d = 1; d < nt; ++d)
-              acc[o] = __fadd_rn(acc[o], __fmul_rn(tap(d), src[o + d]));
+            for (int d = 0; d < nt; ++d)
+              acc[o] = blur_step(acc[o], d, nt, src[o + d], tap);
           }
         }
         // to the walker of each pixel: column k of its row of the walker's

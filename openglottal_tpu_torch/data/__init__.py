@@ -1,1 +1,1 @@
-"""Synthetic test video."""
+"""Synthetic test video and colour conversion."""

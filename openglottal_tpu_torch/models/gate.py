@@ -236,3 +236,34 @@ def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
     _, ov, ob = _gate_scan_cuda(gate_init(), has, boxes, frame_h, frame_w,
                                 params)
     return ov, ob
+
+
+def gate_single(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
+                frame_w: int, params: GateParams = GateParams()):
+    """Stateless per-frame gate: :func:`gate_step` from :func:`gate_init`
+    on every frame (the detector reset before each frame, for frames with no
+    temporal order), vectorised over frames as tensor operations on the
+    tensors' device.  From the initial state a step reduces to: valid =
+    has; the box is the raw detection's centre and size + 2 * padding (zero
+    without a detection), its centre clamped into the frame.
+
+    Returns (out_valid (T,) bool, out_boxes (T, 4) int32)."""
+    _check_inputs(has, boxes)
+    if has.dtype != torch.bool:
+        has = has != 0
+    b = boxes.to(torch.float32)
+    p = 2 * int(params.padding)
+    zero = torch.zeros((), dtype=torch.float32, device=b.device)
+    cx = torch.where(has, (b[:, 0] + b[:, 2]) * 0.5, zero)
+    cy = torch.where(has, (b[:, 1] + b[:, 3]) * 0.5, zero)
+    # float32 -> int32 truncates toward zero, as the reference's cast
+    w = torch.where(has, (b[:, 2] - b[:, 0]).to(torch.int32) + p, 0)
+    h = torch.where(has, (b[:, 3] - b[:, 1]).to(torch.int32) + p, 0)
+    hw = torch.div(w, 2, rounding_mode="floor")
+    hh = torch.div(h, 2, rounding_mode="floor")
+    hwf, hhf = hw.to(torch.float32), hh.to(torch.float32)
+    ocx = torch.minimum(torch.maximum(cx, hwf), float(frame_w) - hwf
+                        ).to(torch.int32)
+    ocy = torch.minimum(torch.maximum(cy, hhf), float(frame_h) - hhf
+                        ).to(torch.int32)
+    return has, torch.stack([ocx - hw, ocy - hh, ocx + hw, ocy + hh], 1)

@@ -40,6 +40,7 @@ from openglottal_tpu_torch.ops.blobs import (
     top_n_blobs_batch,
 )
 from openglottal_tpu_torch.ops.blur import gaussian_blur
+from openglottal_tpu_torch.ops.fma import fma32
 from openglottal_tpu_torch.ops.histogram import (
     masked_histogram_u8,
     masked_percentile_u8_batch,
@@ -83,15 +84,28 @@ def _roi_threshold(lmap, ratio: float):
     return torch.where(peak > 0, peak * ratio, torch.ones_like(peak))
 
 
+def _init_map(ff, ksize: int, use_plain: bool):
+    """The seed motion map of (N, H, W) init frames: their blurred mean
+    absdiff.  On a CUDA tensor the blur is one ``og_motion_map`` launch at
+    T = 1 from a zero frame and a zero map with alpha = 1: its absdiff is the
+    mean itself (>= 0) and its step fma(0, 0, round32(1 * d)) is d, so its
+    one map is :func:`gaussian_blur` of the mean, bit for bit, in one launch
+    instead of ~50 eager ones."""
+    avg = (ff[1:] - ff[:-1]).abs().sum(0) / (ff.shape[0] - 1)
+    if use_plain or not avg.is_cuda:
+        return gaussian_blur(avg, ksize)
+    zero = torch.zeros_like(avg)
+    one = torch.ones((1,), dtype=torch.bool, device=avg.device)
+    return motion_map(zero, avg[None], zero, one, 1.0, ksize)[0]
+
+
 def vft_initialize(init_frames, p: VFTParams, use_plain: bool = False):
     """Seed carry from N init frames: (N, H, W) integer-valued grayscale,
     already resized to the locked crop size.  The motion map is the blurred
     mean absdiff; the threshold is the percentile of the FIRST init frame
     inside the map's largest blob.  Returns carry (prev, lmap, thresh)."""
     ff = init_frames.to(torch.float32)
-    n = ff.shape[0]
-    avg = (ff[1:] - ff[:-1]).abs().sum(0) / (n - 1)
-    lmap = gaussian_blur(avg, p.gaussian_ksize)
+    lmap = _init_map(ff, p.gaussian_ksize, use_plain)
     rm = largest_blob(lmap > _roi_threshold(lmap, p.roi_threshold_ratio),
                       use_plain)
     thresh = _roi_percentile(ff[0], rm, p.glottal_percentile, 127.0, min_px=0)
@@ -101,14 +115,13 @@ def vft_initialize(init_frames, p: VFTParams, use_plain: bool = False):
 def lmap_ema_plain(lmap0, d, active, alpha: float):
     """Plain version of the motion-map recurrence over a (T, H, W) stack of
     blurred absdiffs: a loop over T, one step = fma(1-alpha, lmap,
-    round32(alpha*d)) — see :func:`motion_map`; the fused multiply-add is
-    taken in float64, where the product is exact."""
+    round32(alpha*d)) — see :func:`motion_map` (``ops/fma.fma32``)."""
     a = float(np.float32(alpha))
     b = float(np.float32(1.0 - alpha))
     lm = lmap0.to(torch.float32)
     out = torch.empty_like(d, dtype=torch.float32)
     for i in range(d.shape[0]):
-        nxt = (lm.double() * b + (d[i].to(torch.float32) * a).double()).float()
+        nxt = fma32(b, lm, d[i].to(torch.float32) * a)
         lm = torch.where(active[i], nxt, lm)
         out[i] = lm
     return out
@@ -139,7 +152,7 @@ def motion_map(prev0, frames, lmap0, active, alpha: float, ksize: int,
     pinned to the form the reference's sequential scan takes as compiled for
     the CPU: round32(alpha*d), then ONE fused multiply-add fma(1-alpha, lmap,
     that product) (found by comparing bits; the unfused form and the other
-    fused form both differ from it); the blur rounds as eager PyTorch's
+    fused form both differ from it); the blur rounds as the reference's
     (``ops/blur.py``).  On a CUDA tensor it is ONE launch of ``csrc/scan.cu``
     ``og_motion_map``, which computes the blurred absdiff too (it never
     reaches device memory), bit-equal to the plain version; on a CPU tensor
@@ -196,26 +209,29 @@ def _bbox_mask(h: int, w: int, valid, box, device=None):
     return m & valid
 
 
-def ygvft_initialize(init_frames, first_valid, first_box, p: YGVFTParams):
-    """Seed carry (prev, lmap, thresh): lmap from the mean absdiff; threshold
-    from the percentile of the LAST init frame inside the first bbox (whole
-    frame if no bbox yet)."""
-    ff = init_frames.to(torch.float32)
-    n, h, w = ff.shape
-    avg = (ff[1:] - ff[:-1]).abs().sum(0) / (n - 1)
-    lmap = gaussian_blur(avg, p.gaussian_ksize)
+def _ygvft_thresh0(ff, first_valid, first_box, p: YGVFTParams):
+    """The guided tracker's seed threshold: the percentile of the LAST init
+    frame inside the first bbox (whole frame if no bbox yet)."""
+    h, w = ff.shape[1:]
     roi = _bbox_mask(h, w, first_valid, first_box, device=ff.device)
     sel = torch.where(roi.any(), roi, torch.ones_like(roi))
-    thresh = _roi_percentile(ff[-1], sel, p.glottal_percentile, 127.0,
-                             min_px=0)
-    return ff[-1], lmap, thresh
+    return _roi_percentile(ff[-1], sel, p.glottal_percentile, 127.0,
+                           min_px=0)
+
+
+def ygvft_initialize(init_frames, first_valid, first_box, p: YGVFTParams,
+                     use_plain: bool = False):
+    """Seed carry (prev, lmap, thresh): lmap from the mean absdiff (as
+    :func:`vft_initialize`); the threshold by :func:`_ygvft_thresh0`."""
+    ff = init_frames.to(torch.float32)
+    lmap = _init_map(ff, p.gaussian_ksize, use_plain)
+    return ff[-1], lmap, _ygvft_thresh0(ff, first_valid, first_box, p)
 
 
 def thresh_chain_plain(thresh0, cur, n_px, active, beta: float):
     """Plain version of the threshold chain: a Python loop over numpy scalars
     on the host.  One step is fma(beta, th, round32((1-beta)*c)) — see
-    :func:`_thresh_chain`; the fused multiply-add is emulated in float64,
-    where the product of two float32 values is exact."""
+    :func:`_thresh_chain` (``ops/fma.fma32`` on 0-d tensors)."""
     dev = cur.device
     f32 = np.float32
     th = f32(torch.as_tensor(thresh0).detach().cpu().item())
@@ -226,7 +242,8 @@ def thresh_chain_plain(thresh0, cur, n_px, active, beta: float):
     out = np.empty(cur_np.shape, np.float32)
     for i in range(cur_np.shape[0]):
         c = cur_np[i] if npx_np[i] > 10 else th
-        th2 = f32(np.float64(b) * np.float64(th) + np.float64(f32(omb * c)))
+        th2 = f32(fma32(float(b), torch.tensor(th),
+                        torch.tensor(f32(omb * c))).item())
         th = th2 if act_np[i] else th
         out[i] = th
     return torch.from_numpy(out).to(dev)
@@ -296,15 +313,17 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
     that is a host branch on one scalar (one small device-to-host read).
 
     The motion map (absdiff -> blur -> alpha-EMA) is dead state for the
-    guided tracker — its ROI is always the bbox — so the per-frame maps are
-    NOT computed here (the JAX package traces them and lets XLA remove them).
+    guided tracker — its ROI is always the bbox — so neither the seed map nor
+    the per-frame maps are computed here (the JAX package traces them and
+    lets XLA remove them).
     """
     p = params
     t, h, w = frames.shape
     dev = frames.device
     if active is None:
         active = torch.ones((t,), dtype=torch.bool, device=dev)
-    _, _, thresh0 = ygvft_initialize(init_frames, first_valid, first_box, p)
+    thresh0 = _ygvft_thresh0(init_frames.to(torch.float32), first_valid,
+                             first_box, p)
     boxes = boxes.to(torch.int32)
     valids = valids.bool()
 
@@ -341,8 +360,8 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
 
 def vft_parallel(init_frames, frames, active=None,
                  params: VFTParams = VFTParams(), use_plain: bool = False):
-    """Frame-parallel VFT — same outputs as :func:`vft_scan` up to the blur's
-    rounding.  ``active`` may only disable a PREFIX (the init frames the
+    """Frame-parallel VFT — same outputs as :func:`vft_scan` (the same
+    kernels and rounding).  ``active`` may only disable a PREFIX (the init frames the
     caller overlays) and/or a contiguous tail: the motion-map and threshold
     recurrences treat inactive steps as identity, matching the scan.
     Both blob filters take the split route of
@@ -472,6 +491,7 @@ def ygvft_scan(init_frames, first_valid, first_box, frames, valids, boxes,
     """Full sequential YOLO-guided VFT pass.  init_frames: (N, H, W);
     frames: (T, H, W); valids: (T,) bool; boxes: (T, 4) int32 gated boxes.
     Returns (masks, areas)."""
-    carry = ygvft_initialize(init_frames, first_valid, first_box, params)
+    carry = ygvft_initialize(init_frames, first_valid, first_box, params,
+                             use_plain)
     return ygvft_scan_carry(carry, frames, valids, boxes, active, params,
                             use_plain)[1]

@@ -7,7 +7,12 @@ Counterpart of ``openglottal_tpu/ops/blur.py``:
   * border mode BORDER_REFLECT_101 (``F.pad(mode="reflect")``)
 
 Reflect-pad, then k shifted multiply-adds per axis in the reference's order
-(rows first, taps accumulated left to right).
+(rows first, taps accumulated from tap 0), rounded as the reference's
+compiled CPU code rounds them (found by comparing bits): per axis,
+
+    acc = fma(k0, x0, round32(k1 * x1)),  then  acc = fma(k_t, x_t, acc)
+
+for t = 2 .. K-1 (``ops/fma.fma32``); a 1-tap blur is the one product.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from openglottal_tpu_torch.ops.fma import fma32
 
 _SMALL_TAB = {
     1: np.array([1.0]),
@@ -45,6 +52,17 @@ def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float = 0.0):
     lead = x.shape[:-2]
     # F.pad's reflect mode wants a (N, C, H, W)-like tensor
     x = F.pad(x.reshape(1, -1, h, w), (r, r, r, r), mode="reflect")
-    rows = sum(k[d] * x[..., d:d + h, :] for d in range(ksize))
-    out = sum(k[d] * rows[..., :, d:d + w] for d in range(ksize))
+    rows = _taps(k, lambda d: x[..., d:d + h, :])
+    out = _taps(k, lambda d: rows[..., :, d:d + w])
     return out.reshape(*lead, h, w)
+
+
+def _taps(k, tap):
+    """sum_t k[t] * tap(t), rounded as the reference rounds it: tap 0 fused
+    over the rounded product of tap 1, then one fused step per tap."""
+    if len(k) == 1:
+        return k[0] * tap(0)
+    acc = fma32(k[0], tap(0), k[1] * tap(1))
+    for d in range(2, len(k)):
+        acc = fma32(k[d], tap(d), acc)
+    return acc

@@ -1,20 +1,26 @@
 """Serving pipelines over whole videos: frames in, area waveform / kinematic
 features out.
 
-Counterpart of ``openglottal_tpu/pipelines.py``.  Ported so far, for
-monochrome 256x256 video ((T, H, W) uint8, or (T, H, W, 3) with equal
-channels):
+Counterpart of ``openglottal_tpu/pipelines.py``.  The five pipelines, for
+(T, H, W) gray or (T, H, W, 3) BGR uint8 video of any frame size:
 
   1  ``vft``        — YOLOv8n -> temporal gate -> size-locked crops of the
                       gated boxes -> motion tracker
   2  ``guided-vft`` — YOLOv8n -> temporal gate -> YOLO-guided tracker
   3  ``unet``       — YOLOv8n + gate + full-frame U-Net, in-box pixel counts
+  4  ``crop-unet``  — YOLOv8n + gate -> each gated crop letterboxed to 256²
+                      -> crop-trained U-Net -> mask pasted back
+  5  ``unet-only``  — full-frame U-Net, no gate
 
-Both trackers run frame-parallel by default and as a sequential per-frame
-loop with ``parallel_trackers=False`` (the debug form).  Everything else
-(colour input, other frame sizes, the ``crop-unet`` / ``unet-only``
-pipelines, meshes, int8, the windowed decoder) raises ``NotImplementedError``
-until a later slice ports it.
+Colour video crosses to the device whole and is converted to gray there
+(``data/video.bgr_to_gray_u8``); video whose three channels are equal
+crosses as one channel.  The detector sees 256² frames: other sizes are
+letterboxed to 256² (bilinear, rounded to uint8) and its boxes mapped back;
+the U-Net of ``unet`` / ``unet-only`` runs on frames resized to 256² and its
+probabilities are resized back.  Both trackers run frame-parallel by default
+and as a sequential per-frame loop with ``parallel_trackers=False`` (the
+debug form).  Meshes, int8, the windowed decoder, cohort serving and
+streaming raise ``NotImplementedError`` until a later slice ports them.
 
 Model passes run over ``CHUNK``-frame slices in a Python loop (the last one
 ragged; nothing is padded — PyTorch runs eagerly, so there are no static
@@ -31,6 +37,7 @@ import contextlib
 import numpy as np
 import torch
 
+from openglottal_tpu_torch.data.video import bgr_to_gray_u8
 from openglottal_tpu_torch.features import kinematic_features
 from openglottal_tpu_torch.models.fold import (
     UNET_STEM,
@@ -40,7 +47,7 @@ from openglottal_tpu_torch.models.fold import (
     fold_yolo,
     is_folded,
 )
-from openglottal_tpu_torch.models.gate import GateParams, gate_scan
+from openglottal_tpu_torch.models.gate import GateParams, gate_scan, gate_single
 from openglottal_tpu_torch.models.tracker import (
     VFTParams,
     YGVFTParams,
@@ -51,7 +58,16 @@ from openglottal_tpu_torch.models.tracker import (
 )
 from openglottal_tpu_torch.models.unet import UNet
 from openglottal_tpu_torch.models.yolo import YOLOv8, max_conf_detect
-from openglottal_tpu_torch.ops.resize import crop_resize_bilinear
+from openglottal_tpu_torch.ops.resize import (
+    crop_resize_bilinear,
+    dyn_letterbox_geometry,
+    dyn_letterbox_index_nearest,
+    dyn_unletterbox_index_nearest,
+    gather_rows_cols,
+    letterbox,
+    letterbox_info,
+    resize_bilinear,
+)
 from openglottal_tpu_torch.utils.convert import (
     unet_state_dict_from_jax,
     yolo_state_dict_from_jax,
@@ -61,6 +77,7 @@ from openglottal_tpu_torch.utils.io import load_weights_npz
 VFT_INIT = 2     # init crops of the motion tracker
 YGVFT_INIT = 2   # init frames of the guided tracker
 CHUNK = 128      # frame-chunk size for batched model passes
+SIZE = 256       # the networks' frame size
 PIPELINES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
 
 
@@ -121,12 +138,17 @@ def _box_area_sums(masks, valids, boxes):
 def _gather_crops(gray_u8, boxes, out_h: int, out_w: int):
     """Batched crop + INTER_LINEAR resize of each frame's box to the locked
     crop size, rounded (half to even) to uint8 values like a resize of uint8
-    crops.  gray (N, H, W), boxes (N, 4) int -> (N, out_h, out_w) float32."""
-    b = boxes.to(torch.float32)
-    c = crop_resize_bilinear(gray_u8.to(torch.float32), b[:, 1], b[:, 0],
-                             b[:, 3] - b[:, 1], b[:, 2] - b[:, 0],
-                             out_h, out_w)
+    crops.  gray (N, H, W), boxes (N, 4) int -> (N, out_h, out_w) float32
+    (integer windows of uint8 pixels: the resize's exact float64 sums)."""
+    b = boxes
+    c = crop_resize_bilinear(gray_u8, b[:, 1], b[:, 0], b[:, 3] - b[:, 1],
+                             b[:, 2] - b[:, 0], out_h, out_w)
     return torch.round(c).clamp(0, 255)
+
+
+def _to_u8(x):
+    """Float pixel values rounded (half to even) and clipped to uint8."""
+    return torch.round(x).clamp(0, 255).to(torch.uint8)
 
 
 def _as_tree(weights):
@@ -139,16 +161,16 @@ def _as_tree(weights):
 class GlottalPipelines:
     """Holds the models and runs the serving pipelines.
 
-    ``unet_variables`` / ``yolo_variables``: the JAX package's ``{params,
-    batch_stats}`` numpy trees (folded or not), or paths of ``.npz`` files
-    holding them.  ``dtype``: ``torch.bfloat16`` (default) or
-    ``torch.float32``; in float32 every model pass runs under
+    ``unet_variables`` / ``crop_unet_variables`` / ``yolo_variables``: the
+    JAX package's ``{params, batch_stats}`` numpy trees (folded or not), or
+    paths of ``.npz`` files holding them; the crop U-Net has the U-Net's
+    architecture and its own weights.  ``dtype``: ``torch.bfloat16``
+    (default) or ``torch.float32``; in float32 every model pass runs under
     :func:`full_float32`, so that f32 on the card is f32 and not TF32.
     ``fold_bn``: fold BatchNorm into the convs (inference default).
     ``parallel_trackers=False`` runs both trackers as sequential per-frame
-    loops (same outputs up to the blur's rounding; the debug form).
-    ``use_plain_kernels`` is a test hook: it routes every hand-written kernel
-    to its plain version on any device.
+    loops (the debug form).  ``use_plain_kernels`` is a test hook: it routes
+    every hand-written kernel to its plain version on any device.
     """
 
     def __init__(self, unet_variables=None, crop_unet_variables=None,
@@ -161,10 +183,6 @@ class GlottalPipelines:
                  quant: str | None = None,
                  window_decoder: bool | None = None, device=None,
                  use_plain_kernels: bool = False):
-        if crop_unet_variables is not None:
-            raise NotImplementedError(
-                "crop-unet weights: the crop pipeline is ported in a later "
-                "slice")
         if mesh is not None:
             raise NotImplementedError("mesh sharding is ported in a later slice")
         if quant is not None:
@@ -184,10 +202,12 @@ class GlottalPipelines:
         self.use_plain_kernels = use_plain_kernels
 
         sds = {}
-        if unet_variables is not None:
-            sds["unet"] = unet_state_dict_from_jax(_as_tree(unet_variables))
-        if yolo_variables is not None:
-            sds["yolo"] = yolo_state_dict_from_jax(_as_tree(yolo_variables))
+        for name, tree, convert in (
+                ("unet", unet_variables, unet_state_dict_from_jax),
+                ("crop_unet", crop_unet_variables, unet_state_dict_from_jax),
+                ("yolo", yolo_variables, yolo_state_dict_from_jax)):
+            if tree is not None:
+                sds[name] = convert(_as_tree(tree))
         # already-folded checkpoints drop straight in; otherwise fold when
         # asked (the inference default)
         if sds and all(is_folded(sd) for sd in sds.values()):
@@ -195,15 +215,14 @@ class GlottalPipelines:
         else:
             self._fuse = bool(fold_bn and sds)
             if self._fuse:
-                if "unet" in sds:
-                    sds["unet"] = fold_unet(sds["unet"])
-                if "yolo" in sds:
-                    sds["yolo"] = fold_yolo(sds["yolo"])
-        self.unet = self.yolo = None
-        if "unet" in sds:
-            self.unet = self._build(
-                UNet(fuse_bn=self._fuse),
-                absorb_u8_scale(sds["unet"], UNET_STEM))
+                sds = {k: (fold_yolo if k == "yolo" else fold_unet)(sd)
+                       for k, sd in sds.items()}
+        self.unet = self.crop_unet = self.yolo = None
+        for name in ("unet", "crop_unet"):
+            if name in sds:
+                setattr(self, name, self._build(
+                    UNet(fuse_bn=self._fuse),
+                    absorb_u8_scale(sds[name], UNET_STEM)))
         if "yolo" in sds:
             self.yolo = self._build(
                 YOLOv8(nc=1, fuse_bn=self._fuse),
@@ -217,30 +236,55 @@ class GlottalPipelines:
         return model.to(device=self.device, dtype=self.dtype,
                         memory_format=torch.channels_last)
 
-    # ── shared pieces ───────────────────────────────────────────────────
+    # ── input ───────────────────────────────────────────────────────────
+
+    def _prepare(self, frames):
+        """One host-to-device transfer per video -> (frames_dev | None,
+        gray_dev).  Gray (T, H, W) input, and (T, H, W, 3) input with equal
+        channels, cross as one channel and frames_dev is None; colour (T, H,
+        W, 3) BGR input crosses whole and is converted to gray on the
+        device.  Tensors are taken as they are (a 4-D one as BGR)."""
+        if isinstance(frames, torch.Tensor):
+            f = frames
+        else:
+            f = np.asarray(frames)
+            if is_monochrome(f):
+                f = f[..., 0]
+            f = torch.from_numpy(np.ascontiguousarray(f))
+        if f.dtype != torch.uint8 or not (
+                f.dim() == 3 or (f.dim() == 4 and f.shape[-1] == 3)):
+            raise ValueError(f"expected (T, H, W) or (T, H, W, 3) uint8 "
+                             f"frames, got {tuple(f.shape)} {f.dtype}")
+        f = f.to(self.device)
+        if f.dim() == 3:
+            return None, f
+        return f, bgr_to_gray_u8(f)
+
+    def prepare(self, frames):
+        """:meth:`_prepare`: (frames_dev | None, gray_dev)."""
+        return self._prepare(frames)
 
     def _to_gray(self, frames) -> torch.Tensor:
-        """Host or device frames -> (T, H, W) uint8 on the device; one
-        transfer of a single channel."""
-        if isinstance(frames, torch.Tensor):
-            g = frames
-        else:
-            g = np.asarray(frames)
-            if g.ndim == 4:
-                if not is_monochrome(g):
-                    raise NotImplementedError(
-                        "colour (BGR) input is ported in a later slice; "
-                        "this slice serves monochrome video")
-                g = g[..., 0]
-            g = torch.from_numpy(np.ascontiguousarray(g))
-        if g.dim() != 3 or g.dtype != torch.uint8:
-            raise ValueError(f"expected (T, H, W) uint8 frames, got "
-                             f"{tuple(g.shape)} {g.dtype}")
-        if tuple(g.shape[1:]) != (256, 256):
-            raise NotImplementedError(
-                "frames other than 256x256 (letterboxing) are ported in a "
-                "later slice")
-        return g.to(self.device)
+        """Host or device frames -> (T, H, W) uint8 gray on the device."""
+        return self._prepare(frames)[1]
+
+    def _require(self, *names):
+        for n in names:
+            if getattr(self, n) is None:
+                raise ValueError(f"this pipeline needs {n} weights")
+
+    def _chunks(self, fn, *tensors):
+        """fn over CHUNK-frame slices of the tensors, outputs concatenated
+        (a tuple of outputs concatenated element by element)."""
+        outs = []
+        with full_float32(self.dtype):
+            for i in range(0, tensors[0].shape[0], CHUNK):
+                outs.append(fn(*(x[i:i + CHUNK] for x in tensors)))
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(c) for c in zip(*outs))
+        return torch.cat(outs)
+
+    # ── detector and gate ───────────────────────────────────────────────
 
     def _yolo_input(self, gray_chunk):
         """Raw-pixel detector input: the gray channel replicated to 3 on the
@@ -253,30 +297,87 @@ class GlottalPipelines:
         outs = self.yolo(self._yolo_input(gray_chunk))
         return max_conf_detect(outs, h, w, self.conf)
 
-    def _require(self, *names):
-        for n in names:
-            if getattr(self, n) is None:
-                raise ValueError(f"this pipeline needs {n} weights")
+    def _yolo_chunk_bgr(self, bgr_chunk):
+        """The detector on (N, H, W, 3) BGR frames: channels reversed to the
+        RGB order the stem was trained on."""
+        h, w = bgr_chunk.shape[1:3]
+        x = bgr_chunk.flip(-1).permute(0, 3, 1, 2).to(self.dtype)
+        outs = self.yolo(x.contiguous(memory_format=torch.channels_last))
+        return max_conf_detect(outs, h, w, self.conf)
+
+    @torch.no_grad()
+    def detect_video(self, frames_bgr_u8):
+        """(T, H, W, 3) BGR frames -> (has (T,), raw boxes (T, 4) f32, conf
+        (T,)), in CHUNK-frame slices, at the frames' own size (256² is the
+        detector's)."""
+        self._require("yolo")
+        f = frames_bgr_u8
+        if not isinstance(f, torch.Tensor):
+            f = torch.from_numpy(np.ascontiguousarray(f))
+        return self._chunks(self._yolo_chunk_bgr, f.to(self.device))
 
     @torch.no_grad()
     def detect_video_gray(self, gray_u8):
-        """(T, 256, 256) monochrome -> (has (T,), raw boxes (T, 4) f32,
-        conf (T,)), in CHUNK-frame slices."""
+        """(T, H, W) monochrome -> (has (T,), raw boxes (T, 4) f32, conf
+        (T,)), in CHUNK-frame slices (channels replicated on the device)."""
         self._require("yolo")
-        gray = self._to_gray(gray_u8)
-        outs = []
-        with full_float32(self.dtype):
-            for i in range(0, gray.shape[0], CHUNK):
-                outs.append(self._yolo_chunk(gray[i:i + CHUNK]))
-        return tuple(torch.cat(c) for c in zip(*outs))
+        return self._chunks(self._yolo_chunk, self._to_gray(gray_u8))
 
-    def _detect_gate(self, gray):
-        """Detector over all chunks + the causal gate scan ->
-        (valid (T,) bool, boxes (T, 4) int32)."""
-        has, raw, _ = self.detect_video_gray(gray)
-        h, w = gray.shape[1:]
+    def _detector_input(self, src):
+        """The frames the detector sees: ``src`` (the colour frames where
+        there are any, else the gray ones), letterboxed to 256² when other
+        than 256² (bilinear, each channel of colour input, rounded to
+        uint8)."""
+        if src.shape[1:3] == (SIZE, SIZE):
+            return src
+        x = src.to(torch.float32)
+        if src.dim() == 4:
+            return _to_u8(torch.stack([letterbox(x[..., c], SIZE, "linear")
+                                       for c in range(3)], -1))
+        return _to_u8(letterbox(x, SIZE, "linear"))
+
+    def _detect_chunk(self, x):
+        """(has (N,), raw boxes (N, 4) f32) of a chunk of BGR (N, H, W, 3)
+        or gray (N, H, W) frames."""
+        return (self._yolo_chunk_bgr if x.dim() == 4 else self._yolo_chunk)(
+            x)[:2]
+
+    def _gate_frames(self, has, raw, h: int, w: int, sequential: bool):
+        """:meth:`_gate` of detections on :meth:`_detector_input`'s frames:
+        letterboxed boxes are first mapped back to (h, w) by (raw - pad) *
+        max(h, w) / 256 and clipped to the frame."""
+        if (h, w) != (SIZE, SIZE):
+            pt, pl, _, _ = letterbox_info(h, w, SIZE)
+            scale = max(h, w) / float(SIZE)
+            raw = torch.stack([((raw[:, 0] - pl) * scale).clamp(0, w),
+                               ((raw[:, 1] - pt) * scale).clamp(0, h),
+                               ((raw[:, 2] - pl) * scale).clamp(0, w),
+                               ((raw[:, 3] - pt) * scale).clamp(0, h)], -1)
+        return self._gate(has, raw, h, w, sequential)
+
+    @torch.no_grad()
+    def _gated(self, frames_dev, gray_dev, sequential: bool = True):
+        """Detector + gate -> (valid (T,) bool, boxes (T, 4) int32) in the
+        frames' coordinates (:meth:`_detector_input`, :meth:`_gate_frames`).
+        ``sequential=False`` gates every frame on its own
+        (:func:`gate_single`)."""
+        src = frames_dev if frames_dev is not None else gray_dev
+        has, raw = self._chunks(self._detect_chunk, self._detector_input(src))
+        return self._gate_frames(has, raw, *src.shape[1:3], sequential)
+
+    def _gate(self, has, raw, h: int, w: int, sequential: bool):
+        """The temporal gate over all frames, or (``sequential=False``) the
+        per-frame gate."""
+        if not sequential:
+            return gate_single(has, raw, h, w, self.gate_params)
         return gate_scan(has, raw, h, w, self.gate_params,
                          use_plain=self.use_plain_kernels)
+
+    def gated_boxes(self, frames_bgr_u8, sequential: bool = True):
+        """Detector + temporal gate of a (T, H, W, 3) BGR video, at its own
+        frame size -> (valid (T,), boxes (T, 4) int32)."""
+        has, raw, _ = self.detect_video(frames_bgr_u8)
+        return self._gate(has, raw, *frames_bgr_u8.shape[1:3], sequential)
 
     def _tracker(self, parallel_fn, scan_fn):
         """The tracker form this instance runs."""
@@ -318,23 +419,22 @@ class GlottalPipelines:
                 (h0, w0))
 
     @torch.no_grad()
-    def vft_areas_gray(self, gray_u8):
-        """VFT waveform for monochrome video: detect + gate, then size-locked
-        crops and one tracker pass.  Returns areas (t,) float32 on the host,
-        or None for fewer than VFT_INIT + 5 frames.  All-zero when fewer than
-        VFT_INIT + 1 frames have a gated box or the first box is empty."""
+    def vft_areas(self, frames_u8):
+        """VFT waveform: detect + gate, then size-locked crops and one
+        tracker pass.  Returns areas (T,) float32 on the host, or None for
+        fewer than VFT_INIT + 5 frames.  All-zero when fewer than VFT_INIT + 1
+        frames have a gated box or the first box is empty."""
         self._require("yolo")
-        t = len(gray_u8)
+        t = len(frames_u8)
         if t < VFT_INIT + 5:
             return None
-        gray = self._to_gray(gray_u8)
-        valid, boxes = self._detect_gate(gray)
+        frames_dev, gray = self._prepare(frames_u8)
+        valid, boxes = self._gated(frames_dev, gray)
         return self._vft_compute(gray, valid, boxes, t)[0]
 
-    def vft_areas(self, frames_u8):
-        """:meth:`vft_areas_gray` for (T, H, W, 3) frames with equal
-        channels (colour input is ported in a later slice)."""
-        return self.vft_areas_gray(frames_u8)
+    def vft_areas_gray(self, gray_u8):
+        """:meth:`vft_areas` of monochrome (T, H, W) frames."""
+        return self.vft_areas(gray_u8)
 
     # ── pipeline 2: guided VFT ──────────────────────────────────────────
 
@@ -361,18 +461,22 @@ class GlottalPipelines:
         return areas, masks
 
     @torch.no_grad()
-    def guided_vft_areas_gray(self, gray_u8):
-        """Guided-VFT waveform for monochrome video: detect + gate + one
-        tracker pass.  Returns areas (T,) float32 on the host, or None for
-        fewer than YGVFT_INIT + 2 frames.  The first YGVFT_INIT frames seed
-        the tracker and emit zero."""
+    def guided_vft_areas(self, frames_u8):
+        """Guided-VFT waveform: detect + gate + one tracker pass.  Returns
+        areas (T,) float32 on the host, or None for fewer than YGVFT_INIT + 2
+        frames.  The first YGVFT_INIT frames seed the tracker and emit
+        zero."""
         self._require("yolo")
-        t = len(gray_u8)
+        t = len(frames_u8)
         if t < YGVFT_INIT + 2:
             return None
-        gray = self._to_gray(gray_u8)
-        valid, boxes = self._detect_gate(gray)
+        frames_dev, gray = self._prepare(frames_u8)
+        valid, boxes = self._gated(frames_dev, gray)
         return self._ygvft_compute(gray, valid, boxes, t)[0]
+
+    def guided_vft_areas_gray(self, gray_u8):
+        """:meth:`guided_vft_areas` of monochrome (T, H, W) frames."""
+        return self.guided_vft_areas(gray_u8)
 
     @torch.no_grad()
     def ygvft_eval_masks(self, gray, valid, boxes):
@@ -384,35 +488,161 @@ class GlottalPipelines:
                                        want_masks=True)
         return masks[YGVFT_INIT:]
 
-    # ── pipeline 3: YOLO + U-Net ────────────────────────────────────────
+    # ── pipelines 3 and 5: full-frame U-Net ─────────────────────────────
+
+    def _unet_input(self, x):
+        """(N, H, W) raw pixel values -> the U-Net's (N, 1, H, W) input."""
+        return x[:, None].to(self.dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def _unet_masks_chunk(self, gray_chunk):
+        return self.unet(self._unet_input(gray_chunk))[:, 0] > 0  # p > 0.5
+
+    def _unet_probs_chunk(self, x256):
+        """U-Net probabilities of (N, 256, 256) float frames (pixel range
+        0..255)."""
+        return torch.sigmoid(self.unet(self._unet_input(x256))[:, 0])
+
+    def _segment_chunk(self, gray_chunk):
+        """Boolean masks of a chunk of (N, H, W) gray frames: ``logits > 0``
+        at 256²; other sizes are resized to 256² (bilinear), their
+        probabilities resized back and thresholded at 0.5."""
+        h, w = gray_chunk.shape[1:]
+        if (h, w) == (SIZE, SIZE):
+            return self._unet_masks_chunk(gray_chunk)
+        x = resize_bilinear(gray_chunk.to(torch.float32), SIZE, SIZE)
+        return resize_bilinear(self._unet_probs_chunk(x), h, w) > 0.5
 
     @torch.no_grad()
-    def yolo_unet_areas_gray(self, gray_u8):
-        """YOLO+UNet waveform for monochrome video (one-loop form): every
-        chunk goes through the U-Net (``logits > 0``) and the detector, the
-        gate runs over all frames, then in-box pixels are counted.  The gate
-        needs every frame's detection before any box is known, so the bool
-        masks of all chunks are kept until then (T x 64 KB).  Returns areas
-        (T,) float32 on the device."""
-        self._require("yolo", "unet")
-        gray = self._to_gray(gray_u8)
-        h, w = gray.shape[1:]
-        masks, has, raw = [], [], []
-        with full_float32(self.dtype):
-            for i in range(0, gray.shape[0], CHUNK):
-                g = gray[i:i + CHUNK]
-                x = g[:, None].to(self.dtype).contiguous(
-                    memory_format=torch.channels_last)
-                masks.append(self.unet(x)[:, 0] > 0)      # sigmoid > 0.5
-                hs, bx, _ = self._yolo_chunk(g)
-                has.append(hs)
-                raw.append(bx)
-        valid, boxes = gate_scan(torch.cat(has), torch.cat(raw), h, w,
-                                 self.gate_params,
-                                 use_plain=self.use_plain_kernels)
-        return _box_area_sums(torch.cat(masks), valid, boxes)
+    def segment_video(self, gray_u8):
+        """(T, H, W) gray -> (T, H, W) boolean masks of the full-frame
+        U-Net."""
+        self._require("unet")
+        return self._chunks(self._segment_chunk, self._to_gray(gray_u8))
 
-    # ── entry point ─────────────────────────────────────────────────────
+    @torch.no_grad()
+    def unet_only_areas(self, gray_u8):
+        """Pipeline 5: the U-Net's mask area of every frame, no gate ->
+        (T,) float32 on the device."""
+        self._require("unet")
+        return self._chunks(
+            lambda g: self._segment_chunk(g).sum((1, 2)).to(torch.float32),
+            self._to_gray(gray_u8))
+
+    @torch.no_grad()
+    def _segment_gated(self, frames_dev, gray):
+        """Pipeline 3's masks and gate in one loop: every chunk goes through
+        the U-Net (:meth:`_segment_chunk`) and the detector
+        (:meth:`_detect_chunk`), so the host queues one network's kernels
+        while the card runs the other's; then the gate runs over all frames
+        (it needs every frame's detection before any box is known, so the
+        bool masks of all chunks are kept until then) -> (masks (T, H, W)
+        bool, valid (T,), boxes (T, 4) int32)."""
+        src = frames_dev if frames_dev is not None else gray
+        masks, has, raw = self._chunks(
+            lambda g, x: (self._segment_chunk(g), *self._detect_chunk(x)),
+            gray, self._detector_input(src))
+        valid, boxes = self._gate_frames(has, raw, *gray.shape[1:],
+                                         sequential=True)
+        return masks, valid, boxes
+
+    def yolo_unet_areas(self, frames_u8):
+        """Pipeline 3 on gray or BGR frames: the in-box mask pixels of
+        :meth:`_segment_gated` -> areas (T,) float32 on the device."""
+        self._require("yolo", "unet")
+        return _box_area_sums(*self._segment_gated(*self._prepare(frames_u8)))
+
+    def yolo_unet_areas_gray(self, gray_u8):
+        """:meth:`yolo_unet_areas` of (T, H, W) monochrome video."""
+        return self.yolo_unet_areas(gray_u8)
+
+    # ── pipeline 4: crop U-Net ──────────────────────────────────────────
+
+    def _crop_unet_chunk(self, gray_u8, valids, boxes):
+        """The crop pipeline on a chunk: each gated box's crop letterboxed
+        to 256² (nearest, as the reference letterboxes 2-D arrays), the crop
+        U-Net, and its mask projected back into the full frame.  The two
+        nearest resamplings are per-frame index maps applied by gathers.
+        gray (C, H, W) uint8, valids (C,), boxes (C, 4) int -> (C, H, W)
+        bool; frames without a box (and so an empty crop) get empty masks."""
+        h, w = gray_u8.shape[1:]
+        boxes = boxes.to(torch.int32)
+        x1, y1 = boxes[:, 0], boxes[:, 1]
+        ch = boxes[:, 3] - boxes[:, 1]
+        cw = boxes[:, 2] - boxes[:, 0]
+        pad_t, pad_l, c_h, c_w = dyn_letterbox_geometry(ch, cw, SIZE)
+        rows, row_in = dyn_letterbox_index_nearest(h, SIZE, y1, ch, pad_t, c_h)
+        cols, col_in = dyn_letterbox_index_nearest(w, SIZE, x1, cw, pad_l, c_w)
+        boxed = gather_rows_cols(gray_u8, rows, row_in, cols, col_in)
+        m256 = self.crop_unet(self._unet_input(boxed))[:, 0] > 0  # p > 0.5
+        rows, row_ok = dyn_unletterbox_index_nearest(h, SIZE, y1, ch, pad_t,
+                                                     c_h)
+        cols, col_ok = dyn_unletterbox_index_nearest(w, SIZE, x1, cw, pad_l,
+                                                     c_w)
+        full = gather_rows_cols(m256, rows, row_ok, cols, col_ok)
+        return full & valids.bool()[:, None, None]
+
+    @torch.no_grad()
+    def crop_unet_masks(self, frames_u8, gray_u8=None, valid=None,
+                        boxes=None):
+        """Pipeline 4's full-frame masks -> (masks (T, H, W) bool, valid,
+        boxes).  ``gray_u8`` given: ``frames_u8`` is the device's BGR video
+        or None; ``valid`` / ``boxes`` given: the gate is not run again."""
+        self._require("crop_unet")
+        if gray_u8 is not None:
+            frames_dev, gray = frames_u8, self._to_gray(gray_u8)
+        else:
+            frames_dev, gray = self._prepare(frames_u8)
+        if valid is None:
+            self._require("yolo")
+            valid, boxes = self._gated(frames_dev, gray)
+        masks = self._chunks(self._crop_unet_chunk, gray, valid, boxes)
+        return masks, valid, boxes
+
+    # ── outputs ─────────────────────────────────────────────────────────
+
+    @torch.no_grad()
+    def run_pipeline_full(self, frames_u8, pipeline: str):
+        """Masks, boxes and areas of every frame, for overlays -> (masks
+        (T, H, W) bool | None, valid (T,) bool | None, boxes (T, 4) int32 |
+        None, areas (T,) float32), tensors on the device.  ``unet-only`` has
+        no gate; ``unet`` shows a frame's mask only where the gate holds a
+        box; ``vft`` pastes each tracked crop mask at the frame's box,
+        cut where the box is smaller than the locked crop."""
+        if pipeline not in PIPELINES:
+            raise ValueError(f"unknown pipeline {pipeline!r}")
+        frames_dev, gray = self._prepare(frames_u8)
+        t, h, w = gray.shape
+        if pipeline == "unet-only":
+            masks = self.segment_video(gray)
+            return masks, None, None, masks.sum((1, 2)).to(torch.float32)
+        self._require("yolo")
+        if pipeline == "unet":
+            self._require("unet")
+            masks, valid, boxes = self._segment_gated(frames_dev, gray)
+            areas = _box_area_sums(masks, valid, boxes)
+            return masks & valid[:, None, None], valid, boxes, areas
+        valid, boxes = self._gated(frames_dev, gray)
+        if pipeline == "crop-unet":
+            masks, valid, boxes = self.crop_unet_masks(
+                frames_dev, gray_u8=gray, valid=valid, boxes=boxes)
+            return masks, valid, boxes, masks.sum((1, 2)).to(torch.float32)
+        if pipeline == "guided-vft":
+            areas, masks = self._ygvft_compute(gray, valid, boxes, t,
+                                               want_masks=True)
+            return masks, valid, boxes, torch.from_numpy(areas).to(gray.device)
+        areas, cmasks, idx, (h0, w0) = self._vft_compute(
+            gray, valid, boxes, t, want_masks=True)
+        masks = np.zeros((t, h, w), bool)
+        if cmasks is not None:
+            boxes_np = boxes.cpu().numpy()
+            for k, fi in enumerate(idx[VFT_INIT:], VFT_INIT):
+                x1, y1, x2, y2 = boxes_np[fi]
+                mh, mw = min(h0, y2 - y1), min(w0, x2 - x1)
+                if mh > 0 and mw > 0:
+                    masks[fi, y1:y1 + mh, x1:x1 + mw] = cmasks[k][:mh, :mw]
+        return (torch.from_numpy(masks).to(gray.device), valid, boxes,
+                torch.from_numpy(areas).to(gray.device))
 
     def extract_features(self, frames_u8, pipeline: str = "unet"):
         """Frames in, kinematic features out (dict, or None for an empty
@@ -421,15 +651,17 @@ class GlottalPipelines:
             return None
         if pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {pipeline!r}")
-        if pipeline in ("unet-only", "crop-unet"):
-            raise NotImplementedError(
-                f"pipeline {pipeline!r} is ported in a later slice")
         if pipeline == "vft":
             areas = self.vft_areas(frames_u8)
         elif pipeline == "guided-vft":
-            areas = self.guided_vft_areas_gray(frames_u8)
+            areas = self.guided_vft_areas(frames_u8)
+        elif pipeline == "unet":
+            areas = self.yolo_unet_areas(frames_u8).cpu().numpy()
+        elif pipeline == "unet-only":
+            areas = self.unet_only_areas(frames_u8).cpu().numpy()
         else:
-            areas = self.yolo_unet_areas_gray(frames_u8).cpu().numpy()
+            masks, valid, boxes = self.crop_unet_masks(frames_u8)
+            areas = _box_area_sums(masks, valid, boxes).cpu().numpy()
         if areas is None:
             return None
         return kinematic_features(areas)

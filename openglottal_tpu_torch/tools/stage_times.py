@@ -79,8 +79,9 @@ def main() -> int:
         p = gp.ygvft_params
         n0 = P.YGVFT_INIT
         fi = torch.argmax(valid[:n0].to(torch.uint8)).reshape(1)
-        _, _, th0 = timed(st, "tracker_init", lambda: tracker.ygvft_initialize(
-            gray[:n0], valid[:n0].any(), boxes.index_select(0, fi)[0], p))
+        th0 = timed(st, "tracker_init", lambda: tracker._ygvft_thresh0(
+            gray[:n0].to(torch.float32), valid[:n0].any(),
+            boxes.index_select(0, fi)[0], p))
         frames, v, b = gray[n0:], valid[n0:], boxes[n0:]
 
         def windows():
@@ -185,9 +186,7 @@ def main() -> int:
         with torch.no_grad(), P.full_float32(gp.dtype):
             for i in range(0, gray.shape[0], P.CHUNK):
                 g = gray[i:i + P.CHUNK]
-                masks.append(timed(st, "unet", lambda: gp.unet(
-                    g[:, None].to(gp.dtype).contiguous(
-                        memory_format=torch.channels_last))[:, 0] > 0))
+                masks.append(timed(st, "unet", lambda: gp._segment_chunk(g)))
                 dets.append(timed(st, "detector", lambda: gp._yolo_chunk(g)))
         has, raw, _ = (torch.cat(c) for c in zip(*dets))
         valid, boxes = timed(st, "gate_scan", lambda: gate_scan(

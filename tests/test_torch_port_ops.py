@@ -28,17 +28,24 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("ksize,sigma", [(13, 0.0), (5, 0.0), (21, 5.0)])
+@pytest.mark.parametrize("ksize,sigma", [(13, 0.0), (5, 0.0), (21, 5.0),
+                                         (1, 0.0), (31, 0.0)])
 def test_gaussian_blur(ksize, sigma):
-    """atol 1e-4 on 0..255 values: the same taps summed in the same order;
-    XLA may fuse multiply-adds where eager PyTorch rounds each step."""
+    """Bit-equal: the same taps in the same order, rounded as the compiled
+    reference rounds them (tap 0 fused over the rounded product of tap 1,
+    then one fma per tap), on random floats and on integer-valued absdiffs
+    (what the trackers blur)."""
     rng = np.random.default_rng(0)
     x = rng.uniform(0, 255, (3, 48, 40)).astype(np.float32)
+    d = rng.integers(0, 256, (2, 48, 40)).astype(np.float32)
     np.testing.assert_array_equal(tblur.gaussian_kernel_1d(ksize, sigma),
                                   jblur.gaussian_kernel_1d(ksize, sigma))
-    got = tblur.gaussian_blur(torch.from_numpy(x), ksize, sigma).numpy()
-    want = np.asarray(jblur.gaussian_blur(jnp.asarray(x), ksize, sigma=sigma))
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    for v in (x, d):
+        got = tblur.gaussian_blur(torch.from_numpy(v), ksize, sigma).numpy()
+        want = np.asarray(jblur.gaussian_blur(jnp.asarray(v), ksize,
+                                              sigma=sigma))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
 
 
 def _pct_case(seed, t=9, hw=(24, 32)):

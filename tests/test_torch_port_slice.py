@@ -115,7 +115,7 @@ def test_detector_matches_jax_on_the_slice_video():
 def test_gate_outputs_exact_on_the_slice_video():
     _, jraw, _, jvalid, jboxes = _jax_detect_gate()
     gp = _pipes()
-    valid, boxes = gp._detect_gate(gp._to_gray(_video()[..., 0]))
+    valid, boxes = gp._gated(None, gp._to_gray(_video()[..., 0]))
     np.testing.assert_array_equal(valid.numpy(), jvalid)
     bad = np.nonzero((boxes.numpy() != jboxes).any(1))[0]
     assert bad.size == 0, (
@@ -174,9 +174,9 @@ def _jax_vft_areas(valid, boxes):
 def test_vft_areas_end_to_end_exact():
     """Detector -> gate -> size-locked crops -> tracker, both packages from
     the same 12 frames.  The gate boxes are equal (held above), the crops are
-    equal after rounding, so the only float stage is the motion map (blur
-    rounding 1e-4, and the reference's reassociated prefix); areas are pixel
-    counts and atol 0.5 means every frame's count is equal."""
+    equal after rounding, so the only float stage that may differ is the
+    motion map (the reference's reassociated prefix); areas are pixel counts
+    and every frame's count must be equal."""
     _, _, _, jvalid, jboxes = _jax_detect_gate()
     jareas, (h0, w0) = _jax_vft_areas(jvalid, jboxes)
     gp = _pipes()
@@ -188,7 +188,7 @@ def test_vft_areas_end_to_end_exact():
         f"vft areas differ on frames {differing.tolist()} "
         f"(crop size {h0}x{w0}): {areas[differing]} vs {jareas[differing]}")
     gray = gp._to_gray(_video()[..., 0])
-    valid, boxes = gp._detect_gate(gray)
+    valid, boxes = gp._gated(None, gray)
     _, cmasks, idx, hw0 = gp._vft_compute(gray, valid, boxes, 12,
                                           want_masks=True)
     assert hw0 == (h0, w0) and cmasks.shape == (12, h0, w0)
@@ -275,7 +275,7 @@ def test_split_blob_route_gives_the_same_waveform(pipeline, monkeypatch):
 def test_ygvft_eval_masks_shape_and_areas():
     gp = _pipes()
     gray = gp._to_gray(_video()[:6, ..., 0])
-    valid, boxes = gp._detect_gate(gray)
+    valid, boxes = gp._gated(None, gray)
     masks = gp.ygvft_eval_masks(gray, valid, boxes)
     assert masks.shape == (6 - YGVFT_INIT, 256, 256)
     assert masks.dtype == torch.bool
@@ -336,29 +336,12 @@ def test_unknown_pipeline_is_value_error():
         _pipes().extract_features(_video()[:4], "nope")
 
 
-@pytest.mark.parametrize("pipeline", ["crop-unet", "unet-only"])
-def test_later_pipelines_raise_not_implemented(pipeline):
-    with pytest.raises(NotImplementedError):
-        _pipes().extract_features(_video()[:4], pipeline)
-
-
-@pytest.mark.parametrize("case", ["colour", "size", "mesh", "quant", "window",
-                                  "crop"])
+@pytest.mark.parametrize("case", ["mesh", "quant", "window"])
 def test_later_options_raise_not_implemented(case):
-    if case == "colour":
-        f = _video()[:4].copy()
-        f[..., 1] += 1
-        with pytest.raises(NotImplementedError):
-            _pipes().extract_features(f, "unet")
-    elif case == "size":
-        with pytest.raises(NotImplementedError):
-            _pipes().extract_features(np.zeros((4, 128, 128), np.uint8), "unet")
-    else:
-        kw = {"mesh": {"mesh": object()}, "quant": {"quant": "int8"},
-              "window": {"window_decoder": True},
-              "crop": {"crop_unet_variables": {}}}[case]
-        with pytest.raises(NotImplementedError):
-            GlottalPipelines(device="cpu", **kw)
+    kw = {"mesh": {"mesh": object()}, "quant": {"quant": "int8"},
+          "window": {"window_decoder": True}}[case]
+    with pytest.raises(NotImplementedError):
+        GlottalPipelines(device="cpu", **kw)
 
 
 def test_device_none_raises_without_cuda():

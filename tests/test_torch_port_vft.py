@@ -108,6 +108,32 @@ def test_gather_crops_exact_after_rounding(out_hw):
     assert n_bits == 0, f"{n_bits} of {raw_got.size} unrounded values differ"
 
 
+@pytest.mark.parametrize("in_size,out_size", [(256, 139), (8192, 8192),
+                                              (8192, 3), (5, 8192)])
+def test_integer_window_float64_sums_equal_the_exact_fma(in_size, out_size):
+    """The crop's single-rounding float64 sums (integer windows, and uint8
+    pixels in the row pass) give the correctly rounded fma of
+    ``ops/fma.fma32`` bit for bit, on random windows with whole-axis, edge,
+    1- and 0-sample ones among them, up to the 2^13-sample bound."""
+    rng = np.random.default_rng(11)
+    start = rng.integers(0, in_size, 48)
+    length = rng.integers(0, in_size - start + 1)
+    start[:3], length[:3] = (0, in_size - 1, 0), (in_size, 1, 0)
+    s, ln = torch.from_numpy(start), torch.from_numpy(length)
+    exact = tresize._linear_taps(in_size, out_size, s, ln)
+    fused = tresize._linear_taps(in_size, out_size, s.float(), ln.float())
+    for e, f in zip(exact, fused):
+        if e.is_floating_point():
+            e, f = e.view(torch.int32), f.view(torch.int32)
+        assert torch.equal(e, f)
+    img = torch.from_numpy(rng.integers(0, 256, (48, in_size, 2),
+                                        dtype=np.uint8))
+    cols = tresize._linear_taps(2, 2)
+    got = tresize._apply_sep(img, exact, cols)
+    want = tresize._apply_sep(img.float(), fused, cols)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_resize_bilinear_static_matches_jax():
     """Whole-image resize with static geometry.  atol 1e-3 on 0..255 values:
     the reference's dense product may fuse or order its two taps otherwise
@@ -198,10 +224,9 @@ def _map_case(t=8, h=48, w=40, seed=3):
 
 def test_motion_map_matches_the_jax_sequential_carries_at_ksize_13():
     """The served ksize over 8 steps of 48x40 integer-valued frames, against
-    the JAX package's sequential scan carried frame by frame.  The blur is
-    the only inexact stage: XLA may fuse its multiply-adds, so the maps are
-    held at atol 1e-4 as the blur itself is (tests/test_torch_port_ops.py);
-    measured max |difference| 2.3e-5 here."""
+    the JAX package's sequential scan carried frame by frame: every map
+    bit-equal (the blur and the recurrence both rounded as the compiled
+    reference rounds them)."""
     prev0, frames, lmap0 = _map_case()
     p = jtracker.VFTParams()
     got = ttracker.motion_map(torch.from_numpy(prev0),
@@ -213,8 +238,8 @@ def test_motion_map_matches_the_jax_sequential_carries_at_ksize_13():
     for i in range(frames.shape[0]):
         carry, _ = jtracker.vft_scan_carry(carry, jnp.asarray(frames[i:i + 1]),
                                            params=p)
-        np.testing.assert_allclose(got[i], np.asarray(carry[1]), atol=1e-4,
-                                   rtol=0, err_msg=f"step {i}")
+        np.testing.assert_array_equal(_bits(got[i]), _bits(np.asarray(carry[1])),
+                                      err_msg=f"step {i}")
 
 
 def test_motion_map_t1_calls_chain_bit_equal_to_one_call():
@@ -275,17 +300,15 @@ def _torch_vft(kind):
 
 
 def test_vft_initialize_matches_jax():
-    """prev is a copy; the motion map is a blur (atol 1e-4 on 0..255 values,
-    as for the blur itself: the compiled reference may fuse multiply-adds);
-    the threshold is a percentile of integer pixels inside the map's largest
-    blob, equal unless a map value sits within that noise of the ROI cut."""
+    """prev is a copy; the motion map is a blur, bit-equal; the threshold is
+    a percentile of integer pixels inside the map's largest blob."""
     c = _crops()
     jp, jl, jt = jtracker.vft_initialize(jnp.asarray(c[:2]),
                                          jtracker.VFTParams())
     tp, tl, tt = ttracker.vft_initialize(torch.from_numpy(c[:2].copy()),
                                          ttracker.VFTParams())
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(_bits(tl.numpy()), _bits(np.asarray(jl)))
     assert float(tt) == float(jt)
 
 
@@ -293,10 +316,10 @@ def test_vft_initialize_matches_jax():
 def test_vft_tracker_matches_jax(kind):
     """Areas are pixel counts, so atol 0.5 is equality of every frame's
     count (the pin the reference holds between its own two forms); the masks
-    are then compared too and the differing frames counted.  The maps differ
-    by blur rounding (1e-4) and, in the parallel form, by the reference's
-    reassociated prefix; a frame could differ only if a map value sat within
-    that noise of the ROI cut."""
+    are then compared too and the differing frames counted.  The maps
+    differ, in the parallel form, by the reference's reassociated prefix; a
+    frame could differ only if a map value sat within that noise of the ROI
+    cut."""
     jm, ja = _jax_vft(kind)
     tm, ta = _torch_vft(kind)
     assert ja[2:].min() > 0 and (ja[:2] == 0).all()
@@ -359,7 +382,7 @@ def test_ygvft_tracker_matches_jax(kind):
 
 def test_ygvft_scan_carry_keeps_the_motion_map():
     """The guided tracker's carry holds the motion map although its output
-    never reads it; the reference's carry agrees (blur tolerance 1e-4)."""
+    never reads it; the reference's carry agrees bit for bit."""
     g, valid, boxes = _guided_case()
     p = jtracker.YGVFTParams()
     jc = jtracker.ygvft_initialize(jnp.asarray(g[:2]), jnp.asarray(True),
@@ -374,6 +397,5 @@ def test_ygvft_scan_carry_keeps_the_motion_map():
                                       torch.from_numpy(valid[2:6]),
                                       torch.from_numpy(boxes[2:6]))
     np.testing.assert_array_equal(tc[0].numpy(), np.asarray(jc[0]))
-    np.testing.assert_allclose(tc[1].numpy(), np.asarray(jc[1]), atol=1e-4,
-                               rtol=0)
+    np.testing.assert_array_equal(_bits(tc[1].numpy()), _bits(jc[1]))
     assert _bits(tc[2].numpy()) == _bits(jc[2])
