@@ -11,6 +11,9 @@
         # this checkout's motion-map launch in turns with the stage an older
         # checkout served in its place (eager absdiff and blur + og_lmap_ema)
 
+The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
+``areas.cu``) are built with nvcc, one process each, all started together.
+
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
 256x256 synthetic videos through ``GlottalPipelines.extract_features`` with
@@ -30,7 +33,15 @@ bare (the C launch alone) and through their wrappers; the motion map on
 random frames of every ksize class, edge and stress shapes and unaligned
 buffers, and timed at vft's served inputs in every band/cluster layout (its
 ``motion_map`` line: bare and wrapper ms at the served T and at T = 1, the
-bound, the eager absdiff-and-blur it replaces, per-phase SM cycles).  Prints
+bound, the eager absdiff-and-blur it replaces, per-phase SM cycles).  The
+in-box count of ``csrc/areas.cu`` (``og_box_count``) is held against its
+plain version on stress inputs (all, none and some frames valid, boxes
+inside, across, at the edges of and outside the window, ragged N, bfloat16
+and float32); the ``windowed`` line serves ``unet``'s windowed decoder on
+502 frames of gray 256² at full width in bf16 and f32 against the
+full-frame route (``ok``, per-frame area difference, bf16 vs f32, a video
+whose boxes do not fit and its redo, host syncs, device kernels, walls of
+the two routes in turns).  Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -53,6 +64,7 @@ import warnings
 from pathlib import Path
 
 T_FRAMES = 502          # one high-speed clip
+N_CHUNKS = 4            # its 128-frame chunks (pipelines.CHUNK)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, non-tensor-core rate (int32 has no
 #                             row of its own in the data sheet; same order)
@@ -210,8 +222,7 @@ def entry_points(pipes, cpu_pipe, counted, expect_counts, check_features,
                 "min_prop_batch": 8, "thresh_chain": 1},
         "guided-vft": {"gate_scan": 1, "thresh_chain": 1, "dual_cc_batch": 1,
                        "dual_min_prop_batch": 1, "min_prop_batch": 2},
-        "unet": {"gate_scan": 1}, "crop-unet": {"gate_scan": 1},
-        "unet-only": {}}
+        "crop-unet": {"gate_scan": 1}, "unet-only": {}}
     line = {k: {} for k in ("inputs", "launches", "features",
                             "wall_ms_per_video", "n_device_kernels_per_video",
                             "host_syncs_per_video", "host_sync_sites",
@@ -228,8 +239,12 @@ def entry_points(pipes, cpu_pipe, counted, expect_counts, check_features,
             record = []
             feats, got = counted(
                 lambda: bf16.extract_features(vids[0], pipeline), record)
-            expect_counts(key, got, {k: expected[pipeline].get(k, 0)
-                                     for k in got})
+            # unet (the full-frame route on these inputs): the gate carried
+            # across the 128-frame chunks and one in-box count per chunk
+            n_chunks = -(-t // 128)
+            want = expected.get(pipeline, {"gate_scan": n_chunks,
+                                           "box_count": n_chunks})
+            expect_counts(key, got, {k: want.get(k, 0) for k in got})
             line["launches"][key] = got
             line["features"][key] = check_features(key, feats, frames=t)
             waves[(kind, pipeline)] = feats["_area"]
@@ -297,6 +312,128 @@ def entry_points(pipes, cpu_pipe, counted, expect_counts, check_features,
     return line
 
 
+def windowed_phase(pipes, weights, videos, counted, expect_counts,
+                   hold_record, host_syncs, device_kernels) -> dict:
+    """Pipeline 3's windowed decoder on 502 frames of gray 256² at full
+    width (the main path's videos: ``synthetic_video(realistic=False)``,
+    channel 0), bf16 and float32, against ``window_decoder=False`` on the
+    same card: ``ok``; per-frame areas (f32: within 2.0 px, the JAX
+    package's pin between the routes); bf16 against f32 (relative L1 <
+    0.05); the launches of both routes counted and held equal to their
+    plain versions; a video whose boxes move too far within a chunk (its
+    frames from 64 on shifted up by 60 rows), whose ``ok`` must be False
+    and whose redo must equal the full-frame route exactly; host syncs and
+    device kernels per video; walls of the two routes in turns over three
+    distinct videos.  Raises on any failed check; returns the phase's
+    line."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.models.unet import chunk_window_origin
+    from openglottal_tpu_torch.pipelines import CHUNK, WIN, GlottalPipelines
+
+    routes = {tag: {"windowed": pipe,
+                    "full": GlottalPipelines(dtype=pipe.dtype,
+                                             window_decoder=False, **weights)}
+              for tag, pipe in pipes.items()}
+    v = videos[0]
+    line = {"video": "synthetic_video(t=502, size=256, seed=0, "
+                     "realistic=False), channel 0",
+            "window": WIN, "launches": {}, "launches_held": 0}
+    areas = {}
+    for tag, r in routes.items():
+        if not r["windowed"].window_decoder:
+            raise AssertionError(f"{tag}: window_decoder=None did not turn "
+                                 f"the windowed decoder on")
+        for route, pipe in r.items():
+            pipe.extract_features(videos[1], "unet")           # warm-up
+
+            def run(pipe=pipe):
+                pending = pipe.yolo_unet_areas_deferred(v)
+                return pipe.yolo_unet_areas_resolve(pending), pending[1]
+
+            record = []
+            (a, ok), got = counted(run, record)
+            expect_counts(f"windowed phase {route}/{tag}", got,
+                          {k: (N_CHUNKS if k in ("gate_scan", "box_count")
+                               else 0) for k in got})
+            hold_record(f"windowed {route}/{tag}", record)
+            line["launches_held"] += len(record)
+            line["launches"][f"{route}/{tag}"] = got
+            if route == "windowed":
+                if ok is None or not bool(ok):
+                    raise AssertionError(f"{tag}: the windowed decoder did "
+                                         f"not fit the served video")
+                line[f"ok_{tag}"] = True
+            areas[(route, tag)] = a
+    gray = routes["bf16"]["windowed"]._to_gray(v)
+    valid, boxes = routes["bf16"]["windowed"]._gated(None, gray)
+    line["chunk_windows_oy_ox_fits"] = [
+        [int(o[1]), int(o[2]), bool(o[0])] for o in (
+            chunk_window_origin(boxes[i:i + CHUNK], valid[i:i + CHUNK], 256,
+                                256, WIN, lattice=4, margin=6)
+            for i in range(0, T_FRAMES, CHUNK))]
+    diff = np.abs(areas[("windowed", "f32")] - areas[("full", "f32")])
+    line["f32_windowed_vs_full_max_abs_px"] = float(diff.max())
+    line["f32_frames_differing"] = int((diff > 0).sum())
+    if diff.max() > 2.0:
+        raise AssertionError(f"windowed vs full-frame areas differ by "
+                             f"{diff.max()} px (limit 2.0)")
+    for route in ("windowed", "full"):
+        w32 = areas[(route, "f32")]
+        rel = float(np.abs(areas[(route, "bf16")] - w32).sum() / w32.sum())
+        line[f"bf16_vs_f32_rel_l1_{route}"] = rel
+        if rel >= 0.05:
+            raise AssertionError(f"{route}: bf16 vs f32 relative L1 {rel}")
+    line["bf16_windowed_vs_full_max_abs_px"] = float(np.abs(
+        areas[("windowed", "bf16")] - areas[("full", "bf16")]).max())
+
+    # a video that does not fit: ok False, and the redo is the full route
+    moved = v.copy()
+    moved[64:] = np.roll(v[64:], -60, axis=1)
+    forced = {}
+    for tag, r in routes.items():
+        pending = r["windowed"].yolo_unet_areas_deferred(moved)
+        if pending[1] is None or bool(pending[1]):
+            raise AssertionError(f"{tag}: the moved video fitted the window")
+        redo = r["windowed"].yolo_unet_areas_resolve(pending)
+        want = r["full"].extract_features(moved, "unet")["_area"]
+        if not np.array_equal(redo, want):
+            raise AssertionError(f"{tag}: the redo differs from the "
+                                 f"full-frame route")
+        forced[tag] = {"ok": False, "redo_equals_full_route": True}
+    line["forced_non_fitting_video"] = {
+        "video": "frames 64.. shifted up by 60 rows", **forced}
+
+    bf16 = routes["bf16"]
+    line["host_syncs_per_video"], line["host_sync_sites"] = {}, {}
+    line["n_device_kernels_per_video"] = {}
+    for route, pipe in bf16.items():
+        n, sites = host_syncs(lambda: pipe.extract_features(v, "unet"))
+        line["host_syncs_per_video"][route] = n
+        line["host_sync_sites"][route] = sites
+        line["n_device_kernels_per_video"][route] = sum(device_kernels(
+            lambda: pipe.extract_features(v, "unet")).values())
+    if line["host_syncs_per_video"]["windowed"] != 2:
+        raise AssertionError(f"windowed route: "
+                             f"{line['host_syncs_per_video']['windowed']} "
+                             f"host syncs per video, expected 2")
+    # walls in turns: windowed, full, full, windowed, ... over 3 videos
+    walls = {f"{route}/{tag}": [] for tag in routes for route in routes[tag]}
+    for tag, r in routes.items():
+        order = ["windowed", "full", "full", "windowed", "windowed", "full"]
+        for k, route in enumerate(order):
+            vid = videos[1 + k // 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r[route].extract_features(vid, "unet")
+            walls[f"{route}/{tag}"].append((time.perf_counter() - t0) * 1e3)
+    line["wall_ms_per_video_in_turns"] = walls
+    line["turn_order"] = "per dtype: windowed, full, full, windowed, " \
+                         "windowed, full (videos 1, 1, 2, 2, 3, 3)"
+    return line
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -313,7 +450,13 @@ def main() -> int:
     )
     from openglottal_tpu_torch.models import gate as gate_mod
     from openglottal_tpu_torch.models import tracker as tracker_mod
-    from openglottal_tpu_torch.ops import _build, blobs, blobs_cuda, scan_cuda
+    from openglottal_tpu_torch.ops import (
+        _build,
+        areas_cuda,
+        blobs,
+        blobs_cuda,
+        scan_cuda,
+    )
     from openglottal_tpu_torch.ops.blur import gaussian_blur
     from openglottal_tpu_torch.pipelines import GlottalPipelines
 
@@ -371,11 +514,13 @@ def main() -> int:
         stress_shapes={f"{h}x{w}": layout_of(h, w) for h, w in stress_shapes})
 
     def counts() -> dict:
-        return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES}
+        return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
+                **areas_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         blobs_cuda.reset_launch_counts()
         scan_cuda.reset_launch_counts()
+        areas_cuda.reset_launch_counts()
 
     # ── kernels vs plain versions on stress inputs (exact) ──────────────
     max_err = {k: 0 for k in counts()}
@@ -573,6 +718,42 @@ def main() -> int:
     hold("gate_scan", torch.cat(bs), whole_b)
     hold("gate_scan", gate_state_bits(st), gate_state_bits(whole_st))
 
+    # the in-box count: boxes inside, across and outside the window, at its
+    # edges and empty; all, none and some frames valid; the decoder's
+    # window (128 and a ragged 37 frames), whole 256x256 frames and a
+    # ragged 17x300 window; bf16 and f32; thresholds 0 and 0.5; the origin
+    # on the device and as launch arguments
+    box_stress = 0
+    for seed, (n, hw, ww, oyv, oxv) in enumerate((
+            (128, 160, 160, 46, 50), (37, 160, 160, 6, 90),
+            (5, 256, 256, 0, 0), (9, 17, 300, 3, 11))):
+        r = np.random.default_rng(100 + seed)
+        x = torch.from_numpy(r.normal(0, 1, (n, hw, ww)).astype(np.float32)
+                             ).to(dev)
+        x[:, ::5] = 0.0                    # exactly at threshold 0
+        x[:, 1::7] = 0.5                   # exactly at threshold 0.5
+        xy = r.integers(-60, max(hw, ww) + 60, (n, 2)) + [oxv, oyv]
+        bx = np.concatenate([xy, xy + r.integers(0, 220, (n, 2))], 1)
+        bx[0] = [oxv, oyv, oxv + ww, oyv + hw]             # the window
+        bx[1] = [oxv + 1, oyv + 1, oxv + ww - 1, oyv + hw - 1]
+        bx[2] = [oxv - 40, oyv - 30, oxv, oyv]             # ends at it
+        bx[3] = [oxv + 5, oyv + 5, oxv + 5, oyv + 50]      # empty
+        bx = torch.from_numpy(bx.astype(np.int32)).to(dev)
+        for vd in (torch.ones(n, dtype=torch.bool, device=dev),
+                   torch.zeros(n, dtype=torch.bool, device=dev),
+                   torch.from_numpy(r.random(n) < 0.7).to(dev)):
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                for thr in (0.0, 0.5):
+                    for oy, ox in ((torch.tensor(oyv, device=dev),
+                                    torch.tensor(oxv, device=dev)),
+                                   (oyv, oxv)):
+                        hold("box_count",
+                             areas_cuda.box_count(xd, thr, vd, bx, oy, ox),
+                             areas_cuda.box_count(xd, thr, vd, bx, oy, ox,
+                                                  use_plain=True))
+                        box_stress += 1
+
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
     # boxes fit the 128x128 window never take it)
@@ -621,11 +802,13 @@ def main() -> int:
         saved = {n: _build._libs[n] for n in libs}
         _build._libs.update(libs)
         blobs_cuda._configured = scan_cuda._configured = False
+        areas_cuda._configured = False
         try:
             yield
         finally:
             _build._libs.update(saved)
             blobs_cuda._configured = scan_cuda._configured = False
+            areas_cuda._configured = False
 
     def identical(got, want):
         """Exact equality of a kernel's output(s), floats by their bits."""
@@ -641,16 +824,21 @@ def main() -> int:
         """{tag: {source: library}} of this checkout and of every --against
         checkout (built once, all nvcc processes started together), and the
         builds with their compiler output."""
+        # (an older checkout may lack a later source; this checkout's
+        # library then serves its wrappers)
         if not built_against:
             built_against["built"] = _build.build_others(
                 {f"{src}_against{i}":
                  Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
-                 for i, d in enumerate(against) for src in _build.SOURCES},
+                 for i, d in enumerate(against) for src in _build.SOURCES
+                 if (Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
+                     ).exists()},
                 ("-Xptxas", "-v"))
         built = built_against["built"]
         return ({"this": {src: _build.load(src) for src in _build.SOURCES},
                  **{d: {src: built[f"{src}_against{i}"][0]
-                        for src in _build.SOURCES}
+                        for src in _build.SOURCES
+                        if f"{src}_against{i}" in built}
                     for i, d in enumerate(against)}}, built)
 
     def in_turns(items, walls=None):
@@ -799,7 +987,7 @@ def main() -> int:
 
     say("kernels", ok=True, compared="exact equality with the plain version",
         shapes=[list(stress[i].shape) for i in first_batch],
-        stress_batches=len(stress),
+        stress_batches=len(stress), box_count_stress_cases=box_stress,
         max_abs_err=max_err, stress_times=stress_ms)
     reset_counts()
 
@@ -852,13 +1040,13 @@ def main() -> int:
     def counted(fn, record=None):
         """fn() with every launch count set to 0 just before and read just
         after; launches are also recorded into ``record`` when given."""
-        blobs_cuda.RECORD = scan_cuda.RECORD = record
+        blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
         reset_counts()
         try:
             out = fn()
             return out, counts()
         finally:
-            blobs_cuda.RECORD = scan_cuda.RECORD = None
+            blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
 
     def host_syncs(fn):
         """(count, sites) of the host synchronisations one call of fn()
@@ -906,8 +1094,10 @@ def main() -> int:
             ("guided-vft", {"dual_cc_batch": 1, "dual_min_prop_batch": 1,
                             "min_prop_batch": 2, "gate_scan": 1,
                             "thresh_chain": 1, "cc": 0, "cc_batch": 0,
-                            "motion_map": 0}),
-            ("unet", {"gate_scan": 1}),
+                            "motion_map": 0, "box_count": 0}),
+            # unet (the windowed decoder): the gate carried across the four
+            # 128-frame chunks and one in-box count per chunk
+            ("unet", {"gate_scan": N_CHUNKS, "box_count": N_CHUNKS}),
             # vft: the tracker's init blurs its seed map (a T = 1 motion map)
             # and labels one ROI mask (2 single-frame CC launches); the ROI
             # filter and the output filter are one top_n_blobs_batch each,
@@ -915,7 +1105,8 @@ def main() -> int:
             # single-region broadcasts apiece)
             ("vft", {"gate_scan": 1, "cc": 2, "motion_map": 2,
                      "cc_batch": 4, "min_prop_batch": 8, "thresh_chain": 1,
-                     "dual_cc_batch": 0, "dual_min_prop_batch": 0})):
+                     "dual_cc_batch": 0, "dual_min_prop_batch": 0,
+                     "box_count": 0})):
         for tag, pipe in pipes.items():
             pipe.extract_features(videos[1], pipeline)     # warm-up (cuDNN)
             record = []
@@ -928,32 +1119,36 @@ def main() -> int:
             summary = check_features(f"{pipeline}/{tag}", feats)
             waves[(pipeline, tag)] = feats["_area"]
             ms = serve(pipe, pipeline)
-            extra = {}
-            if pipeline != "unet":
-                # gate facts of this video, and the plain-kernel run
-                gray = pipe._to_gray(videos[0])
-                valid, boxes = pipe._gated(None, gray)
-                side = (boxes[:, 2:] - boxes[:, :2]).max().item()
-                extra = {"gate_valid_share": float(valid.float().mean()),
-                         "max_box_side": side}
-                if pipeline == "guided-vft":
-                    extra["all_boxes_fit_128_window"] = bool(side <= 126)
-                else:
-                    _, _, idx, hw0 = pipe._vft_compute(gray, valid, boxes,
-                                                       T_FRAMES)
-                    extra["locked_crop_size_h_w"] = list(hw0)
-                    extra["tracked_frames"] = int(len(idx))
-                plain = GlottalPipelines(dtype=pipe.dtype,
-                                         use_plain_kernels=True, **weights)
-                pf, pc = counted(
-                    lambda: plain.extract_features(videos[0], pipeline))
-                if any(pc.values()):
-                    raise AssertionError("plain-kernel run launched a kernel")
-                if not np.array_equal(pf["_area"], feats["_area"]):
-                    raise AssertionError(
-                        f"{pipeline}/{tag}: waveform differs between the CUDA "
-                        f"kernels and their plain versions")
-                extra["equals_plain_kernel_run"] = True
+            # gate facts of this video, and the plain-kernel run
+            gray = pipe._to_gray(videos[0])
+            valid, boxes = pipe._gated(None, gray)
+            side = (boxes[:, 2:] - boxes[:, :2]).max().item()
+            extra = {"gate_valid_share": float(valid.float().mean()),
+                     "max_box_side": side}
+            if pipeline == "guided-vft":
+                extra["all_boxes_fit_128_window"] = bool(side <= 126)
+            elif pipeline == "vft":
+                _, _, idx, hw0 = pipe._vft_compute(gray, valid, boxes,
+                                                   T_FRAMES)
+                extra["locked_crop_size_h_w"] = list(hw0)
+                extra["tracked_frames"] = int(len(idx))
+            else:
+                extra["windowed_ok"] = bool(
+                    pipe.yolo_unet_areas_deferred(videos[0])[1])
+                if not extra["windowed_ok"]:
+                    raise AssertionError(f"unet/{tag}: the windowed decoder "
+                                         f"did not fit the served video")
+            plain = GlottalPipelines(dtype=pipe.dtype, use_plain_kernels=True,
+                                     **weights)
+            pf, pc = counted(lambda: plain.extract_features(videos[0],
+                                                            pipeline))
+            if any(pc.values()):
+                raise AssertionError("plain-kernel run launched a kernel")
+            if not np.array_equal(pf["_area"], feats["_area"]):
+                raise AssertionError(
+                    f"{pipeline}/{tag}: waveform differs between the CUDA "
+                    f"kernels and their plain versions")
+            extra["equals_plain_kernel_run"] = True
             say(pipeline.replace("-", "_"), dtype=tag, features=summary,
                 launches=got, wall_ms_per_video=ms,
                 frames_per_s=T_FRAMES / (float(np.median(ms)) / 1e3), **extra)
@@ -1073,9 +1268,18 @@ def main() -> int:
         "thresh_chain": ("openglottal_tpu/models/tracker.py:216",
                          "guided-vft"),
         "motion_map": ("openglottal_tpu/models/tracker.py:204", "vft"),
+        "box_count": ("openglottal_tpu/pipelines.py:297", "unet"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
+    source["box_count"] = "openglottal_tpu_torch/csrc/areas.cu"
+    # the C entry point each wrapper launches
+    c_entry = {"dual_cc_batch": "og_dual_cc",
+               "dual_min_prop_batch": "og_dual_min_prop",
+               "min_prop_batch": "og_min_prop", "cc_batch": "og_cc_batch",
+               "cc": "og_cc", "gate_scan": "og_gate_scan",
+               "thresh_chain": "og_thresh_chain",
+               "motion_map": "og_motion_map", "box_count": "og_box_count"}
 
     def links(code):
         """Neighbour links this input makes the union-find test and join:
@@ -1128,9 +1332,30 @@ def main() -> int:
             has, raw = inputs
             n = has.numel()
             args = (kw["frame_h"], kw["frame_w"], kw["params"])
-            return (lambda: gate_mod.gate_scan(has, raw, *args),
-                    lambda: gate_mod.gate_scan(has, raw, *args, use_plain=True),
-                    n * (1 + 16 + 1 + 16), n * 40)
+            nbytes, ops = n * (1 + 16 + 1 + 16), n * 40
+            if not bool(kw["state"].any()):         # from the initial state
+                return (lambda: gate_mod.gate_scan(has, raw, *args),
+                        lambda: gate_mod.gate_scan(has, raw, *args,
+                                                   use_plain=True),
+                        nbytes, ops)
+            # from the carry the launch started from (a chunk of unet's
+            # carried gate starts where the one before ended)
+            st = gate_mod.state_from_buffer(kw["state"])
+            return (lambda: gate_mod.gate_scan_carry(st, has, raw, *args)[1],
+                    lambda: gate_mod.gate_scan_carry(st, has, raw, *args,
+                                                     use_plain=True)[1],
+                    nbytes, ops)
+        if name == "box_count":
+            # bytes: the in-box elements of x (all the count must read),
+            # valid, boxes and the output; one compare and one add each
+            x, valid, boxes = inputs
+            args = (kw["thr"], valid, boxes, kw["oy"], kw["ox"])
+            inbox = int(areas_cuda.box_count_plain(
+                x, float("-inf"), *args[1:]).sum())
+            n = x.shape[0]
+            return (lambda: areas_cuda.box_count(x, *args),
+                    lambda: areas_cuda.box_count(x, *args, use_plain=True),
+                    inbox * x.element_size() + n * (1 + 16 + 4), 2 * inbox)
         if name == "motion_map":
             p0, fr, l0, act = inputs
             args = (p0, fr, l0, act, kw["alpha"], kw["ksize"])
@@ -1218,6 +1443,14 @@ def main() -> int:
     for key, got in entry_line["launches"].items():
         path_launches[key] = got
     say("entry_points", **entry_line)
+
+    # ── unet's windowed decoder against its full-frame route ────────────
+    window_line = windowed_phase(pipes, weights, videos, counted,
+                                 expect_counts, hold_record, host_syncs,
+                                 device_kernels)
+    reset_counts()
+    say("windowed", compared="every recorded launch exactly equal to its "
+        "plain version", nvidia_smi=smi, **window_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -1538,6 +1771,7 @@ def main() -> int:
         t_ops = sum(e["ops"][i] for i in at) / n / FP32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source[name],
+            "c_entry": c_entry[name],
             "replaces": replaces, "path": path, "launches": launches,
             "launches_by_path": {k: v[name] for k, v in path_launches.items()
                                  if k.endswith("/bf16")},

@@ -9,8 +9,9 @@ imports ``torch`` and numpy only.  The hand-written CUDA kernels live in
 Ported so far: the five serving pipelines (``vft``, ``guided-vft``,
 ``unet``, ``crop-unet``, ``unet-only``) for gray or BGR video of any frame
 size, through ``GlottalPipelines.extract_features`` and
-``run_pipeline_full``.  Meshes, int8, the windowed decoder, cohort serving
-and streaming raise ``NotImplementedError``.
+``run_pipeline_full``, with ``unet``'s windowed decoder on 256² monochrome
+video.  Meshes, int8, cohort serving and streaming raise
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -159,10 +159,13 @@ def _check_inputs(has: torch.Tensor, boxes: torch.Tensor) -> None:
         raise ValueError("gate_scan: has and boxes lie on different devices")
 
 
-def _gate_scan_cuda(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
-                    frame_h: int, frame_w: int, params: GateParams):
-    """One launch of ``og_gate_scan`` over a non-empty segment on the card.
-    Returns (the carry buffer after it, out_valid, out_boxes)."""
+def _gate_scan_cuda(buf: torch.Tensor, has: torch.Tensor,
+                    boxes: torch.Tensor, frame_h: int, frame_w: int,
+                    params: GateParams):
+    """One launch of ``og_gate_scan`` over a non-empty segment on the card,
+    from the carry in ``buf`` (:func:`_state_buffer`), which the kernel
+    overwrites with the carry after the segment.  Returns (out_valid,
+    out_boxes)."""
     t = has.shape[0]
     dev = has.device
     # a bool or uint8 ``has`` goes by its storage (the kernel reads any
@@ -171,7 +174,8 @@ def _gate_scan_cuda(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
         has = has != 0
     has_c = has.contiguous()
     raw = boxes.to(torch.float32).contiguous()
-    buf = _state_buffer(state, dev)
+    # a recorded launch keeps the carry it started from
+    state_in = buf.clone() if scan_cuda.RECORD is not None else None
     ov = torch.empty((t,), dtype=torch.bool, device=dev)   # written 0 / 1
     ob = torch.empty((t, 4), dtype=torch.int32, device=dev)
     so = scan_cuda.lib()
@@ -183,8 +187,49 @@ def _gate_scan_cuda(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
             int(params.max_hold_frames), scan_cuda.stream())
     _build.check(err, "gate_scan")
     scan_cuda.launched("gate_scan", (has, boxes), frame_h=frame_h,
-                       frame_w=frame_w, params=params)
-    return buf, ov, ob
+                       frame_w=frame_w, params=params, state=state_in)
+    return ov, ob
+
+
+def state_from_buffer(buf: torch.Tensor) -> GateState:
+    """The carry of a kernel state buffer as a :class:`GateState` of 0-d
+    device tensors (views of ``buf``; no synchronisation)."""
+    si, sf = buf[:4], buf[4:].view(torch.float32)
+    # valid is the low byte of state_i[0], which the kernel writes as 0 or 1
+    valid = si[:1].view(torch.bool)[0]
+    return GateState(valid, sf[0], sf[1], si[1], si[2], si[3])
+
+
+class GateCarry:
+    """The temporal gate fed a video one segment at a time, bit-exact with
+    one :func:`gate_scan` over the whole video.  On the card the kernel's
+    state buffer passes from one launch to the next as it is, so segments
+    cost one launch each and no tensor operation in between; on the host
+    (or with ``use_plain``) the plain version carries its state.  Calling
+    it with a segment's (has, raw boxes) returns the segment's (out_valid,
+    out_boxes)."""
+
+    def __init__(self, frame_h: int, frame_w: int,
+                 params: GateParams = GateParams(), use_plain: bool = False):
+        self.frame_h, self.frame_w = frame_h, frame_w
+        self.params = params
+        self.use_plain = use_plain
+        self.state = gate_init()
+        self._buf = None
+
+    def __call__(self, has: torch.Tensor, boxes: torch.Tensor):
+        _check_inputs(has, boxes)
+        if self.use_plain or not has.is_cuda:
+            self.state, out = gate_scan_plain(self.state, has, boxes,
+                                              self.frame_h, self.frame_w,
+                                              self.params)
+            return out
+        if has.shape[0] == 0:
+            return _empty_outputs(has.device)
+        if self._buf is None:
+            self._buf = _state_buffer(self.state, has.device)
+        return _gate_scan_cuda(self._buf, has, boxes, self.frame_h,
+                               self.frame_w, self.params)
 
 
 def _empty_outputs(device):
@@ -206,11 +251,9 @@ def gate_scan_carry(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
         return gate_scan_plain(state, has, boxes, frame_h, frame_w, params)
     if has.shape[0] == 0:
         return state, _empty_outputs(has.device)
-    buf, ov, ob = _gate_scan_cuda(state, has, boxes, frame_h, frame_w, params)
-    si, sf = buf[:4], buf[4:].view(torch.float32)
-    # valid is the low byte of state_i[0], which the kernel writes as 0 or 1
-    valid = si[:1].view(torch.bool)[0]
-    return GateState(valid, sf[0], sf[1], si[1], si[2], si[3]), (ov, ob)
+    buf = _state_buffer(state, has.device)
+    out = _gate_scan_cuda(buf, has, boxes, frame_h, frame_w, params)
+    return state_from_buffer(buf), out
 
 
 def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
@@ -233,9 +276,8 @@ def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
         return out
     if has.shape[0] == 0:
         return _empty_outputs(has.device)
-    _, ov, ob = _gate_scan_cuda(gate_init(), has, boxes, frame_h, frame_w,
-                                params)
-    return ov, ob
+    return _gate_scan_cuda(_state_buffer(gate_init(), has.device), has, boxes,
+                           frame_h, frame_w, params)
 
 
 def gate_single(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,

@@ -7,7 +7,10 @@ Counterpart of ``openglottal_tpu/pipelines.py``.  The five pipelines, for
   1  ``vft``        — YOLOv8n -> temporal gate -> size-locked crops of the
                       gated boxes -> motion tracker
   2  ``guided-vft`` — YOLOv8n -> temporal gate -> YOLO-guided tracker
-  3  ``unet``       — YOLOv8n + gate + full-frame U-Net, in-box pixel counts
+  3  ``unet``       — YOLOv8n + gate + U-Net, in-box pixel counts; on 256²
+                      monochrome video with folded weights the U-Net's two
+                      shallowest decoder levels run on a window around the
+                      gate boxes only (the windowed decoder)
   4  ``crop-unet``  — YOLOv8n + gate -> each gated crop letterboxed to 256²
                       -> crop-trained U-Net -> mask pasted back
   5  ``unet-only``  — full-frame U-Net, no gate
@@ -19,8 +22,8 @@ letterboxed to 256² (bilinear, rounded to uint8) and its boxes mapped back;
 the U-Net of ``unet`` / ``unet-only`` runs on frames resized to 256² and its
 probabilities are resized back.  Both trackers run frame-parallel by default
 and as a sequential per-frame loop with ``parallel_trackers=False`` (the
-debug form).  Meshes, int8, the windowed decoder, cohort serving and
-streaming raise ``NotImplementedError`` until a later slice ports them.
+debug form).  Meshes, int8, cohort serving and streaming raise
+``NotImplementedError`` until a later slice ports them.
 
 Model passes run over ``CHUNK``-frame slices in a Python loop (the last one
 ragged; nothing is padded — PyTorch runs eagerly, so there are no static
@@ -47,7 +50,12 @@ from openglottal_tpu_torch.models.fold import (
     fold_yolo,
     is_folded,
 )
-from openglottal_tpu_torch.models.gate import GateParams, gate_scan, gate_single
+from openglottal_tpu_torch.models.gate import (
+    GateCarry,
+    GateParams,
+    gate_scan,
+    gate_single,
+)
 from openglottal_tpu_torch.models.tracker import (
     VFTParams,
     YGVFTParams,
@@ -56,8 +64,9 @@ from openglottal_tpu_torch.models.tracker import (
     ygvft_parallel,
     ygvft_scan,
 )
-from openglottal_tpu_torch.models.unet import UNet
+from openglottal_tpu_torch.models.unet import UNet, chunk_window_origin
 from openglottal_tpu_torch.models.yolo import YOLOv8, max_conf_detect
+from openglottal_tpu_torch.ops.areas_cuda import box_count
 from openglottal_tpu_torch.ops.resize import (
     crop_resize_bilinear,
     dyn_letterbox_geometry,
@@ -78,6 +87,7 @@ VFT_INIT = 2     # init crops of the motion tracker
 YGVFT_INIT = 2   # init frames of the guided tracker
 CHUNK = 128      # frame-chunk size for batched model passes
 SIZE = 256       # the networks' frame size
+WIN = 160        # the windowed decoder's window side (frame pixels)
 PIPELINES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
 
 
@@ -169,8 +179,13 @@ class GlottalPipelines:
     :func:`full_float32`, so that f32 on the card is f32 and not TF32.
     ``fold_bn``: fold BatchNorm into the convs (inference default).
     ``parallel_trackers=False`` runs both trackers as sequential per-frame
-    loops (the debug form).  ``use_plain_kernels`` is a test hook: it routes
-    every hand-written kernel to its plain version on any device.
+    loops (the debug form).  ``window_decoder``: run pipeline 3's U-Net
+    with its two shallowest decoder levels on one window per chunk around
+    the gate boxes (256² monochrome video only; other input takes the
+    full-frame route); ``None`` turns it on when the weights are folded and
+    both models are given, as the JAX package does.  ``use_plain_kernels``
+    is a test hook: it routes every hand-written kernel to its plain version
+    on any device.
     """
 
     def __init__(self, unet_variables=None, crop_unet_variables=None,
@@ -187,9 +202,6 @@ class GlottalPipelines:
             raise NotImplementedError("mesh sharding is ported in a later slice")
         if quant is not None:
             raise NotImplementedError("int8 serving is ported in a later slice")
-        if window_decoder:
-            raise NotImplementedError(
-                "the windowed decoder is ported in a later slice")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = resolve_device(device)
@@ -227,6 +239,15 @@ class GlottalPipelines:
             self.yolo = self._build(
                 YOLOv8(nc=1, fuse_bn=self._fuse),
                 absorb_u8_scale(sds["yolo"], YOLO_STEM))
+        # the windowed decoder runs its valid convolutions as conv + bias +
+        # ReLU, so it needs folded weights
+        if window_decoder is None:
+            window_decoder = (self._fuse and self.unet is not None
+                              and self.yolo is not None)
+        if window_decoder and self.unet is not None and not self._fuse:
+            raise ValueError("the windowed decoder needs folded weights "
+                             "(fold_bn=True or folded checkpoints)")
+        self.window_decoder = bool(window_decoder)
 
     def _build(self, model, sd):
         """Load (the /255 input scale already absorbed into the stem, in
@@ -342,18 +363,24 @@ class GlottalPipelines:
         return (self._yolo_chunk_bgr if x.dim() == 4 else self._yolo_chunk)(
             x)[:2]
 
-    def _gate_frames(self, has, raw, h: int, w: int, sequential: bool):
-        """:meth:`_gate` of detections on :meth:`_detector_input`'s frames:
-        letterboxed boxes are first mapped back to (h, w) by (raw - pad) *
+    @staticmethod
+    def _frame_boxes(raw, h: int, w: int):
+        """Raw boxes on :meth:`_detector_input`'s frames in (h, w) frame
+        coordinates: letterboxed boxes are mapped back by (raw - pad) *
         max(h, w) / 256 and clipped to the frame."""
-        if (h, w) != (SIZE, SIZE):
-            pt, pl, _, _ = letterbox_info(h, w, SIZE)
-            scale = max(h, w) / float(SIZE)
-            raw = torch.stack([((raw[:, 0] - pl) * scale).clamp(0, w),
-                               ((raw[:, 1] - pt) * scale).clamp(0, h),
-                               ((raw[:, 2] - pl) * scale).clamp(0, w),
-                               ((raw[:, 3] - pt) * scale).clamp(0, h)], -1)
-        return self._gate(has, raw, h, w, sequential)
+        if (h, w) == (SIZE, SIZE):
+            return raw
+        pt, pl, _, _ = letterbox_info(h, w, SIZE)
+        scale = max(h, w) / float(SIZE)
+        return torch.stack([((raw[:, 0] - pl) * scale).clamp(0, w),
+                            ((raw[:, 1] - pt) * scale).clamp(0, h),
+                            ((raw[:, 2] - pl) * scale).clamp(0, w),
+                            ((raw[:, 3] - pt) * scale).clamp(0, h)], -1)
+
+    def _gate_frames(self, has, raw, h: int, w: int, sequential: bool):
+        """:meth:`_gate` of detections on :meth:`_detector_input`'s frames
+        (boxes mapped back by :meth:`_frame_boxes`)."""
+        return self._gate(has, self._frame_boxes(raw, h, w), h, w, sequential)
 
     @torch.no_grad()
     def _gated(self, frames_dev, gray_dev, sequential: bool = True):
@@ -488,30 +515,35 @@ class GlottalPipelines:
                                        want_masks=True)
         return masks[YGVFT_INIT:]
 
-    # ── pipelines 3 and 5: full-frame U-Net ─────────────────────────────
+    # ── pipelines 3 and 5: the U-Net ────────────────────────────────────
 
     def _unet_input(self, x):
         """(N, H, W) raw pixel values -> the U-Net's (N, 1, H, W) input."""
         return x[:, None].to(self.dtype).contiguous(
             memory_format=torch.channels_last)
 
-    def _unet_masks_chunk(self, gray_chunk):
-        return self.unet(self._unet_input(gray_chunk))[:, 0] > 0  # p > 0.5
-
     def _unet_probs_chunk(self, x256):
         """U-Net probabilities of (N, 256, 256) float frames (pixel range
         0..255)."""
         return torch.sigmoid(self.unet(self._unet_input(x256))[:, 0])
 
-    def _segment_chunk(self, gray_chunk):
-        """Boolean masks of a chunk of (N, H, W) gray frames: ``logits > 0``
-        at 256²; other sizes are resized to 256² (bilinear), their
-        probabilities resized back and thresholded at 0.5."""
+    def _scores_chunk(self, gray_chunk):
+        """(scores (N, H, W), threshold) of a chunk of gray frames, a pixel
+        being in the mask where its score exceeds the threshold: at 256² the
+        logits as the head gives them (``logits > 0`` is ``p > 0.5``);
+        other sizes are resized to 256² (bilinear) and their probabilities
+        resized back, with threshold 0.5."""
         h, w = gray_chunk.shape[1:]
         if (h, w) == (SIZE, SIZE):
-            return self._unet_masks_chunk(gray_chunk)
+            return self.unet.logits(self._unet_input(gray_chunk))[:, 0], 0.0
         x = resize_bilinear(gray_chunk.to(torch.float32), SIZE, SIZE)
-        return resize_bilinear(self._unet_probs_chunk(x), h, w) > 0.5
+        return resize_bilinear(self._unet_probs_chunk(x), h, w
+                               ).contiguous(), 0.5
+
+    def _segment_chunk(self, gray_chunk):
+        """Boolean masks of a chunk of (N, H, W) gray frames."""
+        scores, thr = self._scores_chunk(gray_chunk)
+        return scores > thr
 
     @torch.no_grad()
     def segment_video(self, gray_u8):
@@ -529,28 +561,119 @@ class GlottalPipelines:
             lambda g: self._segment_chunk(g).sum((1, 2)).to(torch.float32),
             self._to_gray(gray_u8))
 
+    def _windowed(self, frames_dev, gray) -> bool:
+        """Whether pipeline 3 takes the windowed decoder on this input: the
+        constructor's choice, and 256² video of which one channel crossed
+        (the JAX package's rule)."""
+        return (self.window_decoder and frames_dev is None
+                and tuple(gray.shape[1:]) == (SIZE, SIZE))
+
+    def _window_areas(self, enc, valid, boxes):
+        """The windowed decoder on one chunk (JAX package:
+        ``_unet_windowed_areas_chunk_fn``, ``tail="window"``, after
+        ``unet_apply_to_d3``): one (WIN, WIN) window covering
+        the union of the chunk's valid boxes (origin on the device, never
+        read by the host), the last two decoder levels on it, and the
+        in-box count of ``logits > 0`` -> (areas (N,), fits 0-d bool).
+        Where the boxes do not fit, the origin is still in the frame and the
+        areas are computed, but only ``fits`` is to be trusted."""
+        d3out, skip2, skip1 = enc
+        h, w = skip1.shape[2:]
+        fits, oy, ox = chunk_window_origin(boxes, valid, h, w, WIN,
+                                           lattice=4, margin=6)
+        ymw = self.unet.mid_window(d3out, skip2, oy, ox, WIN)
+        logits = self.unet.tail_from_ymw(ymw, skip1, oy, ox, WIN)[:, 0]
+        return box_count(logits, 0.0, valid, boxes, oy, ox,
+                         use_plain=self.use_plain_kernels), fits
+
     @torch.no_grad()
-    def _segment_gated(self, frames_dev, gray):
-        """Pipeline 3's masks and gate in one loop: every chunk goes through
-        the U-Net (:meth:`_segment_chunk`) and the detector
-        (:meth:`_detect_chunk`), so the host queues one network's kernels
-        while the card runs the other's; then the gate runs over all frames
-        (it needs every frame's detection before any box is known, so the
-        bool masks of all chunks are kept until then) -> (masks (T, H, W)
-        bool, valid (T,), boxes (T, 4) int32)."""
+    def _unet_gated(self, frames_dev, gray, window: bool,
+                    want_masks: bool = False):
+        """Pipeline 3 in one loop over CHUNK-frame slices: the U-Net, the
+        detector and the temporal gate (its carry passed from chunk to
+        chunk), then the in-box count (``ops/areas_cuda.box_count``).  JAX
+        package: ``_fused_yolo_unet_video_w`` (``tail="window"`` or
+        ``"full"``), which runs the detector over every chunk first; here
+        each chunk's detector runs beside its U-Net.
+
+        Full-frame route (``window=False``): the whole U-Net, then the
+        detector, so that the host queues the detector while the card runs
+        the U-Net; the count reads the logits (or the resized probabilities
+        of other frame sizes).  Windowed route: the encoder and the deeper
+        decoder levels first (they read no box), then the detector and the
+        gate, then :meth:`_window_areas`.
+
+        Returns (areas (T,) float32, ok 0-d bool or None, valid (T,), boxes
+        (T, 4) int32, masks (T, H, W) bool or None), on the device; ``ok``
+        (windowed route) is False when a chunk's boxes did not fit its
+        window, and the areas are then to be redone on the full-frame
+        route.  ``want_masks``: the full-frame route's masks too."""
+        t, h, w = gray.shape
         src = frames_dev if frames_dev is not None else gray
-        masks, has, raw = self._chunks(
-            lambda g, x: (self._segment_chunk(g), *self._detect_chunk(x)),
-            gray, self._detector_input(src))
-        valid, boxes = self._gate_frames(has, raw, *gray.shape[1:],
-                                         sequential=True)
-        return masks, valid, boxes
+        det_in = self._detector_input(src)
+        gate = GateCarry(h, w, self.gate_params,
+                         use_plain=self.use_plain_kernels)
+        areas, fits, valids, boxes, masks = [], [], [], [], []
+        with full_float32(self.dtype):
+            for i in range(0, t, CHUNK):
+                g = gray[i:i + CHUNK]
+                if window:
+                    enc = self.unet.apply_to_d3(self._unet_input(g))
+                else:
+                    scores, thr = self._scores_chunk(g)
+                has, raw = self._detect_chunk(det_in[i:i + CHUNK])
+                v, b = gate(has, self._frame_boxes(raw, h, w))
+                if window:
+                    a, f = self._window_areas(enc, v, b)
+                    fits.append(f)
+                else:
+                    a = box_count(scores, thr, v, b,
+                                  use_plain=self.use_plain_kernels)
+                    if want_masks:
+                        masks.append(scores > thr)
+                areas.append(a)
+                valids.append(v)
+                boxes.append(b)
+        return (torch.cat(areas), torch.stack(fits).all() if window else None,
+                torch.cat(valids), torch.cat(boxes),
+                torch.cat(masks) if want_masks else None)
+
+    def yolo_unet_areas_deferred(self, frames_u8):
+        """Pipeline 3 queued without any host read -> an opaque handle for
+        :meth:`yolo_unet_areas_resolve`.  On the windowed route the areas
+        are speculative: the handle carries the ``ok`` flag, which resolve
+        reads together with the areas."""
+        self._require("yolo", "unet")
+        frames_dev, gray = self._prepare(frames_u8)
+        window = self._windowed(frames_dev, gray)
+        areas, ok = self._unet_gated(frames_dev, gray, window)[:2]
+        return areas, ok, frames_dev, gray
+
+    def yolo_unet_areas_gray_deferred(self, gray_u8):
+        """:meth:`yolo_unet_areas_deferred` of (T, H, W) monochrome video."""
+        return self.yolo_unet_areas_deferred(gray_u8)
+
+    def yolo_unet_areas_resolve(self, pending):
+        """Resolve a :meth:`yolo_unet_areas_deferred` handle -> areas (T,)
+        float32 on the host, by ONE device-to-host read of the areas and the
+        ``ok`` flag together; a video whose boxes did not fit the windows
+        is redone on the full-frame route."""
+        areas, ok, frames_dev, gray = pending
+        if ok is None:
+            return areas.cpu().numpy()
+        host = torch.cat([areas, ok.to(torch.float32)[None]]).cpu().numpy()
+        if host[-1]:
+            return host[:-1]
+        return self._unet_gated(frames_dev, gray, False)[0].cpu().numpy()
 
     def yolo_unet_areas(self, frames_u8):
-        """Pipeline 3 on gray or BGR frames: the in-box mask pixels of
-        :meth:`_segment_gated` -> areas (T,) float32 on the device."""
-        self._require("yolo", "unet")
-        return _box_area_sums(*self._segment_gated(*self._prepare(frames_u8)))
+        """Pipeline 3 on gray or BGR frames -> areas (T,) float32 on the
+        device.  On the windowed route ``ok`` is read (one host read) and
+        a video that did not fit is redone on the full-frame route."""
+        areas, ok, frames_dev, gray = self.yolo_unet_areas_deferred(frames_u8)
+        if ok is not None and not bool(ok):
+            areas = self._unet_gated(frames_dev, gray, False)[0]
+        return areas
 
     def yolo_unet_areas_gray(self, gray_u8):
         """:meth:`yolo_unet_areas` of (T, H, W) monochrome video."""
@@ -619,8 +742,8 @@ class GlottalPipelines:
         self._require("yolo")
         if pipeline == "unet":
             self._require("unet")
-            masks, valid, boxes = self._segment_gated(frames_dev, gray)
-            areas = _box_area_sums(masks, valid, boxes)
+            areas, _, valid, boxes, masks = self._unet_gated(
+                frames_dev, gray, False, want_masks=True)
             return masks & valid[:, None, None], valid, boxes, areas
         valid, boxes = self._gated(frames_dev, gray)
         if pipeline == "crop-unet":
@@ -656,7 +779,8 @@ class GlottalPipelines:
         elif pipeline == "guided-vft":
             areas = self.guided_vft_areas(frames_u8)
         elif pipeline == "unet":
-            areas = self.yolo_unet_areas(frames_u8).cpu().numpy()
+            areas = self.yolo_unet_areas_resolve(
+                self.yolo_unet_areas_deferred(frames_u8))
         elif pipeline == "unet-only":
             areas = self.unet_only_areas(frames_u8).cpu().numpy()
         else:

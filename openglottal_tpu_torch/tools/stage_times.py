@@ -1,16 +1,22 @@
 """Where a served video's time goes, on one CUDA device.
 
     python3 -m openglottal_tpu_torch.tools.stage_times [--frames 502] [--out DIR]
-        [--pipelines guided-vft,unet,vft] [--dtypes bf16,f32]
+        [--pipelines guided-vft,unet,unet-full,vft] [--dtypes bf16,f32]
 
-Serves synthetic 256x256 videos through ``guided-vft``, ``unet`` and ``vft``
-(demo weights, bfloat16 and float32) and prints one JSON line per
-pipeline/dtype:
+Serves synthetic 256x256 videos through ``guided-vft``, ``unet`` (its
+windowed decoder, the default on this input), ``unet-full`` (``unet`` with
+``window_decoder=False``) and ``vft`` (demo weights, bfloat16 and float32)
+and prints one JSON line per pipeline/dtype:
 
   * ``wall_ms``: host clock around ``extract_features`` (ends in a host read);
   * ``stages_ms``: device time of each stage by CUDA events, measured on a
     second pass in which every stage is followed by a synchronise (so stages
-    cannot overlap; their sum exceeds the pipelined wall time's device part);
+    cannot overlap; their sum exceeds the pipelined wall time's device part).
+    The windowed U-Net's stages: ``unet_to_d3`` (encoder, bottleneck and the
+    two deeper decoder levels), ``window_origin``, ``unet_mid_window``,
+    ``unet_tail_window`` (the last level and the head), ``box_count``, and
+    apart from them ``window_copies`` (the three window slices alone, also
+    inside the two window stages);
   * ``profile``: ``torch.profiler`` over one video — device busy share of the
     wall time and the kernels with the most device time.
 
@@ -34,7 +40,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=502)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--pipelines", default="guided-vft,unet,vft")
+    ap.add_argument("--pipelines", default="guided-vft,unet,unet-full,vft")
     ap.add_argument("--dtypes", default="bf16,f32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -44,8 +50,10 @@ def main() -> int:
     from openglottal_tpu_torch import pipelines as P
     from openglottal_tpu_torch.data.synthetic import synthetic_video
     from openglottal_tpu_torch.models import tracker
-    from openglottal_tpu_torch.models.gate import gate_scan
+    from openglottal_tpu_torch.models.gate import GateCarry, gate_scan
+    from openglottal_tpu_torch.models.unet import _cut, chunk_window_origin
     from openglottal_tpu_torch.ops import _build, blobs, histogram
+    from openglottal_tpu_torch.ops.areas_cuda import box_count
 
     _build.build_all()
     videos = [np.ascontiguousarray(
@@ -180,19 +188,52 @@ def main() -> int:
         return st
 
     def unet_stages(gp, video):
+        """Pipeline 3's loop (``GlottalPipelines._unet_gated``) stage by
+        stage: the windowed decoder where ``gp`` takes it, else the
+        full-frame U-Net."""
         st = {}
         gray = timed(st, "upload", lambda: gp._to_gray(video))
-        masks, dets = [], []
+        window = gp._windowed(None, gray)
+        gate = GateCarry(256, 256, gp.gate_params)
+        areas, fits = [], []
         with torch.no_grad(), P.full_float32(gp.dtype):
             for i in range(0, gray.shape[0], P.CHUNK):
                 g = gray[i:i + P.CHUNK]
-                masks.append(timed(st, "unet", lambda: gp._segment_chunk(g)))
-                dets.append(timed(st, "detector", lambda: gp._yolo_chunk(g)))
-        has, raw, _ = (torch.cat(c) for c in zip(*dets))
-        valid, boxes = timed(st, "gate_scan", lambda: gate_scan(
-            has, raw, 256, 256, gp.gate_params))
-        timed(st, "box_area_sums_and_read", lambda: P._box_area_sums(
-            torch.cat(masks), valid, boxes).cpu())
+                x = gp._unet_input(g)
+                if window:
+                    d3, s2, s1 = timed(st, "unet_to_d3",
+                                       lambda: gp.unet.apply_to_d3(x))
+                else:
+                    scores, thr = timed(st, "unet",
+                                        lambda: gp._scores_chunk(g))
+                has, raw, _ = timed(st, "detector", lambda: gp._yolo_chunk(g))
+                v, b = timed(st, "gate_scan", lambda: gate(has, raw))
+                if not window:
+                    areas.append(timed(st, "box_count", lambda: box_count(
+                        scores, thr, v, b)))
+                    continue
+                f, oy, ox = timed(st, "window_origin", lambda:
+                                  chunk_window_origin(b, v, 256, 256, P.WIN,
+                                                      lattice=4, margin=6))
+                ymw = timed(st, "unet_mid_window", lambda: gp.unet.mid_window(
+                    d3, s2, oy, ox, P.WIN))
+                logits = timed(st, "unet_tail_window", lambda:
+                               gp.unet.tail_from_ymw(ymw, s1, oy, ox,
+                                                     P.WIN)[:, 0])
+                areas.append(timed(st, "box_count", lambda: box_count(
+                    logits, 0.0, v, b, oy, ox)))
+                fits.append(f)
+                # the slices of the two window stages, timed apart
+                mw = P.WIN // 2 + 6
+                m0y, m0x = oy // 2 - 3, ox // 2 - 3
+                timed(st, "window_copies", lambda: (
+                    _cut(d3, m0y // 2, m0x // 2, mw // 2, mw // 2),
+                    _cut(s2, m0y, m0x, mw, mw),
+                    _cut(s1, oy - 2, ox - 2, P.WIN + 4, P.WIN + 4)))
+        out = torch.cat(areas)
+        if window:
+            out = torch.cat([out, torch.stack(fits).all()[None].float()])
+        timed(st, "read", lambda: out.cpu())
         return st
 
     from torch.profiler import ProfilerActivity, profile
@@ -200,18 +241,23 @@ def main() -> int:
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         if tag not in args.dtypes.split(","):
             continue
-        gp = P.GlottalPipelines(dtype=dtype, **weights)
+        pipes = {"windowed": P.GlottalPipelines(dtype=dtype, **weights),
+                 "full": P.GlottalPipelines(dtype=dtype, window_decoder=False,
+                                            **weights)}
         for pipeline, stage_fn in (("guided-vft", guided_stages),
                                    ("unet", unet_stages),
+                                   ("unet-full", unet_stages),
                                    ("vft", vft_stages)):
             if pipeline not in args.pipelines.split(","):
                 continue
-            gp.extract_features(videos[0], pipeline)          # warm-up
+            gp = pipes["full" if pipeline == "unet-full" else "windowed"]
+            served = "unet" if pipeline == "unet-full" else pipeline
+            gp.extract_features(videos[0], served)            # warm-up
             wall = []
             for v in videos:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                gp.extract_features(v, pipeline)
+                gp.extract_features(v, served)
                 wall.append((time.perf_counter() - t0) * 1e3)
             stage_fn(gp, videos[0])
             stages = stage_fn(gp, videos[1])
@@ -219,7 +265,7 @@ def main() -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                gp.extract_features(videos[2], pipeline)
+                gp.extract_features(videos[2], served)
                 torch.cuda.synchronize()
                 prof_wall = (time.perf_counter() - t0) * 1e3
             evs = [e for e in prof.key_averages()

@@ -336,10 +336,9 @@ def test_unknown_pipeline_is_value_error():
         _pipes().extract_features(_video()[:4], "nope")
 
 
-@pytest.mark.parametrize("case", ["mesh", "quant", "window"])
+@pytest.mark.parametrize("case", ["mesh", "quant"])
 def test_later_options_raise_not_implemented(case):
-    kw = {"mesh": {"mesh": object()}, "quant": {"quant": "int8"},
-          "window": {"window_decoder": True}}[case]
+    kw = {"mesh": {"mesh": object()}, "quant": {"quant": "int8"}}[case]
     with pytest.raises(NotImplementedError):
         GlottalPipelines(device="cpu", **kw)
 
