@@ -7,9 +7,11 @@
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
         # parent commit unpacked by ``git archive`` into a git-ignored
-        # directory) timed in turns through this checkout's wrappers, and
-        # this checkout's motion-map launch in turns with the stage an older
-        # checkout served in its place (eager absdiff and blur + og_lmap_ema)
+        # directory) timed in turns through this checkout's wrappers, this
+        # checkout's motion-map launch in turns with the stage an older
+        # checkout served in its place (eager absdiff and blur + og_lmap_ema),
+        # and an older checkout's one-chunk og_box_count in turns with this
+        # one on the served chunk
 
 The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
 ``areas.cu``) are built with nvcc, one process each, all started together.
@@ -41,7 +43,19 @@ and float32); the ``windowed`` line serves ``unet``'s windowed decoder on
 502 frames of gray 256² at full width in bf16 and f32 against the
 full-frame route (``ok``, per-frame area difference, bf16 vs f32, a video
 whose boxes do not fit and its redo, host syncs, device kernels, walls of
-the two routes in turns).  Prints
+the two routes in turns).  The cohort kernels — ``og_gate_scan_batch`` and
+``og_thresh_chain_batch`` (K = 1 ... 64 ragged sequences of 0 to 20000
+frames, from carried-in states, unaligned, resumed across three launches),
+``og_box_count`` over tables of 1, 3 and 8 chunks and the union-find on
+4000 frames and on the largest stack the cohort rule allows — are held
+against their plain versions with the others; the ``cohort`` line serves
+the three cohort entries on eight 256² videos of 502, 502, 380, 130, 129,
+128, 3 and 1000 frames (two realistic) in bf16 and f32 against the
+per-video calls (exact), with a video that must be redone, ``max_k = 3``
+and ``fetch=False``, every recorded launch held, then walls per video at
+K = 1, 2, 4, 8, 16 in turns with the per-video calls, host syncs per
+sub-batch, device kernels per video, peak memory beside the K rule's
+estimate and the batched kernels' times.  Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -434,6 +448,318 @@ def windowed_phase(pipes, weights, videos, counted, expect_counts,
     return line
 
 
+# the cohort: eight 256² gray videos of these lengths, two of them realistic
+COHORT_LENGTHS = (502, 502, 380, 130, 129, 128, 3, 1000)
+COHORT_PIPELINES = ("guided-vft", "vft", "unet")
+WALL_KS = (1, 2, 4, 8, 16)
+
+
+def cohort_phase(pipes, videos, counted, expect_counts, hold_record,
+                 host_syncs, device_kernels, runners, against_libs) -> tuple:
+    """Cohort serving: the three cohort entries (``guided_vft_areas_gray
+    _multi``, ``vft_areas_gray_multi``, ``yolo_unet_areas_gray_multi``) on a
+    cohort of eight 256² gray videos (lengths COHORT_LENGTHS: two of the
+    main path's videos, two ``realistic=True`` clips, slices of 129, 128 and
+    3 frames, and a 1000-frame clip), bf16 and f32, each video's waveform
+    held exactly equal to the per-video call; the launches counted (one
+    batched gate, one batched chain and one set of union-find launches per
+    guided-vft sub-batch) and every recorded launch held equal to its plain
+    version; a second cohort with a video whose boxes leave the decoder's
+    window (redone), ``max_k = 3`` and ``fetch=False``; then, in bf16 on 16
+    distinct 502-frame videos, walls per video at K = 1, 2, 4, 8, 16 and the
+    rule's K in turns with the per-video calls, host syncs per sub-batch,
+    device kernels per video, peak memory against the rule's estimate, and
+    the batched kernels' times.  Raises on any failed check; returns (the
+    phase's line, the guided-vft cohort's record and launch counts)."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.data.synthetic import synthetic_video
+    from openglottal_tpu_torch.ops import _build, areas_cuda, scan_cuda
+    from openglottal_tpu_torch.pipelines import (
+        CHUNK,
+        VFT_INIT,
+        YGVFT_INIT,
+        cohort_fixed_bytes,
+        cohort_video_bytes,
+    )
+
+    def gray(t, seed, realistic):
+        f, _ = synthetic_video(t=t, size=256, seed=seed, realistic=realistic)
+        return np.ascontiguousarray(f[..., 0])
+
+    cohort = [videos[0], videos[1], gray(380, 6, True), gray(130, 7, True),
+              videos[2][:129].copy(), videos[3][128:256].copy(),
+              videos[2][200:203].copy(), gray(1000, 5, False)]
+    assert tuple(len(v) for v in cohort) == COHORT_LENGTHS
+    per_video = {
+        "guided-vft": lambda p, v: p.guided_vft_areas(v),
+        "vft": lambda p, v: p.vft_areas(v),
+        "unet": lambda p, v: p.yolo_unet_areas_resolve(
+            p.yolo_unet_areas_deferred(v))}
+    multi = {
+        "guided-vft": lambda p, vs, **kw: p.guided_vft_areas_gray_multi(
+            vs, **kw),
+        "vft": lambda p, vs, **kw: p.vft_areas_gray_multi(vs, **kw),
+        "unet": lambda p, vs, **kw: p.yolo_unet_areas_gray_multi(vs, **kw)}
+    shortest = {"guided-vft": YGVFT_INIT + 2, "vft": VFT_INIT + 5, "unet": 1}
+
+    def equal(got, want):
+        if got is None or want is None:
+            return got is None and want is None
+        if isinstance(got, torch.Tensor):
+            got = got.cpu().numpy()
+        return bool(np.array_equal(got, want))
+
+    line = {"videos": {"lengths": list(COHORT_LENGTHS),
+                       "realistic": [False, False, True, True, False, False,
+                                     False, False]},
+            "compared": "each video's waveform exactly equal to the "
+                        "per-video call; every recorded launch exactly equal "
+                        "to its plain version",
+            "equal": {}, "launches": {}, "per_video_launches": {},
+            "sub_batch_k": {}, "launches_held": {}}
+    records, guided_counts = {}, None
+    for tag, pipe in pipes.items():
+        for name in COHORT_PIPELINES:
+            want, pv_counts = counted(
+                lambda: [per_video[name](pipe, v) for v in cohort])
+            rec = [] if tag == "bf16" else None
+            got, got_counts = counted(lambda: multi[name](pipe, cohort), rec)
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if not equal(g, w)]
+            if bad:
+                raise AssertionError(f"cohort {name}/{tag}: videos {bad} "
+                                     f"differ from the per-video calls")
+            run = [t for t in COHORT_LENGTHS if t >= shortest[name]]
+            k = pipe.sub_batch_k(name, run)
+            subs = [run[j:j + k] for j in range(0, len(run), k)]
+            expected = dict(pv_counts, gate_scan=0, gate_scan_batch=len(subs))
+            if name == "guided-vft":
+                expected.update(thresh_chain=0, thresh_chain_batch=len(subs),
+                                dual_cc_batch=len(subs),
+                                dual_min_prop_batch=len(subs),
+                                min_prop_batch=2 * len(subs))
+            elif name == "unet":
+                expected.update(
+                    gate_scan=pv_counts["gate_scan"], gate_scan_batch=0,
+                    box_count=sum(max(-(-t // CHUNK) for t in sub)
+                                  for sub in subs))
+            expect_counts(f"cohort {name}/{tag}", got_counts, expected)
+            line["equal"][f"{name}/{tag}"] = True
+            line["launches"][f"{name}/{tag}"] = got_counts
+            line["per_video_launches"][f"{name}/{tag}"] = pv_counts
+            line["sub_batch_k"][f"{name}/{tag}"] = k
+            if rec is not None:
+                records[name] = rec
+                if name == "guided-vft":
+                    guided_counts = got_counts
+    for name, rec in records.items():
+        hold_record(f"cohort {name}", rec)
+        line["launches_held"][name] = len(rec)
+
+    # the realistic clips: gate-valid share, and whether their boxes fit
+    # guided-vft's 128² window and unet's decoder windows
+    bf16 = pipes["bf16"]
+    line["realistic"] = {}
+    for i in (2, 3):
+        g = bf16._to_gray(cohort[i])
+        valid, boxes = bf16._gated(None, g)
+        side = int((boxes[:, 2:] - boxes[:, :2]).max())
+        line["realistic"][f"video {i} ({len(cohort[i])} frames)"] = {
+            "gate_valid_share": float(valid.float().mean()),
+            "max_box_side": side,
+            "guided_vft_boxes_fit_128_window": side <= 126,
+            "unet_windows_fit": bool(bf16._unet_gated(None, g, True)[1])}
+
+    # a video whose boxes leave the window (frames 64.. of a main-path video
+    # moved up by 60 rows: the windowed_phase's), max_k = 3, fetch=False
+    moved = videos[0].copy()
+    moved[64:] = np.roll(videos[0][64:], -60, axis=1)
+    variant = [moved, cohort[3], cohort[4], cohort[6]]
+    line["variants"] = {"videos": "[502 frames moved (its boxes leave the "
+                                  "window), 130, 129, 3]", "max_k": 3}
+    for tag, pipe in pipes.items():
+        if pipe.yolo_unet_areas_deferred(moved)[1].item():
+            raise AssertionError(f"{tag}: the moved video fitted the window")
+        for name in COHORT_PIPELINES:
+            want = [per_video[name](pipe, v) for v in variant]
+            runs = {"max_k=3": multi[name](pipe, variant, max_k=3)}
+            if name == "unet":
+                runs["max_k=3 fetch=False"] = multi[name](
+                    pipe, variant, max_k=3, fetch=False)
+                if not all(isinstance(a, torch.Tensor) and a.is_cuda
+                           for a in runs["max_k=3 fetch=False"]):
+                    raise AssertionError("fetch=False gave no device tensors")
+            for key, got in runs.items():
+                if not all(equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"cohort {name}/{tag} {key}: a video "
+                                         f"differs from the per-video call")
+                line["equal"][f"{name}/{tag} {key}"] = True
+    line["equal"]["redo_of_the_moved_video"] = True
+
+    # ── numbers, bf16, 16 distinct 502-frame videos ─────────────────────
+    pool = [np.ascontiguousarray(np.roll(videos[i % 4], 3 * (i // 4), axis=2))
+            for i in range(16)]
+    walls, rule_k = {}, {}
+    for name in COHORT_PIPELINES:
+        rule_k[name] = {"pool_of_16": bf16.sub_batch_k(name, [502] * 16),
+                        "cohort_of_65": bf16.sub_batch_k(name, [502] * 65)}
+        walls[name] = {}
+        for k in sorted(set(WALL_KS) | {rule_k[name]["pool_of_16"]}):
+            vids = pool[:k]
+            w = {"per_video": [], "cohort": []}
+            for mode in ("per_video", "cohort", "cohort", "per_video"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "cohort":
+                    multi[name](bf16, vids, max_k=k)
+                else:
+                    for v in vids:
+                        per_video[name](bf16, v)
+                w[mode].append((time.perf_counter() - t0) * 1e3 / k)
+            walls[name][str(k)] = {
+                "ms_per_video": w, "frames_per_s": {
+                    m: 502 / (float(np.median(x)) / 1e3) for m, x in w.items()}}
+    line["k_rule"] = rule_k
+    line["walls_bf16"] = walls
+    line["turn_order"] = "per K: per-video calls, cohort, cohort, per-video"
+
+    syncs, kernels_per_video, peak = {}, {}, {}
+    for name in COHORT_PIPELINES:
+        n, sites = host_syncs(lambda: multi[name](bf16, pool[:8], max_k=8))
+        n1, _ = host_syncs(lambda: per_video[name](bf16, pool[0]))
+        syncs[name] = {"per_sub_batch_of_8": n, "per_video_call": n1,
+                       "sites": sites}
+        kernels_per_video[name] = {
+            "cohort_of_8": sum(device_kernels(
+                lambda: multi[name](bf16, pool[:8], max_k=8)).values()) / 8,
+            "per_video_call": sum(device_kernels(
+                lambda: per_video[name](bf16, pool[0])).values())}
+        peak[name] = {}
+        for k in (4, 16):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            multi[name](bf16, pool[:k], max_k=k)
+            torch.cuda.synchronize()
+            peak[name][str(k)] = {
+                "measured_bytes": torch.cuda.max_memory_allocated() - base,
+                "rule_estimate_bytes": cohort_fixed_bytes(name, 502, 2)
+                + k * cohort_video_bytes(name, 502, 2)}
+    line["host_syncs"] = syncs
+    line["device_kernels_per_video"] = kernels_per_video
+    line["peak_memory_bf16"] = peak
+
+    # ── the batched kernels' times (CUDA events, queued) ────────────────
+    times = {}
+    for rname, kname in (("guided-vft", "gate_scan_batch"),
+                         ("guided-vft", "thresh_chain_batch"),
+                         ("guided-vft", "dual_cc_batch"),
+                         ("guided-vft", "dual_min_prop_batch"),
+                         ("guided-vft", "min_prop_batch")):
+        for j, (name, inputs, kw) in enumerate(records[rname]):
+            if name != kname:
+                continue
+            kfn, _, nbytes, ops = runners(name, inputs, kw)
+            times[f"{name} #{j}"] = {
+                "shape": list(max(inputs, key=torch.numel).shape),
+                "wrapper_ms": time_cuda(kfn, 20),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                ops / FP32_OPS_PER_S) * 1e3}
+    # the C launches alone, on buffers made once
+    so = scan_cuda.lib()
+    _, (g_has, g_raw), g_kw = next(r for r in records["guided-vft"]
+                                   if r[0] == "gate_scan_batch")
+    _, (t_th0, t_cur, t_npx, t_act), t_kw = next(
+        r for r in records["guided-vft"] if r[0] == "thresh_chain_batch")
+    k_g = len(g_kw["offsets"]) - 1
+    g_keep = (g_has.contiguous(), g_raw.to(torch.float32).contiguous(),
+              torch.empty(g_has.shape, dtype=torch.bool, device="cuda"),
+              torch.empty((g_has.numel(), 4), dtype=torch.int32,
+                          device="cuda"),
+              torch.zeros((k_g, 6), dtype=torch.int32, device="cuda"))
+    g_off = scan_cuda.offsets_arg(g_kw["offsets"])
+    t_keep = (t_th0.contiguous(), t_cur.contiguous(), t_npx.contiguous(),
+              t_act.contiguous(), torch.empty_like(t_cur))
+    t_off = scan_cuda.offsets_arg(t_kw["offsets"])
+    beta = t_kw["beta"]
+    times["gate_scan_batch bare"] = time_cuda(lambda: _build.check(
+        so.og_gate_scan_batch(*(x.data_ptr() for x in g_keep), g_off, k_g,
+                              256.0, 256.0, 30.0, 8, 3, scan_cuda.stream()),
+        "og_gate_scan_batch"), 50)
+    times["thresh_chain_batch bare"] = time_cuda(lambda: _build.check(
+        so.og_thresh_chain_batch(*(x.data_ptr() for x in t_keep), t_off,
+                                 k_g, float(np.float32(beta)),
+                                 float(np.float32(1.0 - beta)),
+                                 scan_cuda.stream()),
+        "og_thresh_chain_batch"), 50)
+    # the in-box count: the served (128, 160, 160) bf16 chunk alone, and a
+    # table of 8 such chunks (chunk 0 of 8 videos of a cohort)
+    rec8 = []
+    counted(lambda: multi["unet"](bf16, pool[:8], max_k=8), rec8)
+    table8 = next(inp for name, inp, _ in rec8 if name == "box_count")
+    thr = 0.0
+    chunk1 = (table8[0]._replace(out=None),)
+    box = {}
+    for label, chunks in (("table of 1", chunk1),
+                          ("table of 8", tuple(c._replace(out=None)
+                                               for c in table8))):
+        kfn, pfn, nbytes, ops = runners("box_count", chunks, {"thr": thr})
+        if not all(torch.equal(g, w_) for g, w_ in zip(kfn(), pfn())):
+            raise AssertionError(f"box_count {label} differs from plain")
+        box[label] = {"chunks": len(chunks),
+                      "shape": list(chunks[0].x.shape),
+                      "dtype": str(chunks[0].x.dtype),
+                      "ms": time_cuda(kfn, 50),
+                      "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                      ops / FP32_OPS_PER_S) * 1e3,
+                      "plain_ms": time_cuda(pfn, 5)}
+    times["box_count"] = box
+    if against_libs is not None:
+        # the older checkouts' og_box_count (one block per frame, the C
+        # interface of one chunk) in turns with this one on the served chunk
+        import ctypes
+
+        libs = against_libs()
+        c = chunk1[0]
+        ox_ = c.ox.to(torch.int64).reshape(())
+        oy_ = c.oy.to(torch.int64).reshape(())
+        v8 = c.valid.contiguous()
+        b32 = c.boxes.to(torch.int32).contiguous()
+        want = areas_cuda.box_count_table(chunk1, thr, use_plain=True)[0]
+        fns = {"this": lambda: areas_cuda.box_count_table(chunk1, thr)[0]}
+        for d, lib_ in libs.items():
+            a = lib_.get("areas")
+            if a is None or hasattr(a, "og_box_count_entry_bytes"):
+                continue
+            p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            a.og_box_count.argtypes = [p_, i_, f_, p_, p_, p_, p_, i_, i_, p_,
+                                       i_, i_, i_, p_]
+            a.og_box_count.restype = ctypes.c_int
+
+            def old(a=a):
+                out = torch.empty((c.x.shape[0],), dtype=torch.float32,
+                                  device="cuda")
+                _build.check(a.og_box_count(
+                    c.x.data_ptr(), 1 if c.x.dtype == torch.bfloat16 else 0,
+                    thr, v8.data_ptr(), b32.data_ptr(), oy_.data_ptr(),
+                    ox_.data_ptr(), 0, 0, out.data_ptr(), *c.x.shape,
+                    torch.cuda.current_stream().cuda_stream), "old box_count")
+                return out
+            fns[d] = old
+        turns = {k_: [] for k_ in fns}
+        for k_ in [*fns, *reversed(fns)]:
+            if not torch.equal(fns[k_](), want):
+                raise AssertionError(f"box_count of {k_} differs from plain")
+            turns[k_].append(time_cuda(fns[k_], 50))
+        times["box_count_against"] = {
+            "order": [*fns, *reversed(fns)], "ms_each_turn": turns,
+            "ms": {k_: sum(v) / len(v) for k_, v in turns.items()}}
+    line["kernel_times"] = times
+    return line, records["guided-vft"], guided_counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -722,8 +1048,10 @@ def main() -> int:
     # edges and empty; all, none and some frames valid; the decoder's
     # window (128 and a ragged 37 frames), whole 256x256 frames and a
     # ragged 17x300 window; bf16 and f32; thresholds 0 and 0.5; the origin
-    # on the device and as launch arguments
-    box_stress = 0
+    # on the device and as launch arguments: each case alone (a table of
+    # one chunk), then the cases of one (shape, dtype, threshold) as tables
+    # of 3 and of 8 chunks (cycled), and from unaligned buffers
+    box_classes = {}
     for seed, (n, hw, ww, oyv, oxv) in enumerate((
             (128, 160, 160, 46, 50), (37, 160, 160, 6, 90),
             (5, 256, 256, 0, 0), (9, 17, 300, 3, 11))):
@@ -748,11 +1076,155 @@ def main() -> int:
                     for oy, ox in ((torch.tensor(oyv, device=dev),
                                     torch.tensor(oxv, device=dev)),
                                    (oyv, oxv)):
-                        hold("box_count",
-                             areas_cuda.box_count(xd, thr, vd, bx, oy, ox),
-                             areas_cuda.box_count(xd, thr, vd, bx, oy, ox,
-                                                  use_plain=True))
-                        box_stress += 1
+                        box_classes.setdefault((seed, dt, thr), []).append(
+                            areas_cuda.CountChunk(xd, vd, bx, oy, ox))
+
+    def hold_table(chunks, thr):
+        got = areas_cuda.box_count_table(chunks, thr)
+        want = areas_cuda.box_count_table(chunks, thr, use_plain=True)
+        hold("box_count", torch.cat(got), torch.cat(want))
+
+    box_stress = 0
+    box_tables = {1: 0, 3: 0, 8: 0}
+    for (_, _, thr), cases in box_classes.items():
+        for c in cases:
+            hold("box_count", areas_cuda.box_count(c.x, thr, *c[1:5]),
+                 areas_cuda.box_count(c.x, thr, *c[1:5], use_plain=True))
+            box_stress += 1
+            box_tables[1] += 1
+        cyc = cases + cases
+        for size in (3, 8):
+            for i in range(0, len(cases), size):
+                hold_table(cyc[i:i + size], thr)
+                box_tables[size] += 1
+        hold_table([c._replace(x=unaligned(c.x, by))
+                    for c, by in zip(cases[:3], (1, 3, 5))], thr)
+
+    # the batched scans (one block per sequence): K = 1 ... 64 sequences of
+    # ragged lengths (0, 1, 2, 127, 128, 129, 4097, 20000 and others), the
+    # stress sequences, from the initial state and from carried-in states,
+    # from unaligned buffers, and resumed across three launches through the
+    # (K, 6) carry buffer; equal to the plain version (a loop of the
+    # per-video plain version), carries included
+    def batch_inputs(lengths, seed):
+        gs = [gate_stress_sequence(t, seed=seed + i) if t else
+              (np.zeros(0, bool), np.zeros((0, 4), np.float32),
+               gate_mod.gate_init()) for i, t in enumerate(lengths)]
+        ts = [thresh_stress_sequence(t, seed=seed + i) if t else
+              (np.float32(60.0), np.zeros(0, np.float32),
+               np.zeros(0, np.float32), np.zeros(0, bool))
+              for i, t in enumerate(lengths)]
+        cat = lambda xs: torch.from_numpy(np.concatenate(xs)).to(dev)  # noqa: E731
+        states = torch.stack([gate_mod._state_buffer(
+            gate_mod.GateState(*g[2]), "cpu") for g in gs]).to(dev)
+        return ((cat([g[0] for g in gs]), cat([g[1] for g in gs]), states),
+                (torch.tensor([float(t[0]) for t in ts], device=dev),
+                 *(cat([np.asarray(t[j]) for t in ts]) for j in (1, 2, 3))))
+
+    def hold_gate_batch(has, raw, off, state):
+        kst, pst = (None, None) if state is None else (state.clone(),
+                                                       state.clone())
+        kv, kb = gate_mod.gate_scan_batch(has, raw, off, 256, 256, state=kst)
+        pv, pb = gate_mod.gate_scan_batch(has, raw, off, 256, 256, state=pst,
+                                          use_plain=True)
+        hold("gate_scan_batch", kv, pv)
+        hold("gate_scan_batch", kb, pb)
+        if state is not None:
+            hold("gate_scan_batch", kst, pst)
+        return kv, kb, kst
+
+    served_mix = (0, 1, 2, 127, 128, 129, 4097, 20000)
+    batch_sets = [(1, (502,)), (2, (0, 1)), (3, (5, 0, 33)),
+                  (8, served_mix), (16, served_mix[:6] * 2 + (502, 380, 1000,
+                                                                31)),
+                  (64, tuple((0, 1, 2, 3, 17, 31, 32, 33, 127, 128, 129, 130,
+                              250, 380, 502, 1000) * 4))]
+    batch_cases = 0
+    for k_, lengths in batch_sets:
+        assert len(lengths) == k_
+        off = [0, *np.cumsum(lengths).tolist()]
+        (has, raw, states), (th0, cur, npx, act) = batch_inputs(lengths, k_)
+        for st in (None, states):
+            hold_gate_batch(has, raw, off, st)
+        hold_gate_batch(unaligned(has, 3), unaligned(raw, 1), off, states)
+        for beta, args in ((0.7, (cur, npx, act)),
+                           (0.35, (unaligned(cur, 1), unaligned(npx, 3),
+                                   unaligned(act, 5)))):
+            hold("thresh_chain_batch",
+                 tracker_mod.thresh_chain_batch(th0, *args, off, beta
+                                                ).view(torch.int32),
+                 tracker_mod.thresh_chain_batch(th0, *args, off, beta,
+                                                use_plain=True
+                                                ).view(torch.int32))
+        # three launches, each sequence cut at 1/3 and 2/3 of its length
+        # (a 20000-frame sequence at its tile boundaries' sides), the carry
+        # passed on in the buffer as the kernel left it
+        whole_v, whole_b, whole_st = hold_gate_batch(has, raw, off, states)
+        carry = states.clone()
+        cuts = [(a, a + (b - a) // 3, a + 2 * (b - a) // 3, b)
+                for a, b in zip(off[:-1], off[1:])]
+        vs, bs = [], []
+        for j in range(3):
+            spans = [(c[j], c[j + 1]) for c in cuts]
+            so_ = [0, *np.cumsum([b - a for a, b in spans]).tolist()]
+            v_, b_ = gate_mod.gate_scan_batch(
+                torch.cat([has[a:b] for a, b in spans]),
+                torch.cat([raw[a:b] for a, b in spans]), so_, 256, 256,
+                state=carry)
+            vs.append([v_[so_[i]:so_[i + 1]] for i in range(k_)])
+            bs.append([b_[so_[i]:so_[i + 1]] for i in range(k_)])
+        hold("gate_scan_batch",
+             torch.cat([torch.cat([vs[j][i] for j in range(3)])
+                        for i in range(k_)]), whole_v)
+        hold("gate_scan_batch",
+             torch.cat([torch.cat([bs[j][i] for j in range(3)])
+                        for i in range(k_)]), whole_b)
+        hold("gate_scan_batch", carry, whole_st)
+        batch_cases += 1
+
+    # the union-find at cohort size: a 4000-frame 128x128 stack (a cohort's
+    # guided-vft windows), and the largest stack the cohort rule allows on
+    # this card (502-frame videos, their tracked frames), each launch equal
+    # to the same kernel over the stack's 128-frame pieces and, on its first
+    # and last 64 frames, to the plain version (the plain fixpoint takes
+    # hundreds of passes over a spiral: the whole stack would take minutes)
+    from openglottal_tpu_torch.pipelines import cohort_k
+
+    k_max = cohort_k("guided-vft", [502] * 10_000,
+                     torch.cuda.mem_get_info()[0], 2)
+    pool128 = blob_stress_masks(128, 128, seed=21)
+    cohort_stacks = {}
+    for n_frames in (4000, k_max * 500):
+        m = torch.from_numpy(pool128[np.arange(n_frames) % len(pool128)]
+                             ).to(dev)
+        code = 2 - m.to(torch.uint8)
+        init = torch.from_numpy(rng.integers(
+            0, 128 * 128 + 1, (n_frames, 128, 128)).astype(np.int32)).to(dev)
+        uf_ops = {
+            "dual_cc_batch": (lambda c, i, r: blobs_cuda.dual_cc_batch(c),
+                              lambda c, i, r: blobs_cuda.dual_cc_plain(c)),
+            "dual_min_prop_batch": (
+                lambda c, i, r: blobs_cuda.dual_min_prop_batch(c, i),
+                lambda c, i, r: blobs_cuda.dual_min_prop_plain(c, i)),
+            "min_prop_batch": (
+                lambda c, i, r: blobs_cuda.min_prop_batch(r, i, 4),
+                lambda c, i, r: blobs_cuda.min_prop_plain(r, i, 4))}
+        cohort_stacks[n_frames] = {}
+        both_ends = lambda x: torch.cat([x[:64], x[-64:]])  # noqa: E731
+        for name, (kf, pf) in uf_ops.items():
+            got = kf(code, init, m)
+            hold(name, got, torch.cat([
+                kf(code[a:a + 128], init[a:a + 128], m[a:a + 128])
+                for a in range(0, n_frames, 128)]))
+            hold(name, both_ends(got), pf(both_ends(code), both_ends(init),
+                                          both_ends(m)))
+            cohort_stacks[n_frames][name] = {
+                "kernel_ms": time_cuda(lambda: kf(code, init, m), 5),
+                "bound_ms": n_frames * 128 * 128 * (5 if name == "dual_cc_batch"
+                                                     else 9)
+                / HBM_BYTES_PER_S * 1e3}
+        del m, code, init
+    torch.cuda.empty_cache()
 
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
@@ -988,6 +1460,11 @@ def main() -> int:
     say("kernels", ok=True, compared="exact equality with the plain version",
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress), box_count_stress_cases=box_stress,
+        box_count_tables_by_size=box_tables,
+        scan_batch_sets={str(k_): list(lengths) for k_, lengths in batch_sets},
+        union_find_cohort_stacks={
+            "k_rule_guided_vft_502_frames": k_max,
+            "frames_128x128": cohort_stacks},
         max_abs_err=max_err, stress_times=stress_ms)
     reset_counts()
 
@@ -1269,6 +1746,11 @@ def main() -> int:
                          "guided-vft"),
         "motion_map": ("openglottal_tpu/models/tracker.py:204", "vft"),
         "box_count": ("openglottal_tpu/pipelines.py:297", "unet"),
+        # the cohort's batched scans (guided-vft's cohort path)
+        "gate_scan_batch": ("openglottal_tpu/pipelines.py:927",
+                            "cohort-guided-vft"),
+        "thresh_chain_batch": ("openglottal_tpu/models/tracker.py:377",
+                               "cohort-guided-vft"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
@@ -1279,7 +1761,9 @@ def main() -> int:
                "min_prop_batch": "og_min_prop", "cc_batch": "og_cc_batch",
                "cc": "og_cc", "gate_scan": "og_gate_scan",
                "thresh_chain": "og_thresh_chain",
-               "motion_map": "og_motion_map", "box_count": "og_box_count"}
+               "motion_map": "og_motion_map", "box_count": "og_box_count",
+               "gate_scan_batch": "og_gate_scan_batch",
+               "thresh_chain_batch": "og_thresh_chain_batch"}
 
     def links(code):
         """Neighbour links this input makes the union-find test and join:
@@ -1346,16 +1830,47 @@ def main() -> int:
                                                      use_plain=True)[1],
                     nbytes, ops)
         if name == "box_count":
-            # bytes: the in-box elements of x (all the count must read),
-            # valid, boxes and the output; one compare and one add each
-            x, valid, boxes = inputs
-            args = (kw["thr"], valid, boxes, kw["oy"], kw["ox"])
-            inbox = int(areas_cuda.box_count_plain(
-                x, float("-inf"), *args[1:]).sum())
-            n = x.shape[0]
-            return (lambda: areas_cuda.box_count(x, *args),
-                    lambda: areas_cuda.box_count(x, *args, use_plain=True),
-                    inbox * x.element_size() + n * (1 + 16 + 4), 2 * inbox)
+            # a table of chunks (one on the per-video routes); bytes: the
+            # in-box elements of every x (all the count must read), valid,
+            # boxes and the output; one compare and one add each
+            chunks = tuple(c._replace(out=None) for c in inputs)
+            thr = kw["thr"]
+            inbox = sum(int(areas_cuda.box_count_plain(
+                c.x, float("-inf"), c.valid, c.boxes, c.oy, c.ox).sum())
+                for c in chunks)
+            n = sum(c.x.shape[0] for c in chunks)
+            return (lambda: tuple(areas_cuda.box_count_table(chunks, thr)),
+                    lambda: tuple(areas_cuda.box_count_table(
+                        chunks, thr, use_plain=True)),
+                    inbox * chunks[0].x.element_size() + n * (1 + 16 + 4),
+                    2 * inbox)
+        if name == "gate_scan_batch":
+            has, raw = inputs
+            off = kw["offsets"]
+            args = (kw["frame_h"], kw["frame_w"], kw["params"])
+            st = kw["state"]
+            n, k_ = has.numel(), len(off) - 1
+            nbytes, ops = n * (1 + 16 + 1 + 16) + k_ * 48, n * 40
+            if not bool(st.any()):                  # from the initial states
+                return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args),
+                        lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                         use_plain=True),
+                        nbytes, ops)
+            return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                     state=st.clone()),
+                    lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                     state=st.clone(),
+                                                     use_plain=True),
+                    nbytes, ops)
+        if name == "thresh_chain_batch":
+            th0, cur, npx, act = inputs
+            off, beta = kw["offsets"], kw["beta"]
+            n = cur.numel()
+            return (lambda: tracker_mod.thresh_chain_batch(th0, cur, npx, act,
+                                                           off, beta),
+                    lambda: tracker_mod.thresh_chain_batch(
+                        th0, cur, npx, act, off, beta, use_plain=True),
+                    n * (4 + 4 + 1 + 4) + 4 * (len(off) - 1), n * 4)
         if name == "motion_map":
             p0, fr, l0, act = inputs
             args = (p0, fr, l0, act, kw["alpha"], kw["ksize"])
@@ -1376,7 +1891,11 @@ def main() -> int:
     per_kernel = {}
     elsewhere = {}     # kernel -> path -> ms of each launch on another path
     held = {}          # path -> launches held against their plain versions
-    for path, record in recorded.items():
+
+    def measure(path, record):
+        """Every launch of a path's record held equal to its plain version
+        and timed; the kernels this path reports get their plain times,
+        bytes and operations too."""
         for name, inputs, kw in record:
             kfn, pfn, nbytes, ops = runners(name, inputs, kw)
             # every launch of every path equals its plain version on the
@@ -1404,7 +1923,12 @@ def main() -> int:
             e["plain_ms"].append(plain_ms)
             e["bytes"].append(nbytes)
             e["ops"].append(ops)
-            e["shapes"].append(list(max(inputs, key=torch.numel).shape))
+            big = max((c.x for c in inputs) if name == "box_count"
+                      else inputs, key=torch.numel)
+            e["shapes"].append(list(big.shape))
+
+    for path, record in recorded.items():
+        measure(path, record)
     reset_counts()
     for path, record in recorded.items():
         if held.get(path, 0) != len(record) or not record:
@@ -1451,6 +1975,18 @@ def main() -> int:
     reset_counts()
     say("windowed", compared="every recorded launch exactly equal to its "
         "plain version", nvidia_smi=smi, **window_line)
+
+    # ── cohort serving: the three cohort entries against per-video calls ─
+    cohort_line, cohort_record, cohort_counts = cohort_phase(
+        pipes, videos, counted, expect_counts, hold_record, host_syncs,
+        device_kernels, runners,
+        (lambda: against_libraries()[0]) if against else None)
+    reset_counts()
+    recorded["cohort-guided-vft"] = cohort_record
+    path_launches["cohort-guided-vft/bf16"] = cohort_counts
+    measure("cohort-guided-vft", cohort_record)
+    reset_counts()
+    say("cohort", nvidia_smi=smi, **cohort_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -1754,6 +2290,11 @@ def main() -> int:
                  # is compared on its own above)
                  {"guided-vft/bf16": lambda: serve(pipes["bf16"],
                                                    "guided-vft")})
+
+    for name in ("gate_scan_batch", "thresh_chain_batch"):
+        t_ = max(sh[0] for sh in per_kernel[name]["shapes"])
+        scan_times[f"{name} T={t_}"] = {
+            "bare_ms": cohort_line["kernel_times"][f"{name} bare"]}
 
     kernels = []
     for name, (replaces, path) in kernel_table.items():

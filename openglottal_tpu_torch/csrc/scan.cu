@@ -78,6 +78,20 @@ inline int block_threads(int tile) {
   return r < kMinThreads ? kMinThreads : (r > kMaxThreads ? kMaxThreads : r);
 }
 
+// The sequences of a launch: block b walks frames [start[b], start[b + 1])
+// of the flat inputs and outputs, and its carry is the b-th of the launch's
+// carries.  Passed by value (the launch's parameter space, read in place as
+// a __grid_constant__), so a batch of sequences needs no host-to-device
+// copy of its offsets.  kSegs is the most sequences one launch takes: 1 for
+// the per-video launches, kBatchSegs for the batched ones, which the host
+// splits into launches of at most kBatchSegs sequences.
+template <int kSegs>
+struct Segments {
+  long long start[kSegs + 1];
+};
+
+constexpr int kBatchSegs = 256;
+
 // Where stage() puts the first byte of src inside the region dst.
 __device__ __forceinline__ unsigned char* staged_ptr(unsigned char* dst,
                                                      const void* src) {
@@ -210,6 +224,12 @@ __device__ __forceinline__ void box_size(const float* r, int padding, int& w,
 //
 // state_f: {cx, cy}; state_i: {valid, w, h, miss}.  Both are read at entry and
 // hold the carry for the next segment at exit.
+//
+// A batch of sequences (og_gate_scan_batch, one video each) is one launch of
+// the same body with one block per sequence: each block stages and walks its
+// own frames with its own carry, so a sequence's outputs and carry are those
+// of its own launch, bit for bit.  The serial walks of the K sequences run
+// side by side on K SMs.
 
 // Shared layout: rec (int per frame) | runs (a 32-bit mask per 32 frames) |
 // flags (byte per frame) | per buffer: raw staging, has staging.
@@ -226,12 +246,24 @@ __host__ __device__ constexpr size_t gate_smem_bytes(int tile, int nbuf) {
   return gate_work_bytes(tile) + nbuf * gate_buffer_bytes(tile);
 }
 
+// state: the carries, six int32 per sequence: {valid, w, h, miss} and then
+// {cx, cy} as float32 bits.
+template <int kSegs>
 __global__ void __launch_bounds__(kMaxThreads)
 gate_scan_kernel(const uint8_t* __restrict__ has, const float* __restrict__ raw,
                  uint8_t* __restrict__ out_valid, int* __restrict__ out_box,
-                 float* state_f, int* state_i, int t, int tile, float frame_h,
-                 float frame_w, float max_shift, int padding, int max_hold,
-                 long long* walk_cycles) {
+                 int* state, const __grid_constant__ Segments<kSegs> seg,
+                 int tile, float frame_h, float frame_w, float max_shift,
+                 int padding, int max_hold, long long* walk_cycles) {
+  // this block's sequence
+  const long long s0 = seg.start[blockIdx.x];
+  const int t = static_cast<int>(seg.start[blockIdx.x + 1] - s0);
+  has += s0;
+  raw += 4 * s0;
+  out_valid += s0;
+  out_box += 4 * s0;
+  int* const state_i = state + 6 * blockIdx.x;
+  float* const state_f = reinterpret_cast<float*>(state_i + 4);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float entry_f[2];   // the carry a tile starts from: cx, cy
   __shared__ int entry_i[2];     //                              w, h
@@ -447,6 +479,10 @@ gate_scan_kernel(const uint8_t* __restrict__ has, const float* __restrict__ raw,
 // values, so the same bits); the selects where four steps in a row are
 // active and take their percentile (four chained fmas, the served case); the
 // output stores, coalesced after the walk.
+//
+// A batch of chains (og_thresh_chain_batch, one per video, each from its own
+// seed) is one launch of the same bodies with one block per chain: the warp
+// form when every chain has at most 32 steps, else the staged block form.
 
 // Shared layout: work values (float per frame) | flags (byte per frame) |
 // per buffer: cur, n_px and active staging.
@@ -465,13 +501,23 @@ struct ThreshBatch {
 // operations as the block's walk) and lane j keeps step j's threshold.
 constexpr int kWarpChain = 32;
 
+template <int kSegs>
 __global__ void __launch_bounds__(32)
 thresh_chain_warp_kernel(const float* __restrict__ thresh0,
                          const float* __restrict__ cur,
                          const float* __restrict__ n_px,
                          const uint8_t* __restrict__ active,
-                         float* __restrict__ out, int t, float beta,
-                         float one_minus_beta, long long* walk_cycles) {
+                         float* __restrict__ out,
+                         const __grid_constant__ Segments<kSegs> seg,
+                         float beta, float one_minus_beta,
+                         long long* walk_cycles) {
+  const long long s0 = seg.start[blockIdx.x];
+  const int t = static_cast<int>(seg.start[blockIdx.x + 1] - s0);
+  thresh0 += blockIdx.x;
+  cur += s0;
+  n_px += s0;
+  active += s0;
+  out += s0;
   const int j = threadIdx.x;
   float p = 0.0f;
   unsigned f = 0;
@@ -512,13 +558,22 @@ __host__ __device__ constexpr size_t thresh_smem_bytes(int tile, int nbuf) {
          nbuf * thresh_buffer_bytes(tile);
 }
 
+template <int kSegs>
 __global__ void __launch_bounds__(kMaxThreads)
 thresh_chain_kernel(const float* __restrict__ thresh0,
                     const float* __restrict__ cur,
                     const float* __restrict__ n_px,
                     const uint8_t* __restrict__ active,
-                    float* __restrict__ out, int t, int tile, float beta,
-                    float one_minus_beta, long long* walk_cycles) {
+                    float* __restrict__ out,
+                    const __grid_constant__ Segments<kSegs> seg, int tile,
+                    float beta, float one_minus_beta, long long* walk_cycles) {
+  const long long s0 = seg.start[blockIdx.x];
+  const int t = static_cast<int>(seg.start[blockIdx.x + 1] - s0);
+  thresh0 += blockIdx.x;
+  cur += s0;
+  n_px += s0;
+  active += s0;
+  out += s0;
   extern __shared__ __align__(16) unsigned char smem[];
   float* work = reinterpret_cast<float*>(smem);
   unsigned char* flags = smem + round16(static_cast<size_t>(tile) * 4);
@@ -1443,58 +1498,99 @@ int launch_motion_map(const void* frames, const void* prev0, const void* lmap0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The gate over the sequences of `seg` (n of them, at most kSegs), the
+// longest max_t frames; state holds n carries.
+template <int kSegs>
 int launch_gate_scan(const void* has, const void* raw, void* out_valid,
-                     void* out_box, void* state_f, void* state_i, int t,
-                     float frame_h, float frame_w, float max_shift, int padding,
-                     int max_hold, void* walk_cycles, void* stream) {
-  if (t < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (t == 0) return static_cast<int>(cudaSuccess);
-  const int tile = t < kTile ? t : kTile;
-  const size_t smem = gate_smem_bytes(tile, t > tile ? 2 : 1);
+                     void* out_box, void* state, const Segments<kSegs>& seg,
+                     int n, int max_t, float frame_h, float frame_w,
+                     float max_shift, int padding, int max_hold,
+                     void* walk_cycles, void* stream) {
+  if (n == 0 || max_t == 0) return static_cast<int>(cudaSuccess);
+  const int tile = max_t < kTile ? max_t : kTile;
+  const size_t smem = gate_smem_bytes(tile, max_t > tile ? 2 : 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gate_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gate_scan_kernel<kSegs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  gate_scan_kernel<<<1, block_threads(tile), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  gate_scan_kernel<kSegs><<<n, block_threads(tile), smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(has), static_cast<const float*>(raw),
       static_cast<uint8_t*>(out_valid), static_cast<int*>(out_box),
-      static_cast<float*>(state_f), static_cast<int*>(state_i), t, tile,
-      frame_h, frame_w, max_shift, padding, max_hold,
-      static_cast<long long*>(walk_cycles));
+      static_cast<int*>(state), seg, tile, frame_h, frame_w, max_shift,
+      padding, max_hold, static_cast<long long*>(walk_cycles));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The threshold chains of `seg` (n of them, at most kSegs), the longest
+// max_t steps; thresh0 holds n seeds.
+template <int kSegs>
 int launch_thresh_chain(const void* thresh0, const void* cur, const void* n_px,
-                        const void* active, void* out, int t, float beta,
-                        float one_minus_beta, void* walk_cycles, void* stream) {
-  if (t < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (t == 0) return static_cast<int>(cudaSuccess);
-  if (t <= kWarpChain) {
-    thresh_chain_warp_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(thresh0), static_cast<const float*>(cur),
-        static_cast<const float*>(n_px), static_cast<const uint8_t*>(active),
-        static_cast<float*>(out), t, beta, one_minus_beta,
-        static_cast<long long*>(walk_cycles));
+                        const void* active, void* out,
+                        const Segments<kSegs>& seg, int n, int max_t,
+                        float beta, float one_minus_beta, void* walk_cycles,
+                        void* stream) {
+  if (n == 0 || max_t == 0) return static_cast<int>(cudaSuccess);
+  const auto* th0 = static_cast<const float*>(thresh0);
+  const auto* c = static_cast<const float*>(cur);
+  const auto* np = static_cast<const float*>(n_px);
+  const auto* act = static_cast<const uint8_t*>(active);
+  auto* o = static_cast<float*>(out);
+  auto* cyc = static_cast<long long*>(walk_cycles);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (max_t <= kWarpChain) {
+    thresh_chain_warp_kernel<kSegs><<<n, 32, 0, s>>>(
+        th0, c, np, act, o, seg, beta, one_minus_beta, cyc);
     return static_cast<int>(cudaGetLastError());
   }
-  const int tile = t < kTile ? t : kTile;
-  const size_t smem = thresh_smem_bytes(tile, t > tile ? 2 : 1);
+  const int tile = max_t < kTile ? max_t : kTile;
+  const size_t smem = thresh_smem_bytes(tile, max_t > tile ? 2 : 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        thresh_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        thresh_chain_kernel<kSegs>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  thresh_chain_kernel<<<1, block_threads(tile), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(thresh0), static_cast<const float*>(cur),
-      static_cast<const float*>(n_px), static_cast<const uint8_t*>(active),
-      static_cast<float*>(out), t, tile, beta, one_minus_beta,
-      static_cast<long long*>(walk_cycles));
+  thresh_chain_kernel<kSegs><<<n, block_threads(tile), smem, s>>>(
+      th0, c, np, act, o, seg, tile, beta, one_minus_beta, cyc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One sequence of t frames.
+inline Segments<1> one_segment(int t) { return Segments<1>{{0, t}}; }
+
+// Checks offsets (k + 1 non-decreasing values from 0) and returns the
+// longest sequence, or -1.
+int longest(const long long* offsets, int k) {
+  if (k < 0 || offsets == nullptr || offsets[0] != 0) return -1;
+  long long m = 0;
+  for (int i = 0; i < k; ++i) {
+    const long long n = offsets[i + 1] - offsets[i];
+    if (n < 0 || n > INT32_MAX) return -1;
+    m = n > m ? n : m;
+  }
+  return static_cast<int>(m);
+}
+
+// The longest of the sequences [first, first + n) of checked offsets.
+int max_len(const long long* offsets, int first, int n) {
+  long long m = 0;
+  for (int i = first; i < first + n; ++i) {
+    const long long len = offsets[i + 1] - offsets[i];
+    m = len > m ? len : m;
+  }
+  return static_cast<int>(m);
+}
+
+// The sequences [first, first + n) of `offsets`, as one launch's segments
+// counted from the flat inputs' start.
+Segments<kBatchSegs> batch_segments(const long long* offsets, int first,
+                                    int n) {
+  Segments<kBatchSegs> seg{};
+  for (int i = 0; i <= n; ++i) seg.start[i] = offsets[first + i];
+  return seg;
 }
 
 }  // namespace
@@ -1505,16 +1601,62 @@ int og_gate_scan(const void* has, const void* raw, void* out_valid,
                  void* out_box, void* state_f, void* state_i, int t,
                  float frame_h, float frame_w, float max_shift, int padding,
                  int max_hold, void* stream) {
-  return launch_gate_scan(has, raw, out_valid, out_box, state_f, state_i, t,
-                          frame_h, frame_w, max_shift, padding, max_hold,
-                          nullptr, stream);
+  if (t < 0 || static_cast<int*>(state_i) + 4 != state_f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gate_scan(has, raw, out_valid, out_box, state_i,
+                          one_segment(t), 1, t, frame_h, frame_w, max_shift,
+                          padding, max_hold, nullptr, stream);
+}
+
+// K sequences in one launch, one block each: sequence i is frames
+// [offsets[i], offsets[i + 1]) of has (uint8), raw (float32 x4), out_valid
+// and out_box (int32 x4); state holds K carries of six int32 (valid, w, h,
+// miss, cx bits, cy bits), read at entry and holding each sequence's carry
+// at exit.  offsets: K + 1 host values, non-decreasing from 0; lengths of 0
+// are allowed.  More than 256 sequences take one launch per 256.
+int og_gate_scan_batch(const void* has, const void* raw, void* out_valid,
+                       void* out_box, void* state, const long long* offsets,
+                       int k, float frame_h, float frame_w, float max_shift,
+                       int padding, int max_hold, void* stream) {
+  if (longest(offsets, k) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int first = 0; first < k; first += kBatchSegs) {
+    const int n = k - first < kBatchSegs ? k - first : kBatchSegs;
+    const int err = launch_gate_scan(
+        has, raw, out_valid, out_box, static_cast<int*>(state) + 6 * first,
+        batch_segments(offsets, first, n), n,
+        max_len(offsets, first, n),
+        frame_h, frame_w, max_shift, padding, max_hold, nullptr, stream);
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 int og_thresh_chain(const void* thresh0, const void* cur, const void* n_px,
                     const void* active, void* out, int t, float beta,
                     float one_minus_beta, void* stream) {
-  return launch_thresh_chain(thresh0, cur, n_px, active, out, t, beta,
-                             one_minus_beta, nullptr, stream);
+  if (t < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_thresh_chain(thresh0, cur, n_px, active, out, one_segment(t),
+                             1, t, beta, one_minus_beta, nullptr, stream);
+}
+
+// K chains in one launch, one block (a warp where every chain has at most 32
+// steps) each: chain i is steps [offsets[i], offsets[i + 1]) of cur, n_px,
+// active (uint8) and out, from the seed thresh0[i].  offsets as in
+// og_gate_scan_batch.
+int og_thresh_chain_batch(const void* thresh0, const void* cur,
+                          const void* n_px, const void* active, void* out,
+                          const long long* offsets, int k, float beta,
+                          float one_minus_beta, void* stream) {
+  if (longest(offsets, k) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int first = 0; first < k; first += kBatchSegs) {
+    const int n = k - first < kBatchSegs ? k - first : kBatchSegs;
+    const int err = launch_thresh_chain(
+        static_cast<const float*>(thresh0) + first, cur, n_px, active, out,
+        batch_segments(offsets, first, n), n, max_len(offsets, first, n),
+        beta, one_minus_beta, nullptr, stream);
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 // The same launches, with the clock of the serial walk: thread 0 adds up
@@ -1525,9 +1667,11 @@ int og_gate_scan_walk_cycles(const void* has, const void* raw,
                              void* state_i, int t, float frame_h,
                              float frame_w, float max_shift, int padding,
                              int max_hold, void* walk_cycles, void* stream) {
-  return launch_gate_scan(has, raw, out_valid, out_box, state_f, state_i, t,
-                          frame_h, frame_w, max_shift, padding, max_hold,
-                          walk_cycles, stream);
+  if (t < 0 || static_cast<int*>(state_i) + 4 != state_f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gate_scan(has, raw, out_valid, out_box, state_i,
+                          one_segment(t), 1, t, frame_h, frame_w, max_shift,
+                          padding, max_hold, walk_cycles, stream);
 }
 
 int og_thresh_chain_walk_cycles(const void* thresh0, const void* cur,
@@ -1535,8 +1679,9 @@ int og_thresh_chain_walk_cycles(const void* thresh0, const void* cur,
                                 void* out, int t, float beta,
                                 float one_minus_beta, void* walk_cycles,
                                 void* stream) {
-  return launch_thresh_chain(thresh0, cur, n_px, active, out, t, beta,
-                             one_minus_beta, walk_cycles, stream);
+  if (t < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_thresh_chain(thresh0, cur, n_px, active, out, one_segment(t),
+                             1, t, beta, one_minus_beta, walk_cycles, stream);
 }
 
 int og_motion_map(const void* frames, const void* prev0, const void* lmap0,

@@ -6,12 +6,50 @@ same frames for the same seed).
 ``realistic=True`` adds structure that is adversarial to intensity
 thresholding inside the gated box (ventricular-band shadows at glottal
 intensity, an axial glottal gradient, glottis-crossing specular streaks and
-illumination drift).  That branch needs ``cv2`` and imports it lazily.
+illumination drift).  Its low-frequency texture is upsampled by
+:func:`resize_bicubic`, the port's own copy of OpenCV's ``INTER_CUBIC``
+(the port imports no ``cv2``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _cubic_taps(n_in: int, n_out: int):
+    """Source indices (n_out, 4) and weights (n_out, 4) of OpenCV's
+    ``INTER_CUBIC`` along one axis: the half-pixel mapping
+    fx = (d + 0.5) * n_in / n_out - 0.5, taps at floor(fx) - 1 .. + 2 with
+    the border replicated, and Keys' kernel with a = -0.75 evaluated in
+    float32, as OpenCV evaluates it (``interpolateCubic``)."""
+    f32 = np.float32
+    fx = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(f32)
+    sx = np.floor(fx)
+    x = (fx - sx).astype(f32)
+    a, one = f32(-0.75), f32(1.0)
+    c0 = ((a * (x + one) - f32(5) * a) * (x + one) + f32(8) * a) * (x + one) \
+        - f32(4) * a
+    c1 = ((a + f32(2)) * x - (a + f32(3))) * x * x + one
+    y = one - x
+    c2 = ((a + f32(2)) * y - (a + f32(3))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(sx.astype(np.int64)[:, None] + np.arange(-1, 3), 0, n_in - 1)
+    return idx, np.stack([c0, c1, c2, c3], -1).astype(np.float64)
+
+
+def resize_bicubic(src: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """``cv2.resize(src, (out_w, out_h), interpolation=cv2.INTER_CUBIC)`` of
+    a 2-D float64 array, equal to it bit for bit: rows first (each output
+    column a 4-tap sum over the source row), then columns, each sum in
+    float64 from the left, as OpenCV's generic resize for float64 data."""
+    iy, cy = _cubic_taps(src.shape[0], out_h)
+    ix, cx = _cubic_taps(src.shape[1], out_w)
+    rows = src.astype(np.float64)[:, ix]                  # (h, out_w, 4)
+    hp = (rows[..., 0] * cx[:, 0] + rows[..., 1] * cx[:, 1]
+          + rows[..., 2] * cx[:, 2] + rows[..., 3] * cx[:, 3])
+    v = hp[iy]                                            # (out_h, 4, out_w)
+    return (v[:, 0] * cy[:, 0, None] + v[:, 1] * cy[:, 1, None]
+            + v[:, 2] * cy[:, 2, None] + v[:, 3] * cy[:, 3, None])
 
 
 def synthetic_video(
@@ -38,9 +76,7 @@ def synthetic_video(
     if realistic:
         # low-frequency tissue texture + folds radiating from the glottis
         lowfreq = rng.normal(0, 1, (size // 16, size // 16))
-        import cv2
-
-        tex = cv2.resize(lowfreq, (size, size), interpolation=cv2.INTER_CUBIC)
+        tex = resize_bicubic(lowfreq, size, size)
         ang = np.arctan2(yy - center[0], xx - center[1])
         folds = 10.0 * np.cos(6.0 * ang)
         base = (base + 18.0 * tex + folds).clip(0, 255)

@@ -21,6 +21,12 @@ state in registers; ``(has, raw)`` in, ``(valid, box)`` out, no host
 round-trip).  Its plain version is the Python loop below over numpy float32
 scalars on the host (IEEE single arithmetic step by step, which eager 0-d
 tensors would only repeat more slowly); CPU tensors take it.
+
+:func:`gate_scan_batch` gates the K videos of a cohort, flattened into one
+(sum T,) stack with their offsets, in ONE launch of ``og_gate_scan_batch``
+(one block per video, the same body; the JAX package runs ``gate_scan``
+under ``jax.vmap`` over padded videos).  Its plain version is a loop of the
+per-video plain version.
 """
 
 from __future__ import annotations
@@ -254,6 +260,87 @@ def gate_scan_carry(state: GateState, has: torch.Tensor, boxes: torch.Tensor,
     buf = _state_buffer(state, has.device)
     out = _gate_scan_cuda(buf, has, boxes, frame_h, frame_w, params)
     return state_from_buffer(buf), out
+
+
+def _state_rows(state: torch.Tensor) -> list[GateState]:
+    """The carries of a (K, 6) int32 state buffer as host GateStates."""
+    rows = state.detach().cpu().numpy()
+    return [GateState(bool(r[0]), r[4:6].view(np.float32)[0],
+                      r[4:6].view(np.float32)[1], int(r[1]), int(r[2]),
+                      int(r[3])) for r in rows]
+
+
+def _state_into(state: torch.Tensor, rows: list[GateState]) -> None:
+    """Write host GateStates into a (K, 6) int32 state buffer."""
+    buf = np.stack([np.asarray(_state_buffer(st, "cpu")) for st in rows])
+    state.copy_(torch.from_numpy(buf.astype(np.int32)))
+
+
+def gate_scan_batch(has: torch.Tensor, boxes: torch.Tensor, offsets,
+                    frame_h: int, frame_w: int,
+                    params: GateParams = GateParams(), state=None,
+                    use_plain: bool = False):
+    """The gate over K videos at once: video i is frames [offsets[i],
+    offsets[i + 1]) of the flat (sum T,) ``has`` and (sum T, 4) raw
+    ``boxes``; each is gated on its own from its own carry, exactly as
+    :func:`gate_scan` (or :func:`gate_scan_carry`) gates it alone.
+
+    offsets: K + 1 host ints, non-decreasing from 0 to sum T (a video of 0
+    frames is allowed).  state: None (every video from :func:`gate_init`),
+    or the carried form: a (K, 6) int32 tensor on ``has``'s device, one
+    :func:`_state_buffer` row per video, read as the carries the videos
+    start from and overwritten with their carries after this segment (pass
+    it to the next call to resume K videos).
+
+    Returns (out_valid (sum T,) bool, out_boxes (sum T, 4) int32).  On a
+    CUDA tensor ONE launch of ``og_gate_scan_batch`` (one block per video);
+    on a CPU tensor, or with ``use_plain``, a loop of the plain version."""
+    _check_inputs(has, boxes)
+    off = scan_cuda.check_offsets(offsets, has.shape[0])
+    k = len(off) - 1
+    if state is not None and (state.shape != (k, 6)
+                              or state.dtype != torch.int32
+                              or state.device != has.device):
+        raise ValueError(f"gate_scan_batch: state must be ({k}, 6) int32 on "
+                         f"{has.device}")
+    if use_plain or not has.is_cuda:
+        starts = _state_rows(state) if state is not None else [gate_init()] * k
+        outs, ends = [], []
+        for i in range(k):
+            a, b = off[i], off[i + 1]
+            st, out = gate_scan_plain(starts[i], has[a:b], boxes[a:b],
+                                      frame_h, frame_w, params)
+            outs.append(out)
+            ends.append(st)
+        if state is not None:
+            _state_into(state, ends)
+        if not outs:
+            return _empty_outputs(has.device)
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+    t = has.shape[0]
+    dev = has.device
+    if state is None:
+        state = torch.zeros((k, 6), dtype=torch.int32, device=dev)
+    if has.dtype not in (torch.bool, torch.uint8):
+        has = has != 0
+    has_c = has.contiguous()
+    raw = boxes.to(torch.float32).contiguous()
+    state_in = state.clone() if scan_cuda.RECORD is not None else None
+    ov = torch.empty((t,), dtype=torch.bool, device=dev)
+    ob = torch.empty((t, 4), dtype=torch.int32, device=dev)
+    so = scan_cuda.lib()
+    with torch.cuda.device(dev):
+        err = so.og_gate_scan_batch(
+            has_c.data_ptr(), raw.data_ptr(), ov.data_ptr(), ob.data_ptr(),
+            state.data_ptr(), scan_cuda.offsets_arg(off), k, float(frame_h),
+            float(frame_w), float(params.max_shift_px), int(params.padding),
+            int(params.max_hold_frames), scan_cuda.stream())
+    _build.check(err, "gate_scan_batch")
+    scan_cuda.launched("gate_scan_batch", (has, boxes), offsets=off,
+                       frame_h=frame_h, frame_w=frame_w, params=params,
+                       state=state_in)
+    return ov, ob
 
 
 def gate_scan(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,

@@ -292,6 +292,52 @@ def _thresh_chain(thresh0, cur, n_px, active, beta: float,
     return out
 
 
+def thresh_chain_batch(thresh0, cur, n_px, active, offsets, beta: float,
+                       use_plain: bool = False):
+    """K threshold chains at once: chain i is steps [offsets[i], offsets[i +
+    1]) of the flat (sum T,) ``cur``, ``n_px`` and ``active``, from the seed
+    ``thresh0[i]`` ((K,) float32), each stepped exactly as
+    :func:`_thresh_chain` steps it alone (the same pinned rounding).
+    ``offsets``: K + 1 host ints, non-decreasing from 0 (a chain of 0 steps
+    is allowed).  On a CUDA tensor ONE launch of ``og_thresh_chain_batch``
+    (one block per chain; one warp each when no chain is longer than 32
+    steps); on a CPU tensor a loop of :func:`thresh_chain_plain`.  Returns
+    (sum T,) float32."""
+    if cur.dim() != 1 or n_px.shape != cur.shape or active.shape != cur.shape:
+        raise ValueError("thresh_chain_batch: cur, n_px, active must be (T,)")
+    off = scan_cuda.check_offsets(offsets, cur.shape[0])
+    k = len(off) - 1
+    th0 = torch.as_tensor(thresh0, dtype=torch.float32, device=cur.device
+                          ).reshape(-1)
+    if th0.shape[0] != k:
+        raise ValueError(f"thresh_chain_batch: {th0.shape[0]} seeds for {k} "
+                         f"chains")
+    if use_plain or not cur.is_cuda:
+        outs = [thresh_chain_plain(th0[i], cur[off[i]:off[i + 1]],
+                                   n_px[off[i]:off[i + 1]],
+                                   active[off[i]:off[i + 1]], beta)
+                for i in range(k)]
+        return (torch.cat(outs) if outs
+                else torch.empty((0,), dtype=torch.float32, device=cur.device))
+    th0 = th0.contiguous()
+    cur_c = cur.to(torch.float32).contiguous()
+    npx_c = n_px.to(torch.float32).contiguous()
+    act_c = (active if active.dtype in (torch.bool, torch.uint8)
+             else active != 0).contiguous()
+    out = torch.empty_like(cur_c)
+    so = scan_cuda.lib()
+    with torch.cuda.device(cur.device):
+        err = so.og_thresh_chain_batch(
+            th0.data_ptr(), cur_c.data_ptr(), npx_c.data_ptr(),
+            act_c.data_ptr(), out.data_ptr(), scan_cuda.offsets_arg(off), k,
+            float(np.float32(beta)), float(np.float32(1.0 - beta)),
+            scan_cuda.stream())
+    _build.check(err, "thresh_chain_batch")
+    scan_cuda.launched("thresh_chain_batch", (th0, cur, n_px, active),
+                       offsets=off, beta=beta)
+    return out
+
+
 def _prev_chain(init_last, frames):
     """prev_t for each step: frames[t-1], seeded with the last init frame."""
     return torch.cat([init_last[None], frames[:-1]], dim=0)
@@ -356,6 +402,87 @@ def ygvft_parallel(init_frames, first_valid, first_box, frames, valids, boxes,
     cols = ox[:, None, None] + ar[None, None, :]
     masks_w, areas = tail(ff_w, roi_for(rows, cols))
     return scatter_windows(masks_w, oy, ox, h, w), areas
+
+
+def _ygvft_thresh0_batch(last_frames, first_valid, first_box,
+                         p: YGVFTParams):
+    """:func:`_ygvft_thresh0` of K videos at once: the percentile of each
+    video's last init frame ((K, H, W) float) inside its first bbox (whole
+    frame if none), as one batched masked percentile
+    (``masked_percentile_u8_batch`` finds the same two order statistics as
+    ``percentile_from_hist`` and mixes them with the same float32 ops)."""
+    k, h, w = last_frames.shape
+    dev = last_frames.device
+    rows = torch.arange(h, device=dev)[None, :, None]
+    cols = torch.arange(w, device=dev)[None, None, :]
+    b = first_box
+    roi = ((rows >= b[:, 1, None, None]) & (rows < b[:, 3, None, None])
+           & (cols >= b[:, 0, None, None]) & (cols < b[:, 2, None, None])
+           & first_valid.bool()[:, None, None])
+    sel = roi | ~roi.flatten(1).any(1)[:, None, None]
+    val, n = masked_percentile_u8_batch(last_frames, sel, p.glottal_percentile)
+    return torch.where(n > 0, val, torch.full_like(val, 127.0))
+
+
+def ygvft_parallel_multi(init_frames, first_valid, first_box, frames, valids,
+                         boxes, offsets, params: YGVFTParams = YGVFTParams(),
+                         use_plain: bool = False):
+    """Frame-parallel guided VFT over a cohort of K videos, areas only (the
+    cohort form; masks are never materialised).  JAX package:
+    ``ygvft_parallel_multi``, over videos padded to one length; here the
+    videos are ragged and no frame is computed for padding.
+
+    init_frames (K, I, H, W); first_valid (K,) bool; first_box (K, 4) int;
+    frames (sum T, H, W), valids (sum T,), boxes (sum T, 4): the videos'
+    tracked frames, video i at [offsets[i], offsets[i + 1]) (``offsets``:
+    K + 1 host ints).  Returns areas (sum T,) float32.
+
+    Each video's areas are :func:`ygvft_parallel`'s on that video, bit for
+    bit: its seed threshold comes from its own init frames, every other
+    stage but the threshold chain is per frame, so all sum T frames go
+    through one masked percentile, one compare and one top-n blob filter
+    (one set of union-find launches instead of K), and the K chains run as
+    ONE batched launch (:func:`thresh_chain_batch`).  The window or
+    full-frame choice is made ONCE for the cohort, by one host read: if any
+    box anywhere exceeds the 128² window, every video takes the full-frame
+    pass.  Both passes are bit-identical, so the shared choice changes only
+    the time."""
+    p = params
+    h, w = frames.shape[1:]
+    dev = frames.device
+    thresh0 = _ygvft_thresh0_batch(init_frames[:, -1].to(torch.float32),
+                                   first_valid, first_box, p)
+    boxes = boxes.to(torch.int32)
+    valids = valids.bool()
+
+    def roi_for(rows, cols):
+        return ((rows >= boxes[:, 1, None, None])
+                & (rows < boxes[:, 3, None, None])
+                & (cols >= boxes[:, 0, None, None])
+                & (cols < boxes[:, 2, None, None])
+                & valids[:, None, None])
+
+    def tail(ffx, roix):
+        cur, n_px = masked_percentile_u8_batch(ffx, roix, p.glottal_percentile)
+        thresh = thresh_chain_batch(thresh0, cur, n_px,
+                                    torch.ones_like(valids), offsets, p.beta,
+                                    use_plain)
+        raw = (ffx < thresh[:, None, None]) & roix
+        masks_x = top_n_blobs_batch(raw, p.max_glottal_components, use_plain)
+        return masks_x.sum((1, 2)).to(torch.float32)
+
+    win = 128
+    fits = None
+    if h >= win and w >= win:
+        fits, oy, ox = roi_window_origin(boxes, h, w, win)
+    if fits is None or not bool(fits):
+        rows = torch.arange(h, device=dev)[None, :, None]
+        cols = torch.arange(w, device=dev)[None, None, :]
+        return tail(frames.to(torch.float32), roi_for(rows, cols))
+    ar = torch.arange(win, device=dev)
+    return tail(gather_windows(frames, oy, ox, win).to(torch.float32),
+                roi_for(oy[:, None, None] + ar[None, :, None],
+                        ox[:, None, None] + ar[None, None, :]))
 
 
 def vft_parallel(init_frames, frames, active=None,

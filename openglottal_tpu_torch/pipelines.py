@@ -22,8 +22,19 @@ letterboxed to 256² (bilinear, rounded to uint8) and its boxes mapped back;
 the U-Net of ``unet`` / ``unet-only`` runs on frames resized to 256² and its
 probabilities are resized back.  Both trackers run frame-parallel by default
 and as a sequential per-frame loop with ``parallel_trackers=False`` (the
-debug form).  Meshes, int8, cohort serving and streaming raise
-``NotImplementedError`` until a later slice ports them.
+debug form).  Meshes and int8 raise ``NotImplementedError`` until a later
+slice ports them; streaming is not ported yet.
+
+Cohort serving (``yolo_unet_areas_gray_multi``,
+``guided_vft_areas_gray_multi``, ``vft_areas_gray_multi``) serves K 256²
+monochrome videos at once, each video's output bit-identical to the
+per-video call on it.  The detector and the U-Net run over each video's own
+``CHUNK``-frame slices, as the per-video call slices them; what reads
+per-video state runs once for the sub-batch: one gate launch
+(``gate_scan_batch``), one set of blob launches and one threshold-chain
+launch (guided-vft), one in-box count per chunk index (``unet``), and one
+host read per sub-batch.  The sub-batch size K comes from the card's free
+memory (:func:`cohort_k`).
 
 Model passes run over ``CHUNK``-frame slices in a Python loop (the last one
 ragged; nothing is padded — PyTorch runs eagerly, so there are no static
@@ -54,6 +65,7 @@ from openglottal_tpu_torch.models.gate import (
     GateCarry,
     GateParams,
     gate_scan,
+    gate_scan_batch,
     gate_single,
 )
 from openglottal_tpu_torch.models.tracker import (
@@ -62,11 +74,12 @@ from openglottal_tpu_torch.models.tracker import (
     vft_parallel,
     vft_scan,
     ygvft_parallel,
+    ygvft_parallel_multi,
     ygvft_scan,
 )
 from openglottal_tpu_torch.models.unet import UNet, chunk_window_origin
 from openglottal_tpu_torch.models.yolo import YOLOv8, max_conf_detect
-from openglottal_tpu_torch.ops.areas_cuda import box_count
+from openglottal_tpu_torch.ops.areas_cuda import CountChunk, box_count_table
 from openglottal_tpu_torch.ops.resize import (
     crop_resize_bilinear,
     dyn_letterbox_geometry,
@@ -89,6 +102,106 @@ CHUNK = 128      # frame-chunk size for batched model passes
 SIZE = 256       # the networks' frame size
 WIN = 160        # the windowed decoder's window side (frame pixels)
 PIPELINES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
+
+
+# ── the cohort size K ───────────────────────────────────────────────────
+#
+# Device bytes one video of t 256² frames holds in a cohort sub-batch, on
+# top of what a sub-batch holds whatever its K (one chunk's activations).
+# ``e`` is the networks' element size (2 bfloat16, 4 float32).
+#
+#   unet:        t * 65,536 (its uploaded frames, kept for the redo)
+#                + 128 * 256² * e (one chunk's logits, held until the chunk
+#                index's in-box count: the full-frame route's, the larger)
+#   guided-vft:  t * 65,536 * 2 (uploaded frames, the tracked frames' copy)
+#                + t * 256² * TAIL_BYTES_PER_PX (the tracker tail over all of
+#                the sub-batch's frames; counted at the full-frame pass,
+#                which a run may take, not the 128² window)
+#   vft:         t * 65,536 (uploaded frames; the trackers run one video at
+#                a time, so their temporaries are not held K times)
+#
+# TAIL_BYTES_PER_PX counts the tensors alive together at the blob filter's
+# peak (``ops/blobs.top_n_blobs_batch``): float frames 4, ROI 1, raw mask 1,
+# code 1, dual labels 4 + the two split labels 8, the two parent seeds 8,
+# the parents 4 + the two split parents 8, the two padded label planes
+# 8 (+ 2 % of border), hole seed and result 8, owner 4, the sort's values
+# 4 and int64 indices 8, run bounds 1, next-run 4 + cummin's values and
+# indices 12, sizes 8, keep 1: ~100 B, rounded up to 112 for the
+# allocator's blocks.  The fixed part (the detector's chunk, one U-Net
+# chunk's activations: skip1 128*256²*32*e, skip2 half of it, d3out a
+# quarter, and 1.5 times as much again while the deeper levels run) is
+# taken off the free memory first.  (Against torch.cuda.max_memory_allocated
+# on an H100, ``chip_smoke.py``'s cohort line: counting the activations
+# only once more gave 4-11 % too little for ``unet``.)
+TAIL_BYTES_PER_PX = 112
+COHORT_MEM_SHARE = 0.8     # of the free memory a sub-batch may take
+# The cohort tail's largest flat tensors are (sum T, 258, 258) int32 (the
+# blob filter's padded label planes at the full-frame pass): the port's own
+# kernels index them with 64-bit bases, but every tensor is kept under 2**31
+# elements so that no 32-bit element index anywhere can overflow.
+INT32_ELEMS = 2 ** 31 - 1
+
+
+def cohort_video_bytes(pipeline: str, t: int, elem_bytes: int) -> int:
+    """Device bytes one t-frame 256² video holds in a cohort sub-batch (the
+    arithmetic above)."""
+    frame = SIZE * SIZE
+    if pipeline == "unet":
+        return t * frame + CHUNK * frame * elem_bytes
+    if pipeline == "guided-vft":
+        return t * frame * 2 + t * frame * TAIL_BYTES_PER_PX
+    if pipeline == "vft":
+        return t * frame
+    raise ValueError(f"no cohort form for pipeline {pipeline!r}")
+
+
+def cohort_fixed_bytes(pipeline: str, max_t: int, elem_bytes: int) -> int:
+    """Device bytes a sub-batch holds whatever its K: one U-Net chunk's
+    encoder outputs 2.5 times over (``unet``), one detector chunk (a fifth
+    of them), and for ``vft`` one video's tracker pass at the largest
+    crop."""
+    chunk_acts = CHUNK * SIZE * SIZE * 32 * elem_bytes * (1 + 0.5 + 0.25)
+    fixed = 0.2 * chunk_acts
+    if pipeline == "unet":
+        fixed += 2.5 * chunk_acts
+    if pipeline == "vft":
+        fixed += max_t * SIZE * SIZE * TAIL_BYTES_PER_PX
+    return int(fixed)
+
+
+def cohort_k(pipeline: str, ts, free_bytes: int, elem_bytes: int = 2,
+             max_k: int | None = None) -> int:
+    """The sub-batch size K of a cohort of videos with lengths ``ts`` on a
+    device with ``free_bytes`` free: as many videos of the longest length
+    as fit COHORT_MEM_SHARE of the free memory after the fixed part
+    (:func:`cohort_video_bytes`, :func:`cohort_fixed_bytes`), at most so
+    many that guided-vft's tail keeps its (sum T, 258, 258) planes under
+    2**31 elements, at least 1 and at most the cohort; ``max_k`` caps it."""
+    ts = [int(t) for t in ts]
+    if not ts:
+        return 1
+    max_t = max(max(ts), 1)
+    budget = free_bytes * COHORT_MEM_SHARE - cohort_fixed_bytes(
+        pipeline, max_t, elem_bytes)
+    k = int(budget // cohort_video_bytes(pipeline, max_t, elem_bytes))
+    if pipeline == "guided-vft":
+        k = min(k, INT32_ELEMS // (max_t * (SIZE + 2) ** 2))
+    if max_k is not None:
+        k = min(k, int(max_k))
+    return max(1, min(k, len(ts)))
+
+
+def free_device_bytes(device: torch.device) -> int:
+    """Free memory of the device: the card's (``torch.cuda.mem_get_info``,
+    plus what PyTorch's caching allocator holds unused, which it hands out
+    again), or the host's available memory for the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0]
+                   + torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+    import os
+
+    return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -412,38 +525,66 @@ class GlottalPipelines:
 
     # ── pipeline 1: VFT ─────────────────────────────────────────────────
 
-    def _vft_compute(self, gray, valid, boxes, t, want_masks: bool = False):
-        """Shared VFT core: gather size-locked crops of the valid-box frames
-        and run ONE tracker pass over them (frame-parallel, or the sequential
-        scan with ``parallel_trackers=False``).  The crop size is locked from
-        the first gated box — a shape, so the gate outputs are read back to
-        the host here (one device-to-host copy).  The tracker consumes only
-        the valid-box frames, in order; the first VFT_INIT of them seed it.
-
-        Returns (areas (t,) np.float32, crop_masks (n_valid, h0, w0) | None,
-        idx valid-frame indices, (h0, w0))."""
-        vb = torch.cat([valid[:, None].to(torch.int32),
-                        boxes.to(torch.int32)], 1).cpu().numpy()
+    @staticmethod
+    def _vft_plan(vb):
+        """Host part of the VFT core, from the gate's outputs read back as
+        ``vb`` ((t, 5) int: valid, box): (valid-frame indices, (h0, w0)),
+        or (indices, None) when fewer than VFT_INIT + 1 frames have a box or
+        the first box is empty.  The crop size is locked from the first
+        gated box (a shape, so it must be read back)."""
         idx = np.nonzero(vb[:, 0])[0]
-        areas = np.zeros(t, np.float32)
         if len(idx) < VFT_INIT + 1:
-            return areas, None, idx, (0, 0)
+            return idx, None
         b0 = vb[idx[0], 1:]
         w0, h0 = int(b0[2] - b0[0]), int(b0[3] - b0[1])
         if w0 <= 0 or h0 <= 0:
-            return areas, None, idx, (0, 0)
-        n = len(idx)
+            return idx, None
+        return idx, (h0, w0)
+
+    def _vft_track(self, gray, valid, boxes, n: int, h0: int, w0: int):
+        """Device part of the VFT core: size-locked crops of the ``n``
+        valid-box frames and ONE tracker pass over them (frame-parallel, or
+        the sequential scan with ``parallel_trackers=False``); the first
+        VFT_INIT of them seed it.  -> (crop masks, areas (n,)) on the
+        device."""
         # the valid frames' indices, in order, made on the device
         sel = torch.argsort((~valid).to(torch.uint8), stable=True)[:n]
         crops = _gather_crops(gray[sel], boxes[sel], h0, w0)
         active = torch.arange(n, device=gray.device) >= VFT_INIT
-        cmasks, areas_v = self._tracker(vft_parallel, vft_scan)(
+        return self._tracker(vft_parallel, vft_scan)(
             crops[:VFT_INIT], crops, active, params=self.vft_params,
             use_plain=self.use_plain_kernels)
-        areas[idx] = areas_v.cpu().numpy()
-        areas[idx[:VFT_INIT]] = 0.0       # init frames contribute 0
-        return (areas, cmasks.cpu().numpy() if want_masks else None, idx,
-                (h0, w0))
+
+    @staticmethod
+    def _gate_host(valid, boxes):
+        """(valid, box) of every frame as one (t, 5) int32 device tensor,
+        for one host read."""
+        return torch.cat([valid[:, None].to(torch.int32),
+                          boxes.to(torch.int32)], 1)
+
+    @staticmethod
+    def _vft_fill(t: int, idx, areas_v):
+        """The (t,) waveform of a VFT pass: the tracked frames' areas at
+        their indices, 0 at the init frames and the frames without a box."""
+        areas = np.zeros(t, np.float32)
+        if areas_v is not None:
+            areas[idx] = areas_v
+            areas[idx[:VFT_INIT]] = 0.0       # init frames contribute 0
+        return areas
+
+    def _vft_compute(self, gray, valid, boxes, t, want_masks: bool = False):
+        """Shared VFT core: the gate outputs read back to the host (one
+        device-to-host copy), the crop size locked (:meth:`_vft_plan`),
+        ONE tracker pass over the valid-box frames (:meth:`_vft_track`).
+
+        Returns (areas (t,) np.float32, crop_masks (n_valid, h0, w0) | None,
+        idx valid-frame indices, (h0, w0))."""
+        idx, hw0 = self._vft_plan(self._gate_host(valid, boxes).cpu().numpy())
+        if hw0 is None:
+            return self._vft_fill(t, idx, None), None, idx, (0, 0)
+        cmasks, areas_v = self._vft_track(gray, valid, boxes, len(idx), *hw0)
+        return (self._vft_fill(t, idx, areas_v.cpu().numpy()),
+                cmasks.cpu().numpy() if want_masks else None, idx, hw0)
 
     @torch.no_grad()
     def vft_areas(self, frames_u8):
@@ -571,72 +712,99 @@ class GlottalPipelines:
     def _window_areas(self, enc, valid, boxes):
         """The windowed decoder on one chunk (JAX package:
         ``_unet_windowed_areas_chunk_fn``, ``tail="window"``, after
-        ``unet_apply_to_d3``): one (WIN, WIN) window covering
-        the union of the chunk's valid boxes (origin on the device, never
-        read by the host), the last two decoder levels on it, and the
-        in-box count of ``logits > 0`` -> (areas (N,), fits 0-d bool).
-        Where the boxes do not fit, the origin is still in the frame and the
-        areas are computed, but only ``fits`` is to be trusted."""
+        ``unet_apply_to_d3``): one (WIN, WIN) window covering the union of
+        the chunk's valid boxes (origin on the device, never read by the
+        host) and the last two decoder levels on it -> (logits (N, WIN,
+        WIN), fits 0-d bool, oy, ox), for the in-box count of ``logits >
+        0``.  Where the boxes do not fit, the origin is still in the frame
+        and the logits are computed, but only ``fits`` is to be trusted."""
         d3out, skip2, skip1 = enc
         h, w = skip1.shape[2:]
         fits, oy, ox = chunk_window_origin(boxes, valid, h, w, WIN,
                                            lattice=4, margin=6)
         ymw = self.unet.mid_window(d3out, skip2, oy, ox, WIN)
         logits = self.unet.tail_from_ymw(ymw, skip1, oy, ox, WIN)[:, 0]
-        return box_count(logits, 0.0, valid, boxes, oy, ox,
-                         use_plain=self.use_plain_kernels), fits
+        return logits, fits, oy, ox
 
     @torch.no_grad()
-    def _unet_gated(self, frames_dev, gray, window: bool,
-                    want_masks: bool = False):
-        """Pipeline 3 in one loop over CHUNK-frame slices: the U-Net, the
-        detector and the temporal gate (its carry passed from chunk to
-        chunk), then the in-box count (``ops/areas_cuda.box_count``).  JAX
-        package: ``_fused_yolo_unet_video_w`` (``tail="window"`` or
-        ``"full"``), which runs the detector over every chunk first; here
-        each chunk's detector runs beside its U-Net.
+    def _unet_gated_multi(self, videos, window: bool,
+                          want_masks: bool = False):
+        """Pipeline 3 over K videos (``videos``: (frames_dev | None, gray)
+        pairs, as :meth:`_prepare` gives them) in one loop over chunk
+        indices: for chunk j, each video's U-Net, detector and temporal gate
+        (its own carry, passed from chunk to chunk), then ONE in-box count
+        of chunk j of every video (``ops/areas_cuda.box_count_table``).
+        JAX package: ``_fused_yolo_unet_video_w`` / ``_fused_yolo_unet_multi
+        _w`` (``tail="window"`` or ``"full"``), which run the detector over
+        every chunk first; here each chunk's detector runs beside its U-Net.
+        Each video's chunks are its own CHUNK-frame slices, as one video
+        alone is sliced, so each video's values are its per-video call's.
 
         Full-frame route (``window=False``): the whole U-Net, then the
         detector, so that the host queues the detector while the card runs
         the U-Net; the count reads the logits (or the resized probabilities
         of other frame sizes).  Windowed route: the encoder and the deeper
         decoder levels first (they read no box), then the detector and the
-        gate, then :meth:`_window_areas`.
+        gate, then :meth:`_window_areas`.  A chunk's logits are held until
+        the count of its chunk index (6.5 MB per bf16 windowed chunk), its
+        encoder outputs are not.  The videos of one call share the count's
+        (H, W) and threshold: several videos take one route at one frame
+        size.
 
-        Returns (areas (T,) float32, ok 0-d bool or None, valid (T,), boxes
-        (T, 4) int32, masks (T, H, W) bool or None), on the device; ``ok``
-        (windowed route) is False when a chunk's boxes did not fit its
-        window, and the areas are then to be redone on the full-frame
-        route.  ``want_masks``: the full-frame route's masks too."""
-        t, h, w = gray.shape
-        src = frames_dev if frames_dev is not None else gray
-        det_in = self._detector_input(src)
-        gate = GateCarry(h, w, self.gate_params,
-                         use_plain=self.use_plain_kernels)
-        areas, fits, valids, boxes, masks = [], [], [], [], []
+        Returns, per video, (areas (T,) float32, ok 0-d bool or None, valid
+        (T,), boxes (T, 4) int32, masks (T, H, W) bool or None), on the
+        device; ``ok`` (windowed route) is False when a chunk's boxes did
+        not fit its window, and the areas are then to be redone on the
+        full-frame route.  ``want_masks``: the full-frame route's masks
+        too."""
+        st = []
+        for frames_dev, gray in videos:
+            t, h, w = gray.shape
+            st.append({
+                "gray": gray, "hw": (h, w),
+                "det_in": self._detector_input(
+                    frames_dev if frames_dev is not None else gray),
+                "gate": GateCarry(h, w, self.gate_params,
+                                  use_plain=self.use_plain_kernels),
+                "areas": torch.empty((t,), dtype=torch.float32,
+                                     device=gray.device),
+                "fits": [], "valid": [], "boxes": [], "masks": []})
         with full_float32(self.dtype):
-            for i in range(0, t, CHUNK):
-                g = gray[i:i + CHUNK]
-                if window:
-                    enc = self.unet.apply_to_d3(self._unet_input(g))
-                else:
-                    scores, thr = self._scores_chunk(g)
-                has, raw = self._detect_chunk(det_in[i:i + CHUNK])
-                v, b = gate(has, self._frame_boxes(raw, h, w))
-                if window:
-                    a, f = self._window_areas(enc, v, b)
-                    fits.append(f)
-                else:
-                    a = box_count(scores, thr, v, b,
-                                  use_plain=self.use_plain_kernels)
-                    if want_masks:
-                        masks.append(scores > thr)
-                areas.append(a)
-                valids.append(v)
-                boxes.append(b)
-        return (torch.cat(areas), torch.stack(fits).all() if window else None,
-                torch.cat(valids), torch.cat(boxes),
-                torch.cat(masks) if want_masks else None)
+            for i in range(0, max(v["gray"].shape[0] for v in st), CHUNK):
+                table, thr = [], 0.0
+                for v in st:
+                    g = v["gray"][i:i + CHUNK]
+                    if g.shape[0] == 0:
+                        continue
+                    if window:
+                        enc = self.unet.apply_to_d3(self._unet_input(g))
+                    else:
+                        scores, thr = self._scores_chunk(g)
+                    has, raw = self._detect_chunk(v["det_in"][i:i + CHUNK])
+                    vv, bb = v["gate"](has, self._frame_boxes(raw, *v["hw"]))
+                    out = v["areas"][i:i + CHUNK]
+                    if window:
+                        logits, fits, oy, ox = self._window_areas(enc, vv, bb)
+                        del enc
+                        v["fits"].append(fits)
+                        table.append(CountChunk(logits, vv, bb, oy, ox, out))
+                    else:
+                        table.append(CountChunk(scores, vv, bb, out=out))
+                        if want_masks:
+                            v["masks"].append(scores > thr)
+                    v["valid"].append(vv)
+                    v["boxes"].append(bb)
+                box_count_table(table, thr, use_plain=self.use_plain_kernels)
+        return [(v["areas"],
+                 torch.stack(v["fits"]).all() if window else None,
+                 torch.cat(v["valid"]), torch.cat(v["boxes"]),
+                 torch.cat(v["masks"]) if want_masks else None) for v in st]
+
+    def _unet_gated(self, frames_dev, gray, window: bool,
+                    want_masks: bool = False):
+        """:meth:`_unet_gated_multi` of one video."""
+        return self._unet_gated_multi([(frames_dev, gray)], window,
+                                      want_masks)[0]
 
     def yolo_unet_areas_deferred(self, frames_u8):
         """Pipeline 3 queued without any host read -> an opaque handle for
@@ -678,6 +846,209 @@ class GlottalPipelines:
     def yolo_unet_areas_gray(self, gray_u8):
         """:meth:`yolo_unet_areas` of (T, H, W) monochrome video."""
         return self.yolo_unet_areas(gray_u8)
+
+    # ── cohort serving ──────────────────────────────────────────────────
+
+    def _cohort_videos(self, grays) -> bool:
+        """Whether a cohort takes the cohort form: every video (T, 256, 256)
+        gray, or (T, 256, 256, 3) with equal channels (which crosses as
+        one channel).  Other input is served by per-video calls, as the JAX
+        package serves it (per-video letterboxes through 256²)."""
+        for g in grays:
+            shape = tuple(g.shape)
+            if shape[1:3] != (SIZE, SIZE):
+                return False
+            if len(shape) == 4 and (isinstance(g, torch.Tensor)
+                                    or not is_monochrome(np.asarray(g))):
+                return False
+            if len(shape) not in (3, 4):
+                return False
+        return True
+
+    def sub_batch_k(self, pipeline: str, ts, max_k: int | None = None) -> int:
+        """The cohort's sub-batch size on this instance's device
+        (:func:`cohort_k` with the device's free memory)."""
+        elem = 2 if self.dtype == torch.bfloat16 else 4
+        return cohort_k(pipeline, ts, free_device_bytes(self.device), elem,
+                        max_k)
+
+    def _yolo_unet_multi_dispatch(self, grays):
+        """Queue pipeline 3 for a sub-batch of videos without any host read
+        -> (per-video (areas, ok) on the device, the prepared videos)."""
+        vids = [self._prepare(g) for g in grays]
+        window = self.window_decoder
+        res = self._unet_gated_multi(vids, window)
+        return [(r[0], r[1]) for r in res], vids
+
+    @torch.no_grad()
+    def yolo_unet_areas_gray_multi(self, grays, fetch: bool = True,
+                                   max_k: int | None = None):
+        """Pipeline 3 for a cohort of monochrome 256² videos -> a list of
+        (T_i,) waveforms, each bit-identical to :meth:`yolo_unet_areas` on
+        that video (np.float32 on the host; ``fetch=False``: float32 tensors
+        on the device, with the same values).
+
+        The cohort is cut into sub-batches of K videos (``max_k``, else
+        :meth:`sub_batch_k`).  In a sub-batch, chunk j of every video runs
+        as it runs alone (its own U-Net, detector and gate carry on its own
+        CHUNK-frame slice), and the in-box counts of chunk j of all K videos
+        are ONE launch.  Every sub-batch is queued before the first host
+        read; each is then read ONCE, areas and the per-video windowed ``ok``
+        flags together (``fetch=False``: the flags alone; the full-frame
+        route and ``fetch=False``: no read).  A video whose boxes did not fit
+        its windows is redone on the full-frame route in the read loop.
+        ``[]`` -> ``[]``; other input than 256² monochrome video goes
+        through per-video calls."""
+        if not grays:
+            return []
+        self._require("yolo", "unet")
+        if not self._cohort_videos(grays):
+            outs = [self.yolo_unet_areas(g) for g in grays]
+            return [o.cpu().numpy() for o in outs] if fetch else outs
+        k = self.sub_batch_k("unet", [len(g) for g in grays], max_k)
+        pending = [self._yolo_unet_multi_dispatch(grays[j:j + k])
+                   for j in range(0, len(grays), k)]
+        out = []
+        for res, vids in pending:
+            areas = [a for a, _ in res]
+            oks = [ok for _, ok in res]
+            window = oks[0] is not None
+            ok_np = None
+            if fetch:
+                flat = torch.cat(areas + ([torch.stack(oks).to(torch.float32)]
+                                          if window else []))
+                host = flat.cpu().numpy()     # ONE read for the sub-batch
+                cuts = np.cumsum([0] + [a.shape[0] for a in areas])
+                areas = [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+                if window:
+                    ok_np = host[cuts[-1]:] != 0
+            elif window:
+                ok_np = torch.stack(oks).cpu().numpy()
+            for i, a in enumerate(areas):
+                if ok_np is not None and not ok_np[i]:
+                    a = self._unet_gated(*vids[i], False)[0]
+                    if fetch:
+                        a = a.cpu().numpy()
+                out.append(a)
+        return out
+
+    def _detect_gate_multi(self, grays):
+        """Detector + gate of K prepared 256² gray videos: each video's
+        detector over its own CHUNK-frame slices (the per-video call's
+        shapes), then ONE batched gate launch for all of them
+        (:func:`gate_scan_batch`) -> (valid (sum T,), boxes (sum T, 4)
+        int32, offsets: K + 1 host ints)."""
+        has, raw = [], []
+        with full_float32(self.dtype):
+            for g in grays:
+                for i in range(0, g.shape[0], CHUNK):
+                    hh, rr = self._detect_chunk(g[i:i + CHUNK])
+                    has.append(hh)
+                    raw.append(rr)
+        offsets = np.concatenate([[0], np.cumsum([g.shape[0] for g in grays])]
+                                 ).tolist()
+        valid, boxes = gate_scan_batch(
+            torch.cat(has), torch.cat(raw), offsets, SIZE, SIZE,
+            self.gate_params, use_plain=self.use_plain_kernels)
+        return valid, boxes, offsets
+
+    @torch.no_grad()
+    def guided_vft_areas_gray_multi(self, grays, max_k: int | None = None):
+        """Guided-VFT waveforms for a cohort of monochrome 256² videos ->
+        a list of (T_i,) np.float32 waveforms, each bit-identical to
+        :meth:`guided_vft_areas` on that video; a video shorter than
+        YGVFT_INIT + 2 frames gives None.  Per sub-batch (K videos,
+        ``max_k`` or :meth:`sub_batch_k`): the detector per video, ONE
+        batched gate, then :func:`ygvft_parallel_multi` over all the
+        sub-batch's tracked frames (one set of union-find launches, one
+        threshold-chain launch, one host read for the window choice); every
+        sub-batch is queued before the waveforms are read, one read per
+        sub-batch.  Other input than 256² monochrome video, and
+        ``parallel_trackers=False``, go through per-video calls."""
+        if not grays:
+            return []
+        self._require("yolo")
+        if not self.parallel_trackers or not self._cohort_videos(grays):
+            return [self.guided_vft_areas(g) for g in grays]
+        ts = [len(g) for g in grays]
+        run = [i for i, t in enumerate(ts) if t >= YGVFT_INIT + 2]
+        out = [None] * len(grays)
+        k = self.sub_batch_k("guided-vft", [ts[i] for i in run], max_k)
+        pending = []
+        for j in range(0, len(run), k):
+            sub = run[j:j + k]
+            gr = [self._to_gray(grays[i]) for i in sub]
+            valid, boxes, off = self._detect_gate_multi(gr)
+            starts = off[:-1]
+            # each video's init frames, and its tracked frames flattened
+            vin = torch.stack([valid[a:a + YGVFT_INIT] for a in starts])
+            fi = torch.argmax(vin.to(torch.uint8), 1)
+            first_box = torch.stack([boxes[a:a + YGVFT_INIT] for a in starts]
+                                    ).gather(1, fi[:, None, None].expand(
+                                        -1, 1, 4))[:, 0]
+            tracked = [(a + YGVFT_INIT, b) for a, b in zip(off[:-1], off[1:])]
+            areas = ygvft_parallel_multi(
+                torch.stack([g[:YGVFT_INIT] for g in gr]), vin.any(1),
+                first_box, torch.cat([g[YGVFT_INIT:] for g in gr]),
+                torch.cat([valid[a:b] for a, b in tracked]),
+                torch.cat([boxes[a:b] for a, b in tracked]),
+                np.concatenate([[0], np.cumsum([b - a for a, b in tracked])]
+                               ).tolist(),
+                params=self.ygvft_params, use_plain=self.use_plain_kernels)
+            pending.append((sub, areas))
+        for sub, areas in pending:
+            host = areas.cpu().numpy()        # ONE read for the sub-batch
+            pos = 0
+            for i in sub:
+                n = ts[i] - YGVFT_INIT
+                a = np.zeros(ts[i], np.float32)
+                a[YGVFT_INIT:] = host[pos:pos + n]
+                pos += n
+                out[i] = a
+        return out
+
+    @torch.no_grad()
+    def vft_areas_gray_multi(self, grays, max_k: int | None = None):
+        """VFT waveforms for a cohort of monochrome 256² videos -> a list of
+        (T_i,) np.float32 waveforms, each bit-identical to :meth:`vft_areas`
+        on that video; a video shorter than VFT_INIT + 5 frames gives None.
+        Per sub-batch (K videos, ``max_k`` or :meth:`sub_batch_k`): the
+        detector per video, ONE batched gate, ONE host read of the
+        sub-batch's (valid, boxes) to lock each video's crop size (a host
+        shape), then the K per-video tracker passes queued and their areas
+        read once.  Other input than 256² monochrome video goes through
+        per-video calls."""
+        if not grays:
+            return []
+        self._require("yolo")
+        if not self._cohort_videos(grays):
+            return [self.vft_areas(g) for g in grays]
+        ts = [len(g) for g in grays]
+        run = [i for i, t in enumerate(ts) if t >= VFT_INIT + 5]
+        out = [None] * len(grays)
+        k = self.sub_batch_k("vft", [ts[i] for i in run], max_k)
+        for j in range(0, len(run), k):
+            sub = run[j:j + k]
+            gr = [self._to_gray(grays[i]) for i in sub]
+            valid, boxes, off = self._detect_gate_multi(gr)
+            vb = self._gate_host(valid, boxes).cpu().numpy()   # ONE read
+            plans, tracked = [], []
+            for g, a, b in zip(gr, off[:-1], off[1:]):
+                idx, hw0 = self._vft_plan(vb[a:b])
+                plans.append((idx, hw0))
+                if hw0 is not None:
+                    tracked.append(self._vft_track(
+                        g, valid[a:b], boxes[a:b], len(idx), *hw0)[1])
+            host = (torch.cat(tracked).cpu().numpy() if tracked
+                    else np.zeros(0, np.float32))    # ONE read
+            pos = 0
+            for i, (idx, hw0) in zip(sub, plans):
+                a_v = None
+                if hw0 is not None:
+                    a_v = host[pos:pos + len(idx)]
+                    pos += len(idx)
+                out[i] = self._vft_fill(ts[i], idx, a_v)
+        return out
 
     # ── pipeline 4: crop U-Net ──────────────────────────────────────────
 

@@ -2,6 +2,7 @@
 
     python3 -m openglottal_tpu_torch.tools.stage_times [--frames 502] [--out DIR]
         [--pipelines guided-vft,unet,unet-full,vft] [--dtypes bf16,f32]
+        [--cohort K]
 
 Serves synthetic 256x256 videos through ``guided-vft``, ``unet`` (its
 windowed decoder, the default on this input), ``unet-full`` (``unet`` with
@@ -19,6 +20,16 @@ and prints one JSON line per pipeline/dtype:
     inside the two window stages);
   * ``profile``: ``torch.profiler`` over one video — device busy share of the
     wall time and the kernels with the most device time.
+
+``--cohort K`` adds one line per dtype for ``guided-vft``'s cohort form
+(``guided_vft_areas_gray_multi`` on K distinct videos, one sub-batch), by
+the same rules, its stages as the cohort runs them: ``upload`` (K videos),
+``detector`` (every video's chunks), ``gate_scan_batch`` (one launch),
+``tracker_init`` (K seed thresholds at once), ``tracked_frames`` (the
+tracked frames, valid flags and boxes flattened), ``window_fit_read`` (the
+one host read of the window choice), ``window_gather``, ``percentile``,
+``thresh_chain_batch``, ``threshold_compare``, ``blob_filter_total`` (and
+its kernels apart), ``area_sum_and_read``; each also per video.
 
 Fails without a CUDA device.  With ``--out`` the lines are also written to
 ``DIR/stage_times.jsonl``.
@@ -42,6 +53,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--pipelines", default="guided-vft,unet,unet-full,vft")
     ap.add_argument("--dtypes", default="bf16,f32")
+    ap.add_argument("--cohort", type=int, default=0,
+                    help="K: also time guided-vft's cohort form on K videos")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stage_times: no CUDA device available", file=sys.stderr)
@@ -50,7 +63,11 @@ def main() -> int:
     from openglottal_tpu_torch import pipelines as P
     from openglottal_tpu_torch.data.synthetic import synthetic_video
     from openglottal_tpu_torch.models import tracker
-    from openglottal_tpu_torch.models.gate import GateCarry, gate_scan
+    from openglottal_tpu_torch.models.gate import (
+        GateCarry,
+        gate_scan,
+        gate_scan_batch,
+    )
     from openglottal_tpu_torch.models.unet import _cut, chunk_window_origin
     from openglottal_tpu_torch.ops import _build, blobs, histogram
     from openglottal_tpu_torch.ops.areas_cuda import box_count
@@ -114,6 +131,75 @@ def main() -> int:
         raw_m = timed(st, "threshold_compare", lambda:
                       (ffw < th[:, None, None]) & roi)
         # the blob filter, kernels and the tensor ops around them apart
+        from openglottal_tpu_torch.ops import blobs_cuda
+        rec = []
+        blobs_cuda.RECORD = rec
+        masks = timed(st, "blob_filter_total", lambda:
+                      blobs.top_n_blobs_batch(raw_m, p.max_glottal_components))
+        blobs_cuda.RECORD = None
+        for name, inputs, kw in rec:
+            fn = getattr(blobs_cuda, name)
+            timed(st, f"kernel_{name}", lambda: fn(*inputs, **kw))
+        timed(st, "area_sum_and_read", lambda:
+              masks.sum((1, 2)).to(torch.float32).cpu())
+        return st
+
+    def cohort_stages(gp, vids):
+        """guided_vft_areas_gray_multi's stages on one sub-batch."""
+        st = {}
+        n0 = P.YGVFT_INIT
+        p = gp.ygvft_params
+        grays = timed(st, "upload", lambda: [gp._to_gray(v) for v in vids])
+        dets = []
+        with torch.no_grad(), P.full_float32(gp.dtype):
+            for g in grays:
+                dets += [timed(st, "detector", lambda g=g[i:i + P.CHUNK]:
+                               gp._detect_chunk(g))
+                         for i in range(0, g.shape[0], P.CHUNK)]
+        has, raw = (torch.cat(c) for c in zip(*dets))
+        off = [0, *np.cumsum([g.shape[0] for g in grays]).tolist()]
+        valid, boxes = timed(st, "gate_scan_batch", lambda: gate_scan_batch(
+            has, raw, off, 256, 256, gp.gate_params))
+
+        def init():
+            vin = torch.stack([valid[a:a + n0] for a in off[:-1]])
+            fi = torch.argmax(vin.to(torch.uint8), 1)
+            fb = torch.stack([boxes[a:a + n0] for a in off[:-1]]).gather(
+                1, fi[:, None, None].expand(-1, 1, 4))[:, 0]
+            last = torch.stack([g[n0 - 1] for g in grays]).to(torch.float32)
+            return tracker._ygvft_thresh0_batch(last, vin.any(1), fb, p)
+        th0 = timed(st, "tracker_init", init)
+        spans = [(a + n0, b) for a, b in zip(off[:-1], off[1:])]
+        frames, v, b = timed(st, "tracked_frames", lambda: (
+            torch.cat([g[n0:] for g in grays]),
+            torch.cat([valid[a:c] for a, c in spans]),
+            torch.cat([boxes[a:c] for a, c in spans]).to(torch.int32)))
+        toff = [0, *np.cumsum([c - a for a, c in spans]).tolist()]
+
+        def fit():
+            f, oy, ox = blobs.roi_window_origin(b, 256, 256, 128)
+            if not bool(f):
+                raise RuntimeError("a gate box exceeds the 128x128 window")
+            return oy, ox
+        oy, ox = timed(st, "window_fit_read", fit)
+
+        def windows():
+            ffw = blobs.gather_windows(frames, oy, ox, 128).to(torch.float32)
+            ar = torch.arange(128, device=ffw.device)
+            rows = oy[:, None, None] + ar[None, :, None]
+            cols = ox[:, None, None] + ar[None, None, :]
+            roi = ((rows >= b[:, 1, None, None]) & (rows < b[:, 3, None, None])
+                   & (cols >= b[:, 0, None, None]) & (cols < b[:, 2, None, None])
+                   & v[:, None, None])
+            return ffw, roi
+        ffw, roi = timed(st, "window_gather", windows)
+        cur, n_px = timed(st, "percentile", lambda:
+                          histogram.masked_percentile_u8_batch(
+                              ffw, roi, p.glottal_percentile))
+        th = timed(st, "thresh_chain_batch", lambda: tracker.thresh_chain_batch(
+            th0, cur, n_px, torch.ones_like(v), toff, p.beta))
+        raw_m = timed(st, "threshold_compare", lambda:
+                      (ffw < th[:, None, None]) & roi)
         from openglottal_tpu_torch.ops import blobs_cuda
         rec = []
         blobs_cuda.RECORD = rec
@@ -284,6 +370,46 @@ def main() -> int:
                     "n_device_kernels": int(sum(e.count for e in evs)),
                     "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
                                        for e in top}},
+            }
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+        if args.cohort:
+            # K distinct videos: the three served ones, moved by a few pixels
+            k = args.cohort
+            vids = [np.ascontiguousarray(np.roll(videos[i % 3], 3 * (i // 3),
+                                                 axis=2)) for i in range(k)]
+            gp = pipes["windowed"]
+            gp.guided_vft_areas_gray_multi(vids, max_k=k)      # warm-up
+            wall = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gp.guided_vft_areas_gray_multi(vids, max_k=k)
+                wall.append((time.perf_counter() - t0) * 1e3 / k)
+            cohort_stages(gp, vids)
+            stages = cohort_stages(gp, vids)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                gp.guided_vft_areas_gray_multi(vids, max_k=k)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+            evs = [e for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.device_time_total for e in evs) / 1e3
+            line = {
+                "pipeline": "guided-vft cohort", "k": k, "dtype": tag,
+                "frames": args.frames, "device": torch.cuda.get_device_name(0),
+                "wall_ms_per_video": wall, "stages_ms": stages,
+                "stages_ms_per_video": {n: v / k for n, v in stages.items()},
+                "profile": {
+                    "wall_ms_under_profiler": prof_wall,
+                    "device_kernel_ms": dev_ms,
+                    "device_busy_share": dev_ms / prof_wall if evs else None,
+                    "n_device_kernels_per_video":
+                        int(sum(e.count for e in evs)) / k},
             }
             print(json.dumps(line), flush=True)
             lines.append(line)
