@@ -55,7 +55,14 @@ per-video calls (exact), with a video that must be redone, ``max_k = 3``
 and ``fetch=False``, every recorded launch held, then walls per video at
 K = 1, 2, 4, 8, 16 in turns with the per-video calls, host syncs per
 sub-batch, device kernels per video, peak memory beside the K rule's
-estimate and the batched kernels' times.  Prints
+estimate and the batched kernels' times.  The ``stream`` line streams all
+five pipelines through ``stream_areas`` on a 502-frame video in three
+splits (bf16; f32 and colour on one ragged split), each exactly equal to
+its whole-video call, every launch of the ragged streams held against its
+plain version, with walls per frame in turns, host syncs per chunk, the
+peak memory of a 4000-frame stream, ``prefetch`` 2 against 0, and a Y800
+AVI through the port's reader and ``python -m openglottal_tpu_torch.cli run
+--stream 128`` against ``extract_features``.  Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -758,6 +765,288 @@ def cohort_phase(pipes, videos, counted, expect_counts, hold_record,
             "ms": {k_: sum(v) / len(v) for k_, v in turns.items()}}
     line["kernel_times"] = times
     return line, records["guided-vft"], guided_counts
+
+
+STREAM_SPLITS = ([T_FRAMES], [128, 128, 128, 118], [1, 1, 37, 200, 263])
+STREAM_PIPELINES = ("unet", "unet-only", "crop-unet", "vft", "guided-vft")
+STREAM_LONG = 4000      # frames of the memory run
+
+
+def write_y800_avi(path, gray) -> None:
+    """A (T, H, W) uint8 video as an uncompressed 8-bit gray AVI (fourcc
+    Y800): the RIFF header lists, one ``00db`` chunk per frame, no index."""
+    import struct
+
+    t, h, w = gray.shape
+
+    def chunk(cid, data):
+        return cid + struct.pack("<I", len(data)) + data + b"\0" * (
+            len(data) & 1)
+
+    def lst(kind, *parts):
+        return chunk(b"LIST", kind + b"".join(parts))
+
+    bih = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 8, b"Y800", w * h, 0, 0,
+                      0, 0)
+    avih = struct.pack("<10I", 250, 0, 0, 0, t, 0, 1, 0, w, h) + b"\0" * 16
+    head = lst(b"hdrl", chunk(b"avih", avih),
+               lst(b"strl", chunk(b"strh", b"vidsY800" + b"\0" * 48),
+                   chunk(b"strf", bih)))
+    movi = lst(b"movi", *(chunk(b"00db", f.tobytes()) for f in gray))
+    Path(path).write_bytes(chunk(b"RIFF", b"AVI " + head + movi))
+
+
+def stream_phase(pipes, weights, videos, counted, hold_record, host_syncs,
+                 smi) -> tuple:
+    """Streaming: ``stream_areas`` of all five pipelines on a 502-frame gray
+    256² video in bf16, in the splits STREAM_SPLITS (one chunk; the
+    128-frame lattice; boundaries off it, with seeds across chunks), each
+    held exactly equal to its whole-video call (``unet`` to its full-frame
+    route, the trackers to their sequential forms) and compared with the
+    default forms (windowed ``unet``, frame-parallel trackers); ``unet`` and
+    ``guided-vft`` in f32 on 128 frames, and colour chunks through ``unet``,
+    ``crop-unet`` and ``guided-vft``, on a ragged split.  The launches of
+    the ragged bf16 streams are recorded and every one held equal to its
+    plain version.  Then walls per frame against the whole-video calls in
+    turns, host syncs per chunk, peak device memory of a 4000-frame ``unet``
+    stream against 502-frame whole-video calls, ``prefetch=2`` against
+    ``prefetch=0`` in turns, and the AVI round trip: a Y800 file written
+    here, ``iter_frames_bgr`` against ``load_frames_bgr`` and the frames
+    written, and ``python -m openglottal_tpu_torch.cli run --stream 128``
+    in a subprocess against ``extract_features``.  Raises on any failed
+    check; returns (the phase's line, {path: launch counts})."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.data.video import (
+        iter_frames_bgr,
+        load_frames_bgr,
+    )
+    from openglottal_tpu_torch.pipelines import (
+        CHUNK,
+        GlottalPipelines,
+        _box_area_sums,
+    )
+
+    t_start = time.perf_counter()
+    seq = {tag: GlottalPipelines(dtype=p.dtype, parallel_trackers=False,
+                                 window_decoder=False, **weights)
+           for tag, p in pipes.items()}
+
+    def chunks(v, splits):
+        i = 0
+        for n in splits:
+            yield v[i:i + n]
+            i += n
+
+    whole = {
+        "unet": lambda p, v: p.yolo_unet_areas(v).cpu().numpy(),
+        "unet-only": lambda p, v: p.unet_only_areas(v).cpu().numpy(),
+        "crop-unet": lambda p, v: _box_area_sums(
+            *p.crop_unet_masks(v)).cpu().numpy(),
+        "vft": lambda p, v: p.vft_areas(v),
+        "guided-vft": lambda p, v: p.guided_vft_areas(v)}
+
+    def split_name(s):
+        return "-".join(map(str, s))
+
+    ragged = STREAM_SPLITS[-1]
+    v0 = videos[0]
+    line = {"frames": T_FRAMES, "splits": [list(s) for s in STREAM_SPLITS],
+            "compared": "each stream exactly equal to its whole-video call "
+                        "(unet: window_decoder=False; trackers: "
+                        "parallel_trackers=False); every recorded launch "
+                        "exactly equal to its plain version",
+            "equal": {}, "launches": {}, "vs_default_forms": {}}
+    records, path_counts = {}, {}
+    bf16 = seq["bf16"]
+    for name in STREAM_PIPELINES:
+        want = whole[name](bf16, v0)
+        for splits in STREAM_SPLITS:
+            rec = [] if splits is ragged else None
+            got, got_counts = counted(
+                lambda: bf16.stream_areas(chunks(v0, splits), name), rec)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"stream {name}/bf16 {split_name(splits)}: differs from "
+                    f"the whole-video call (max abs diff "
+                    f"{float(np.abs(got - want).max())})")
+            line["equal"][f"{name}/bf16 {split_name(splits)}"] = True
+            if rec is not None:
+                records[name] = rec
+                path_counts[f"stream-{name}/bf16"] = got_counts
+                line["launches"][name] = got_counts
+        n_slices = -(-T_FRAMES // CHUNK)
+        got_counts = path_counts[f"stream-{name}/bf16"]
+        if name != "unet-only" and got_counts["gate_scan"] != n_slices:
+            raise AssertionError(f"stream {name}: gate_scan launched "
+                                 f"{got_counts['gate_scan']} times, "
+                                 f"expected {n_slices}")
+        if name == "unet" and got_counts["box_count"] != n_slices:
+            raise AssertionError("stream unet: one box_count per slice")
+        if name in ("vft", "guided-vft") and not all(
+                got_counts[k] > 0 for k in ("cc", "motion_map",
+                                            "thresh_chain")):
+            raise AssertionError(f"stream {name}: a tracker kernel was not "
+                                 f"launched ({got_counts})")
+        # against the default forms of the whole-video call
+        if name == "unet":
+            d = float(np.abs(want - pipes["bf16"].yolo_unet_areas(
+                v0).cpu().numpy()).max())
+            if d > 2.0:
+                raise AssertionError(f"stream unet vs windowed route: {d} px")
+            line["vs_default_forms"]["unet_max_area_diff_vs_windowed_px"] = d
+        elif name in ("vft", "guided-vft"):
+            d = float(np.abs(want - whole[name](pipes["bf16"], v0)).max())
+            if name == "vft" and d != 0.0:
+                raise AssertionError(f"stream vft differs from the "
+                                     f"frame-parallel form by {d} px")
+            line["vs_default_forms"][
+                f"{name}_max_area_diff_vs_frame_parallel_px"] = d
+    for name, rec in records.items():
+        if name == "unet-only":
+            continue            # it launches no hand-written kernel
+        hold_record(f"stream {name}", rec)
+    line["launches_held"] = {k: len(v) for k, v in records.items()}
+
+    # f32 on 128 frames; colour chunks, bf16
+    f32_splits = [1, 1, 37, 89]
+    for name in ("unet", "guided-vft"):
+        v = videos[1][:128]
+        want = whole[name](seq["f32"], v)
+        got = seq["f32"].stream_areas(chunks(v, f32_splits), name)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"stream {name}/f32 differs")
+        line["equal"][f"{name}/f32 128 frames {split_name(f32_splits)}"] = True
+    colour = tint(videos[2])
+    for name in ("unet", "crop-unet", "guided-vft"):
+        want = whole[name](bf16, colour)
+        got = bf16.stream_areas(chunks(colour, ragged), name)
+        if not np.array_equal(got, want) or not (want > 0).any():
+            raise AssertionError(f"stream {name}/bf16 colour differs")
+        line["equal"][f"{name}/bf16 colour {split_name(ragged)}"] = True
+
+    # ── numbers, bf16 ───────────────────────────────────────────────────
+    lattice = STREAM_SPLITS[1]
+    walls = {}
+    for name in STREAM_PIPELINES:
+        v = videos[3]
+        w = {"whole": [], "stream": []}
+        for mode in ("whole", "stream", "stream", "whole"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "whole":
+                whole[name](bf16, v)
+            else:
+                bf16.stream_areas(chunks(v, lattice), name)
+            w[mode].append((time.perf_counter() - t0) * 1e3 / T_FRAMES)
+        walls[name] = w
+    line["walls_ms_per_frame"] = walls
+    line["walls_order"] = "whole, stream, stream, whole; split " \
+        f"{split_name(lattice)}; whole = the form the stream equals"
+
+    syncs = {}
+    for name in STREAM_PIPELINES:
+        for pf in (2, 0):
+            n, sites = host_syncs(lambda: bf16.stream_areas(
+                chunks(videos[2], lattice), name, prefetch=pf))
+            syncs[f"{name} prefetch={pf}"] = {
+                "total": n, "per_chunk": n / len(lattice), "sites": sites}
+    line["host_syncs"] = {"chunks": len(lattice), "counts": syncs}
+
+    # peak device memory above the start: a 4000-frame unet stream in
+    # 128-frame chunks (502 and 1000 frames too) beside 502-frame
+    # whole-video calls on both routes
+    long_video = np.concatenate([np.roll(videos[i % 4], 5 * (i // 4), axis=2)
+                                 for i in range(-(-STREAM_LONG // T_FRAMES))]
+                                )[:STREAM_LONG]
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    mem = {}
+    for t in (T_FRAMES, 1000, STREAM_LONG):
+        mem[f"stream {t} frames"] = peak(lambda: bf16.stream_areas(
+            chunks(long_video[:t], [CHUNK] * -(-t // CHUNK)), "unet"))
+    mem["whole 502 frames, full-frame route"] = peak(
+        lambda: bf16.yolo_unet_areas(videos[0]))
+    mem["whole 502 frames, windowed route"] = peak(
+        lambda: pipes["bf16"].yolo_unet_areas(videos[0]))
+    if mem[f"stream {STREAM_LONG} frames"] > \
+            mem["whole 502 frames, full-frame route"]:
+        raise AssertionError(f"stream peak memory above the whole-video "
+                             f"call's: {mem}")
+    line["peak_memory_bytes_bf16_unet"] = mem
+    line["long_stream_equal"] = bool(np.array_equal(
+        bf16.stream_areas(chunks(long_video, [CHUNK] * 32), "unet"),
+        bf16.yolo_unet_areas(long_video).cpu().numpy()))
+    if not line["long_stream_equal"]:
+        raise AssertionError("4000-frame unet stream differs")
+
+    pf_walls = {"prefetch=2": [], "prefetch=0": []}
+    for pf in (2, 0, 0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16.stream_areas(chunks(long_video[:1024], [CHUNK] * 8), "unet",
+                          prefetch=pf)
+        pf_walls[f"prefetch={pf}"].append(
+            (time.perf_counter() - t0) * 1e3 / 1024)
+    line["prefetch_walls_ms_per_frame"] = {
+        "pipeline": "unet", "frames": 1024, "order": "2, 0, 0, 2",
+        **pf_walls}
+
+    # ── the AVI reader and the command line ─────────────────────────────
+    out_dir = Path("openglottal_tpu_torch/build/stream_check")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    avi = out_dir / "clip.avi"
+    write_y800_avi(avi, v0)
+    full = load_frames_bgr(avi)
+    parts = list(iter_frames_bgr(avi, chunk=128))
+    if ([len(p) for p in parts] != [128, 128, 128, 118]
+            or not np.array_equal(np.concatenate(parts), full)
+            or not all(np.array_equal(full[..., c], v0) for c in range(3))):
+        raise AssertionError("AVI reader: frames differ from those written")
+    cmd = [sys.executable, "-m", "openglottal_tpu_torch.cli", "run", str(avi),
+           "--pipeline", "unet", "--stream", "128",
+           "--yolo-weights", weights["yolo_variables"],
+           "--unet-weights", weights["unet_variables"],
+           "--output", str(out_dir)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(Path.cwd())})
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cli run failed: {r.stderr[-2000:]}")
+    got = json.loads((out_dir / "features.json").read_text())
+    want = bf16.extract_features(full, "unet")
+    default = pipes["bf16"].extract_features(full, "unet")
+    same = {k: bool(np.array_equal(np.asarray(got[k], np.float64),
+                                   np.asarray(want[k], np.float64)))
+            for k in want}
+    if got.keys() != want.keys() or not all(same.values()):
+        raise AssertionError(f"cli features differ from extract_features: "
+                             f"{same}")
+    line["avi_round_trip"] = {
+        "frames": len(full), "chunks": [len(p) for p in parts],
+        "bytes": avi.stat().st_size,
+        "cli": " ".join(cmd[1:3] + ["run", "VIDEO"] + cmd[5:9]),
+        "cli_seconds": cli_s,
+        "features_equal_extract_features_full_frame_route": True,
+        "features_equal_extract_features_windowed_route": all(
+            np.array_equal(np.asarray(got[k], np.float64),
+                           np.asarray(default[k], np.float64))
+            for k in default)}
+    avi.unlink()
+    line["nvidia_smi"] = smi
+    line["seconds"] = time.perf_counter() - t_start
+    return line, path_counts
 
 
 def main() -> int:
@@ -1987,6 +2276,13 @@ def main() -> int:
     measure("cohort-guided-vft", cohort_record)
     reset_counts()
     say("cohort", nvidia_smi=smi, **cohort_line)
+
+    # ── streaming: all five pipelines chunk by chunk vs whole videos ────
+    stream_line, stream_counts = stream_phase(
+        pipes, weights, videos, counted, hold_record, host_syncs, smi)
+    reset_counts()
+    path_launches.update(stream_counts)
+    say("stream", **stream_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 

@@ -10,7 +10,10 @@ Ported so far: the five serving pipelines (``vft``, ``guided-vft``,
 ``unet``, ``crop-unet``, ``unet-only``) for gray or BGR video of any frame
 size, through ``GlottalPipelines.extract_features`` and
 ``run_pipeline_full``, with ``unet``'s windowed decoder on 256² monochrome
-video.  Meshes, int8, cohort serving and streaming raise
+video; cohorts of videos (``*_gray_multi``); streams of chunks in bounded
+memory (``stream_areas``, ``stream_features``); the AVI reader
+(``data/video.py``), the command line (``cli.py``), the config and the
+frame-at-a-time API (``compat.py``).  Meshes and int8 raise
 ``NotImplementedError``.
 """
 

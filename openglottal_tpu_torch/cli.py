@@ -1,0 +1,138 @@
+"""Command line of the port: a video file in, ``features.json`` out.
+
+Counterpart of ``openglottal_tpu/cli.py``'s ``run`` command, with its flags:
+
+    python -m openglottal_tpu_torch.cli run VIDEO --pipeline unet \\
+        --yolo-weights weights/demo_yolo.npz \\
+        --unet-weights weights/demo_unet.npz [--stream CHUNK] \\
+        [--device cuda|cpu] [-o results]
+
+``--stream CHUNK`` decodes and serves the video CHUNK frames at a time in
+bounded memory (``GlottalPipelines.stream_features``; bit-identical to the
+whole-video call, for ``unet`` to its full-frame route and for the trackers
+to their sequential forms); without it the whole video is decoded and
+served (``extract_features``).  ``--device`` picks the device (the CUDA
+device by default; ``cpu`` on purpose).  Videos are read by the port's own
+AVI reader (``data/video.py``: uncompressed gray and BI_RGB).  Weights are
+``.npz`` files.  int8 serving (``--quant``, ``--calib``, ``--qparams``) is
+not ported yet, nor are the other commands of the JAX package's command
+line (dataset building, training, evaluation, scripts).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+PIPELINE_CHOICES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
+
+
+def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
+    """(the parser, its ``run`` subparser)."""
+    parser = argparse.ArgumentParser(
+        prog="openglottal-tpu-torch",
+        description="Automated glottal area segmentation from high-speed "
+                    "videoendoscopy, on PyTorch and CUDA.")
+    parser.add_argument("--config", help="JSON or YAML config path.")
+    sub = parser.add_subparsers(dest="command", required=True)
+    run_p = sub.add_parser("run", help="Run inference on a video file.")
+    run_p.add_argument("video", help="Path to an input .avi video.")
+    run_p.add_argument("--yolo-weights", help="YOLO weights, .npz (required "
+                       "for vft, guided-vft, unet, crop-unet).")
+    run_p.add_argument("--unet-weights", help="U-Net weights, .npz "
+                       "(required for unet, unet-only).")
+    run_p.add_argument("--crop-weights", help="Crop-trained U-Net weights, "
+                       ".npz (required for crop-unet).")
+    run_p.add_argument("--pipeline", choices=PIPELINE_CHOICES, default="unet")
+    run_p.add_argument("--output", "-o", default="results")
+    run_p.add_argument("--conf", type=float, default=None,
+                       help="YOLO confidence threshold (default from config).")
+    run_p.add_argument("--quant", default=None,
+                       help="int8 serving: not ported yet.")
+    run_p.add_argument("--calib", default=None, metavar="VIDEO",
+                       help="int8 calibration video: not ported yet.")
+    run_p.add_argument("--qparams", default=None, metavar="NPZ",
+                       help="int8 calibration file: not ported yet.")
+    run_p.add_argument("--stream", type=int, default=0, metavar="CHUNK",
+                       help="Process the video in CHUNK-frame segments with "
+                            "bounded memory (all five pipelines; the results "
+                            "equal whole-video processing, for unet its "
+                            "full-frame route, for the trackers their "
+                            "sequential forms).")
+    run_p.add_argument("--device", default=None,
+                       help="Torch device (default: the CUDA device; 'cpu' "
+                            "runs on the CPU).")
+    return parser, run_p
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser, run_p = build_parser()
+    args = parser.parse_args(argv)
+    if args.command == "run":
+        _cmd_run(run_p, args)
+
+
+def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
+    if args.quant or args.calib or args.qparams:
+        parser.error("int8 serving (--quant, --calib, --qparams) is not "
+                     "ported yet")
+    if args.stream < 0:
+        parser.error("--stream must be >= 0")
+    needs_yolo = args.pipeline in ("vft", "guided-vft", "unet", "crop-unet")
+    needs_unet = args.pipeline in ("unet", "unet-only")
+    if needs_yolo and not args.yolo_weights:
+        parser.error(f"--yolo-weights is required for the {args.pipeline} "
+                     f"pipeline.")
+    if needs_unet and not args.unet_weights:
+        parser.error(f"--unet-weights is required for the {args.pipeline} "
+                     f"pipeline.")
+    if args.pipeline == "crop-unet" and not args.crop_weights:
+        parser.error("--crop-weights is required for the crop-unet pipeline.")
+
+    from openglottal_tpu_torch.config import load_config
+    from openglottal_tpu_torch.data.video import (
+        iter_frames_bgr,
+        load_frames_bgr,
+    )
+    from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.utils.io import (
+        load_unet_weights,
+        load_yolo_weights,
+        save_features_json,
+    )
+
+    cfg = load_config(args.config)
+    if args.conf is not None:
+        cfg.detector.conf = args.conf
+
+    def weights(path, load):
+        return load(path) if path else None
+
+    pipe = GlottalPipelines(
+        unet_variables=weights(args.unet_weights, load_unet_weights),
+        crop_unet_variables=weights(args.crop_weights, load_unet_weights),
+        yolo_variables=weights(args.yolo_weights, load_yolo_weights),
+        conf=cfg.detector.conf, gate_params=cfg.gate_params(),
+        vft_params=cfg.vft_params(), ygvft_params=cfg.ygvft_params(),
+        device=args.device)
+    if args.stream:
+        feats = pipe.stream_features(
+            iter_frames_bgr(args.video, chunk=args.stream), args.pipeline)
+    else:
+        feats = pipe.extract_features(load_frames_bgr(args.video),
+                                      args.pipeline)
+    if feats is None:
+        print("No glottis detected — check your weights or input video.")
+        sys.exit(1)
+
+    out_path = os.path.join(args.output, "features.json")
+    save_features_json(feats, out_path)
+    print(f"Features saved to {out_path}")
+    for k, v in feats.items():
+        if not k.startswith("_"):
+            print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")
+
+
+if __name__ == "__main__":
+    main()

@@ -396,3 +396,20 @@ def gate_single(has: torch.Tensor, boxes: torch.Tensor, frame_h: int,
     ocy = torch.minimum(torch.maximum(cy, hhf), float(frame_h) - hhf
                         ).to(torch.int32)
     return has, torch.stack([ocx - hw, ocy - hh, ocx + hw, ocy + hh], 1)
+
+
+class TemporalGate:
+    """The gate's parameters in one object, as the reference's
+    TemporalDetector holds them (the confidence threshold is applied
+    upstream, in the detector's decode).  Calling it gates a video:
+    :func:`gate_scan` in order, or :func:`gate_single` frame by frame."""
+
+    def __init__(self, max_shift_px: float = 30.0, padding: int = 8,
+                 max_hold_frames: int = 3):
+        self.params = GateParams(float(max_shift_px), int(padding),
+                                 int(max_hold_frames))
+
+    def __call__(self, has, boxes, frame_h: int, frame_w: int,
+                 sequential: bool = True):
+        fn = gate_scan if sequential else gate_single
+        return fn(has, boxes, frame_h, frame_w, params=self.params)

@@ -23,7 +23,14 @@ the U-Net of ``unet`` / ``unet-only`` runs on frames resized to 256² and its
 probabilities are resized back.  Both trackers run frame-parallel by default
 and as a sequential per-frame loop with ``parallel_trackers=False`` (the
 debug form).  Meshes and int8 raise ``NotImplementedError`` until a later
-slice ports them; streaming is not ported yet.
+slice ports them.
+
+Streaming (``stream_areas``, ``stream_features``) serves all five
+pipelines from an iterable of 256² chunks in memory bounded by the chunk:
+the networks run on the CHUNK-frame slices of the concatenated stream, the
+gate and the trackers resume from their carries, and the waveform equals
+the whole-video call's bit for bit (``unet``'s full-frame route, the
+trackers' sequential forms).
 
 Cohort serving (``yolo_unet_areas_gray_multi``,
 ``guided_vft_areas_gray_multi``, ``vft_areas_gray_multi``) serves K 256²
@@ -51,6 +58,7 @@ import contextlib
 import numpy as np
 import torch
 
+from openglottal_tpu_torch.data.prefetch import prefetch_to_device
 from openglottal_tpu_torch.data.video import bgr_to_gray_u8
 from openglottal_tpu_torch.features import kinematic_features
 from openglottal_tpu_torch.models.fold import (
@@ -71,11 +79,15 @@ from openglottal_tpu_torch.models.gate import (
 from openglottal_tpu_torch.models.tracker import (
     VFTParams,
     YGVFTParams,
+    vft_initialize,
     vft_parallel,
     vft_scan,
+    vft_scan_carry,
+    ygvft_initialize,
     ygvft_parallel,
     ygvft_parallel_multi,
     ygvft_scan,
+    ygvft_scan_carry,
 )
 from openglottal_tpu_torch.models.unet import UNet, chunk_window_origin
 from openglottal_tpu_torch.models.yolo import YOLOv8, max_conf_detect
@@ -241,9 +253,43 @@ def is_monochrome(frames_np) -> bool:
     if not isinstance(frames_np, np.ndarray) or frames_np.ndim != 4:
         return False
     t = frames_np.shape[0]
+    if t == 0:
+        return False
     f = frames_np[[0, t // 2, t - 1]]
     return bool((f[..., 0] == f[..., 1]).all()
                 and (f[..., 1] == f[..., 2]).all())
+
+
+def _require_256(gray):
+    """Streaming takes 256² chunks, the networks' own size: the whole-video
+    paths letterbox other sizes through 256², and a stream that ran the
+    networks at another size would not equal them.  Returns (h, w)."""
+    h, w = gray.shape[1:3]
+    if (h, w) != (SIZE, SIZE):
+        raise ValueError(
+            f"streaming expects 256² chunks, got {(h, w)}: letterbox the "
+            f"chunks first (ops/resize.letterbox), as the whole-video paths "
+            f"do")
+    return h, w
+
+
+def _cut(piece, a: int, b: int):
+    """Frames [a, b) of a stream piece (bgr | None, gray)."""
+    bgr, gray = piece
+    return (None if bgr is None else bgr[a:b]), gray[a:b]
+
+
+def _join(a, b):
+    """Two stream pieces (bgr | None, gray), one after the other; where one
+    of them is colour, the other's gray frames join it as three equal
+    channels."""
+    def bgr(p):
+        return p[0] if p[0] is not None else p[1][..., None].expand(
+            -1, -1, -1, 3)
+    colour = None
+    if a[0] is not None or b[0] is not None:
+        colour = torch.cat([bgr(a), bgr(b)])
+    return colour, torch.cat([a[1], b[1]])
 
 
 def _box_area_sums(masks, valids, boxes):
@@ -372,12 +418,12 @@ class GlottalPipelines:
 
     # ── input ───────────────────────────────────────────────────────────
 
-    def _prepare(self, frames):
-        """One host-to-device transfer per video -> (frames_dev | None,
-        gray_dev).  Gray (T, H, W) input, and (T, H, W, 3) input with equal
-        channels, cross as one channel and frames_dev is None; colour (T, H,
-        W, 3) BGR input crosses whole and is converted to gray on the
-        device.  Tensors are taken as they are (a 4-D one as BGR)."""
+    @staticmethod
+    def _host_frames(frames):
+        """The host side of :meth:`_prepare`: the frames as the tensor that
+        crosses (one channel of gray input or of (T, H, W, 3) input with
+        equal channels, the whole of colour input).  Tensors are taken as
+        they are (a 4-D one as BGR)."""
         if isinstance(frames, torch.Tensor):
             f = frames
         else:
@@ -389,14 +435,35 @@ class GlottalPipelines:
                 f.dim() == 3 or (f.dim() == 4 and f.shape[-1] == 3)):
             raise ValueError(f"expected (T, H, W) or (T, H, W, 3) uint8 "
                              f"frames, got {tuple(f.shape)} {f.dtype}")
-        f = f.to(self.device)
+        return f
+
+    @staticmethod
+    def _split_gray(f):
+        """The device side of :meth:`_prepare`: (frames_dev | None,
+        gray_dev) of the frames that crossed."""
         if f.dim() == 3:
             return None, f
         return f, bgr_to_gray_u8(f)
 
+    def _prepare(self, frames):
+        """One host-to-device transfer per video -> (frames_dev | None,
+        gray_dev).  Gray (T, H, W) input, and (T, H, W, 3) input with equal
+        channels, cross as one channel and frames_dev is None; colour (T, H,
+        W, 3) BGR input crosses whole and is converted to gray on the
+        device."""
+        return self._split_gray(self._host_frames(frames).to(self.device))
+
     def prepare(self, frames):
         """:meth:`_prepare`: (frames_dev | None, gray_dev)."""
         return self._prepare(frames)
+
+    def prepare_prefetched(self, videos, size: int = 2):
+        """:meth:`prepare` of each video of a stream, the uploads running up
+        to ``size`` videos ahead of the consumer from pinned host memory on
+        a side stream (``data/prefetch.prefetch_to_device``)."""
+        for f in prefetch_to_device(videos, size=size, put=self._host_frames,
+                                    device=self.device):
+            yield self._split_gray(f)
 
     def _to_gray(self, frames) -> torch.Tensor:
         """Host or device frames -> (T, H, W) uint8 gray on the device."""
@@ -1092,6 +1159,206 @@ class GlottalPipelines:
             valid, boxes = self._gated(frames_dev, gray)
         masks = self._chunks(self._crop_unet_chunk, gray, valid, boxes)
         return masks, valid, boxes
+
+    # ── streaming ───────────────────────────────────────────────────────
+
+    def _stream_segments(self, chunks, prefetch: int):
+        """The stream's frames re-cut into the CHUNK-frame slices of the
+        concatenated stream, the slices the whole-video call runs its
+        networks on (cuDNN picks its algorithms per shape, so only the same
+        slices give the same values).  Yields, for each non-empty chunk, the
+        list of (bgr | None, gray) slices it completes (perhaps none), then
+        the ragged rest as a last list.  At most CHUNK - 1 frames wait on
+        the device for the next chunk.  Chunks cross as :meth:`prepare`
+        lets them (one channel of monochrome ones), ``prefetch`` > 0 of
+        them ahead from pinned memory, else one at a time as they come."""
+        if prefetch > 0:
+            segs = prefetch_to_device(chunks, size=prefetch,
+                                      put=self._host_frames,
+                                      device=self.device)
+        else:
+            segs = (self._host_frames(c).to(self.device) for c in chunks)
+        held = None
+        for f in segs:
+            seg = self._split_gray(f)
+            if seg[1].shape[0] == 0:
+                continue
+            _require_256(seg[1])
+            cur = seg if held is None else _join(held, seg)
+            t = cur[1].shape[0]
+            full = t - t % CHUNK
+            yield [_cut(cur, i, i + CHUNK) for i in range(0, full, CHUNK)]
+            held = _cut(cur, full, t) if full < t else None
+        if held is not None:
+            yield [held]
+
+    def _stream_gate(self, gate, bgr, gray):
+        """Detector on one slice (on its BGR frames where it has them, as
+        :meth:`detect_video`) and the gate from its carry -> (valid,
+        boxes)."""
+        with full_float32(self.dtype):
+            has, raw = self._detect_chunk(bgr if bgr is not None else gray)
+        return gate(has, raw)
+
+    def _stream_u_slice(self, pipeline: str, gate, bgr, gray):
+        """Areas of one slice of a U-Net pipeline, on the device, as the
+        whole-video call computes them on that slice: ``unet`` on its
+        full-frame route (logits, detector, gate, in-box count),
+        ``unet-only`` the masks' pixel counts, ``crop-unet`` the crop
+        U-Net's masks in the gate boxes."""
+        if pipeline == "unet-only":
+            with full_float32(self.dtype):
+                return self._segment_chunk(gray).sum((1, 2)).to(
+                    torch.float32)
+        if pipeline == "unet":
+            with full_float32(self.dtype):
+                scores, thr = self._scores_chunk(gray)
+        valid, boxes = self._stream_gate(gate, bgr, gray)
+        if pipeline == "crop-unet":
+            masks = self.crop_unet_masks(None, gray_u8=gray, valid=valid,
+                                         boxes=boxes)[0]
+            return _box_area_sums(masks, valid, boxes)
+        out = torch.empty((gray.shape[0],), dtype=torch.float32,
+                          device=gray.device)
+        box_count_table([CountChunk(scores, valid, boxes, out=out)], thr,
+                        use_plain=self.use_plain_kernels)
+        return out
+
+    @torch.no_grad()
+    def stream_areas(self, chunks, pipeline: str = "unet",
+                     prefetch: int = 2) -> np.ndarray:
+        """Area waveform of a stream of frame chunks, in memory bounded by
+        the chunk and not by the video.  JAX package:
+        ``GlottalPipelines.stream_areas``.
+
+        ``chunks``: an iterable of (n, 256, 256) gray or (n, 256, 256, 3)
+        BGR uint8 arrays (e.g. ``data/video.iter_frames_bgr``), uploaded
+        ``prefetch`` chunks ahead of the compute from pinned memory
+        (``prefetch=0``: each as it comes).  The gate's state crosses
+        chunks in its kernel's buffer (``GateCarry``), the trackers' in
+        their carries; the waveform stays on the device and is read once at
+        the end (``vft`` also reads the gate once per chunk, to lock its
+        crop size and place its crops).  The result is bit-identical to the
+        whole-video call: ``unet`` to its full-frame route
+        (``window_decoder=False``; it streams on that route), the trackers
+        to their sequential forms (``parallel_trackers=False``).  Colour
+        chunks detect on their BGR frames and segment on gray, as the
+        whole-video calls do; chunks of other sizes than 256² raise
+        ``ValueError``.  An empty stream gives an empty waveform."""
+        if pipeline in ("vft", "guided-vft"):
+            self._require("yolo")
+            return self._stream_tracker_areas(chunks, pipeline, prefetch)
+        if pipeline not in ("unet", "unet-only", "crop-unet"):
+            raise ValueError(
+                f"unknown streaming pipeline {pipeline!r} (supported: "
+                f"{', '.join(PIPELINES)})")
+        self._require(*{"unet": ("yolo", "unet"), "unet-only": ("unet",),
+                        "crop-unet": ("yolo", "crop_unet")}[pipeline])
+        gate = GateCarry(SIZE, SIZE, self.gate_params,
+                         use_plain=self.use_plain_kernels)
+        areas = [self._stream_u_slice(pipeline, gate, bgr, gray)
+                 for slices in self._stream_segments(chunks, prefetch)
+                 for bgr, gray in slices]
+        if not areas:
+            return np.zeros((0,), np.float32)
+        return torch.cat(areas).cpu().numpy()      # the one read
+
+    def _stream_tracker_areas(self, chunks, pipeline: str,
+                              prefetch: int) -> np.ndarray:
+        """The trackers' streams, resuming the sequential forms from their
+        carries (``vft_scan_carry``, ``ygvft_scan_carry``).  JAX package:
+        ``GlottalPipelines._stream_tracker_areas``.
+
+        vft: the crop size locks at the first gated box of the stream
+        (``"dead"``, all zero, for an empty one); the first VFT_INIT gated
+        crops seed the tracker and read zero, as do frames without a box.
+        guided-vft: the first YGVFT_INIT frames seed the tracker and read
+        zero.  Seeds may straddle chunks."""
+        gate = GateCarry(SIZE, SIZE, self.gate_params,
+                         use_plain=self.use_plain_kernels)
+        state = {"carry": None, "lock": None, "init": []}
+        areas = []
+        for slices in self._stream_segments(chunks, prefetch):
+            gated = [(gray, *self._stream_gate(gate, bgr, gray))
+                     for bgr, gray in slices]
+            if pipeline == "vft":
+                if gated:
+                    areas.append(self._stream_vft(state, *(
+                        torch.cat(x) for x in zip(*gated))))
+            else:
+                areas += [self._stream_ygvft(state, *g) for g in gated]
+        if not areas:
+            return np.zeros((0,), np.float32)
+        return torch.cat(areas).cpu().numpy()      # the one read of areas
+
+    def _stream_vft(self, state, gray, valid, boxes):
+        """vft over a chunk's slices -> their areas on the device, after
+        ONE host read of their gate outputs (the crop lock and the number of
+        crops are host values)."""
+        out = torch.zeros((gray.shape[0],), dtype=torch.float32,
+                          device=gray.device)
+        vb = self._gate_host(valid, boxes).cpu().numpy()
+        idx = np.nonzero(vb[:, 0])[0]
+        if state["lock"] is None and idx.size:
+            b0 = vb[idx[0], 1:]
+            w0, h0 = int(b0[2] - b0[0]), int(b0[3] - b0[1])
+            state["lock"] = (h0, w0) if (w0 > 0 and h0 > 0) else "dead"
+        if idx.size == 0 or state["lock"] == "dead":
+            return out
+        n = len(idx)
+        # the gated frames' indices, in order, made on the device
+        sel = torch.argsort((~valid).to(torch.uint8), stable=True)[:n]
+        crops = _gather_crops(gray[sel], boxes[sel], *state["lock"])
+        k = 0
+        if state["carry"] is None:
+            have = sum(c.shape[0] for c in state["init"])
+            k = min(VFT_INIT - have, n)
+            state["init"].append(crops[:k])
+            if have + k == VFT_INIT:
+                state["carry"] = vft_initialize(
+                    torch.cat(state["init"]), self.vft_params,
+                    self.use_plain_kernels)
+                state["init"] = []
+        if state["carry"] is not None and k < n:
+            state["carry"], (_, a) = vft_scan_carry(
+                state["carry"], crops[k:], params=self.vft_params,
+                use_plain=self.use_plain_kernels)
+            out.index_copy_(0, sel[k:], a)
+        return out
+
+    def _stream_ygvft(self, state, gray, valid, boxes):
+        """guided-vft over one slice -> its areas on the device (no host
+        read: the seed's first valid box is picked on the device)."""
+        t = gray.shape[0]
+        start = 0
+        if state["carry"] is None:
+            have = sum(x[0].shape[0] for x in state["init"])
+            start = min(YGVFT_INIT - have, t)
+            state["init"].append((gray[:start], valid[:start],
+                                  boxes[:start]))
+            if have + start == YGVFT_INIT:
+                ff, vin, bin_ = (torch.cat(x) for x in zip(*state["init"]))
+                fi = torch.argmax(vin.to(torch.uint8)).reshape(1)
+                state["carry"] = ygvft_initialize(
+                    ff, vin.any(), bin_.index_select(0, fi)[0],
+                    self.ygvft_params, self.use_plain_kernels)
+                state["init"] = []
+        zeros = torch.zeros((start if state["carry"] is not None else t,),
+                            dtype=torch.float32, device=gray.device)
+        if state["carry"] is None or start == t:
+            return zeros
+        state["carry"], (_, a) = ygvft_scan_carry(
+            state["carry"], gray[start:], valid[start:], boxes[start:],
+            params=self.ygvft_params, use_plain=self.use_plain_kernels)
+        return torch.cat([zeros, a]) if start else a
+
+    def stream_features(self, chunks, pipeline: str = "unet"):
+        """Kinematic features of a chunk stream (:meth:`stream_areas`);
+        None for an empty stream or a silent waveform."""
+        areas = self.stream_areas(chunks, pipeline)
+        if areas.size == 0:
+            return None
+        return kinematic_features(areas)
 
     # ── outputs ─────────────────────────────────────────────────────────
 

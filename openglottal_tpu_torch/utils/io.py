@@ -43,6 +43,32 @@ def load_weights_npz(path) -> dict:
     return tree
 
 
+def _load_npz_weights(path, what: str) -> dict:
+    """A weight tree of an ``.npz`` file; checkpoint directories and torch
+    ``.pt`` files wait for the training slice of the port."""
+    p = resolve_weights_path(path)
+    if not p.exists():
+        raise FileNotFoundError(
+            f"{what} weights not found: {path} (also tried "
+            f"weights/{p.name}); expected an .npz weight file")
+    if p.is_dir() or p.suffix != ".npz":
+        raise NotImplementedError(
+            f"{what} weights {path}: checkpoint directories and .pt files "
+            f"are read once the training slice is ported; this port reads "
+            f".npz weight files")
+    return load_weights_npz(p)
+
+
+def load_unet_weights(path) -> dict:
+    """U-Net (or crop U-Net) variables from an ``.npz`` weight file."""
+    return _load_npz_weights(path, "U-Net")
+
+
+def load_yolo_weights(path) -> dict:
+    """YOLOv8 variables from an ``.npz`` weight file."""
+    return _load_npz_weights(path, "YOLO")
+
+
 def save_features_json(feats: dict, out_path) -> None:
     """features.json with array-to-list conversion."""
     out_path = Path(out_path)

@@ -351,20 +351,54 @@ def test_device_none_raises_without_cuda():
         GlottalPipelines()
 
 
+_BANNED = ("jax", "jaxlib", "flax", "orbax", "cv2", "openglottal_tpu")
+
+
+def _imports_of(path):
+    """(line, module) of every import in a Python source, at any depth (an
+    import inside a function too), and of every ``import_module`` /
+    ``__import__`` call on a string literal."""
+    import ast
+
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.lineno, node.module or ""))
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            found.append((node.lineno, node.args[0].value))
+    return found
+
+
 def test_port_imports_no_jax_no_reference_package_no_cv2():
+    """Importing every module of the port and chip_smoke.py loads none of
+    the banned packages; and no source of the port, nor chip_smoke.py,
+    imports one anywhere, a lazy import inside a function included."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import openglottal_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'cv2', 'openglottal_tpu')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {_BANNED!r}]\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=str(_repo_root()))
     assert r.returncode == 0, r.stderr[-2000:]
+    root = _repo_root()
+    sources = sorted((root / "openglottal_tpu_torch").rglob("*.py"))
+    sources.append(root / "chip_smoke.py")
+    assert len(sources) > 20
+    bad = [f"{p.relative_to(root)}:{line} imports {mod}"
+           for p in sources for line, mod in _imports_of(p)
+           if mod.split(".")[0] in _BANNED]
+    assert not bad, bad
 
 
 def _repo_root():
