@@ -14,7 +14,8 @@
         # one on the served chunk
 
 The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
-``areas.cu``) are built with nvcc, one process each, all started together.
+``areas.cu``, ``qconv.cu``) are built with nvcc, one process each, all
+started together.
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -62,7 +63,17 @@ its whole-video call, every launch of the ragged streams held against its
 plain version, with walls per frame in turns, host syncs per chunk, the
 peak memory of a 4000-frame stream, ``prefetch`` 2 against 0, and a Y800
 AVI through the port's reader and ``python -m openglottal_tpu_torch.cli run
---stream 128`` against ``extract_features``.  Prints
+--stream 128`` against ``extract_features``.  The int8 convolution of
+``csrc/qconv.cu`` (``og_qconv``) is held exactly equal to its plain version
+on every int8 layer shape of the U-Net and YOLOv8n with each epilogue (and
+the edge cases of ``qconv_stress_cases``); the ``quant`` line serves
+``unet`` in the int8 modes ("int8", "int8-full") on both routes, its cohort
+and ``unet-only`` on the 502-frame video, calibrated on its first 64
+frames, every og_qconv launch held equal to its plain version, int8 against
+bf16 waveforms, windowed against full-frame, save / load, card against
+CPU, host syncs, og_qconv per layer beside its bound, cuDNN's bf16 conv and
+``torch._int_mm``, the int8 U-Net stage's device ms and walls in turns.
+Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -186,6 +197,148 @@ def ptxas_summary(log: str) -> dict:
         if m and fn is not None:
             fn["registers"] = int(m[1])
     return out
+
+
+# ── og_qconv's stress cases ─────────────────────────────────────────────
+# every int8 layer shape of the U-Net (32-64-128-256-512, 256² frames, the
+# windowed decoder's valid convolutions) and of YOLOv8n (n scale, 256²
+# input), at two frames: (label, H, W, sources' channels, C_out, k, stride,
+# pad, epilogue, residual); a decoder concat takes two sources (K split
+# over two pointers)
+QCONV_UNET = (
+    ("enc0.1", 256, 256, (32,), 32), ("enc1.0", 128, 128, (32,), 64),
+    ("enc1.1", 128, 128, (64,), 64), ("enc2.0", 64, 64, (64,), 128),
+    ("enc2.1", 64, 64, (128,), 128), ("enc3.0", 32, 32, (128,), 256),
+    ("enc3.1", 32, 32, (256,), 256), ("bneck.0", 16, 16, (256,), 512),
+    ("bneck.1", 16, 16, (512,), 512), ("dec0.0", 32, 32, (256, 256), 256),
+    ("dec0.1", 32, 32, (256,), 256), ("dec1.0", 64, 64, (128, 128), 128),
+    ("dec1.1", 64, 64, (128,), 128), ("dec2.0", 128, 128, (64, 64), 64),
+    ("dec2.1", 128, 128, (64,), 64), ("dec3.0", 256, 256, (32, 32), 32),
+    ("dec3.1", 256, 256, (32,), 32))
+QCONV_UNET_WINDOW = (
+    ("dec2.0 window", 86, 86, (64, 64), 64), ("dec2.1 window", 84, 84, (64,), 64),
+    ("dec3.0 window", 164, 164, (32, 32), 32),
+    ("dec3.1 window", 162, 162, (32,), 32))
+QCONV_YOLO = (
+    # (label, H, W, sources, C_out, k, stride, residual)
+    ("cbs1", 128, 128, (16,), 32, 3, 2, False),
+    ("c2f0.cv1", 64, 64, (32,), 32, 1, 1, False),
+    ("c2f0.m0.cv1", 64, 64, (16,), 16, 3, 1, False),
+    ("c2f0.m0.cv2", 64, 64, (16,), 16, 3, 1, True),
+    ("c2f0.cv2", 64, 64, (32, 16), 32, 1, 1, False),
+    ("cbs2", 64, 64, (32,), 64, 3, 2, False),
+    ("c2f1.m.cv2", 32, 32, (32,), 32, 3, 1, True),
+    ("c2f1.cv2", 32, 32, (128,), 64, 1, 1, False),
+    ("cbs3", 32, 32, (64,), 128, 3, 2, False),
+    ("c2f2.cv2", 16, 16, (256,), 128, 1, 1, False),
+    ("cbs4", 16, 16, (128,), 256, 3, 2, False),
+    ("c2f3.m0.cv2", 8, 8, (128,), 128, 3, 1, True),
+    ("c2f3.cv2", 8, 8, (256, 128), 256, 1, 1, False),
+    ("sppf.cv1", 8, 8, (256,), 128, 1, 1, False),
+    ("sppf.cv2", 8, 8, (512,), 256, 1, 1, False),
+    ("c2f4.cv1", 16, 16, (384,), 128, 1, 1, False),
+    ("c2f4.cv2", 16, 16, (128, 64), 128, 1, 1, False),
+    ("c2f5.cv1", 32, 32, (192,), 64, 1, 1, False),
+    ("c2f5.m0.cv1", 32, 32, (32,), 32, 3, 1, False),
+    ("cbs5", 32, 32, (64,), 64, 3, 2, False),
+    ("c2f6.cv1", 16, 16, (192,), 128, 1, 1, False),
+    ("cbs6", 16, 16, (128,), 128, 3, 2, False),
+    ("c2f7.cv1", 8, 8, (384,), 256, 1, 1, False),
+    ("box0_0", 32, 32, (64,), 64, 3, 1, False),
+    ("box2_0", 8, 8, (256,), 64, 3, 1, False),
+    ("cls1_0", 16, 16, (128,), 64, 3, 1, False))
+QCONV_YOLO_HEAD = (("box0_2", 32, 32, (64,), 64), ("cls0_2", 32, 32, (64,), 1),
+                   ("box2_2", 8, 8, (64,), 64), ("cls2_2", 8, 8, (64,), 1))
+
+
+def qconv_stress_cases(dev, seed: int = 0, frames: int = 2):
+    """(label, x, w8, sw, b, keyword arguments) of og_qconv's stress cases on
+    device ``dev``: every layer shape above with random int8 data, each
+    epilogue, pad 0 / 1, stride 1 / 2, C_in 16, C_out 1, two sources along K
+    (the second a channel slice of a wider tensor), windows cut at odd
+    origins (strided views), a ragged M, saturated inputs (the largest
+    accumulators) and every scale drawn so that outputs clip both ways."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def i8(*shape, lo=-127, hi=128):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8)
+                                ).to(dev)
+
+    def layer(cin, cout, k):
+        w8 = i8(cout, k, k, cin)
+        sw = torch.from_numpy(rng.uniform(1e-4, 3e-3, cout).astype(np.float32))
+        b = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32))
+        return w8, sw.to(dev), b.to(dev)
+
+    def scales(cin, k):
+        # the s32 sums reach ~ 40 sqrt(K) * 127; pick sx so that y spans a
+        # few units, and s_next so that some outputs clip at +-127
+        sx = float(rng.uniform(0.5, 2.0)) / (40.0 * math.sqrt(k * k * cin))
+        return sx, float(rng.uniform(0.5, 2.0)) / 127.0 * 2.0
+
+    cases = []
+    for label, h, w, srcs, cout in QCONV_UNET:
+        xs = tuple(i8(frames, h, w, c, lo=0) for c in srcs)   # ReLU'd inputs
+        sx, sn = scales(sum(srcs), 3)
+        cases.append((label, xs if len(xs) > 1 else xs[0],
+                      *layer(sum(srcs), cout, 3),
+                      dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    for label, h, w, srcs, cout in QCONV_UNET_WINDOW:
+        # a window cut at an odd origin out of a larger frame (a view)
+        xs = tuple(i8(frames, h + 9, w + 7, c, lo=0)[:, 5:5 + h, 3:3 + w]
+                   for c in srcs)
+        sx, sn = scales(sum(srcs), 3)
+        cases.append((label, xs if len(xs) > 1 else xs[0],
+                      *layer(sum(srcs), cout, 3),
+                      dict(sx=sx, pad=0, epilogue="relu_q", s_next=sn)))
+    for label, h, w, srcs, cout, k, stride, res in QCONV_YOLO:
+        if len(srcs) == 2:
+            # the second source a channel slice of a wider tensor
+            wide = i8(frames, h, w, 2 * srcs[1])
+            xs = (i8(frames, h, w, srcs[0]), wide[..., srcs[1]:])
+        else:
+            xs = (i8(frames, h, w, srcs[0]),)
+        sx, sn = scales(sum(srcs), k)
+        kw = dict(sx=sx, stride=stride, pad=k // 2, epilogue="silu_q",
+                  s_next=sn)
+        if res:
+            ho = out_size_(h, k, stride, k // 2)
+            kw.update(residual=i8(frames, ho, ho, 2 * cout)[..., cout:],
+                      s_res=float(rng.uniform(0.005, 0.05)))
+        cases.append((label, xs if len(xs) > 1 else xs[0],
+                      *layer(sum(srcs), cout, k), kw))
+    for label, h, w, srcs, cout in QCONV_YOLO_HEAD:
+        sx, _ = scales(srcs[0], 1)
+        cases.append((label, i8(frames, h, w, srcs[0]),
+                      *layer(srcs[0], cout, 1),
+                      dict(sx=sx, pad=0, epilogue="f32")))
+    # ragged M (3 frames of 9x11, not a multiple of the 128-pixel tile),
+    # every epilogue, stride 2, C_out 1 and 17 (partial column tiles)
+    for epi in ("relu_q", "silu_q", "f32"):
+        for cout, stride in ((1, 1), (17, 2), (80, 1)):
+            sx, sn = scales(48, 3)
+            cases.append((f"ragged {epi} cout={cout} s={stride}",
+                          i8(3, 9, 11, 48), *layer(48, cout, 3),
+                          dict(sx=sx, stride=stride, pad=1, epilogue=epi,
+                               s_next=None if epi == "f32" else sn)))
+    # saturated: every input and weight at +-127, K = 9 * 512 (the largest
+    # sums the served layers make, ~7.4e7 > 2**24: the f32 cast rounds)
+    x = torch.full((1, 16, 16, 512), 127, dtype=torch.int8, device=dev)
+    w8, sw, b = layer(512, 64, 3)
+    w8 = torch.where(w8 >= 0, 127, -127).to(torch.int8)
+    w8[:8] = 127
+    for epi in ("relu_q", "f32"):
+        cases.append((f"saturated {epi}", x, w8, sw, b,
+                      dict(sx=1e-6, pad=1, epilogue=epi,
+                           s_next=None if epi == "f32" else 0.5)))
+    return cases
+
+
+def out_size_(h: int, k: int, stride: int, pad: int) -> int:
+    return (h + 2 * pad - k) // stride + 1
 
 
 # the entry points' inputs: (a) colour 256², (b) gray 240x320 (not square,
@@ -453,6 +606,299 @@ def windowed_phase(pipes, weights, videos, counted, expect_counts,
     line["turn_order"] = "per dtype: windowed, full, full, windowed, " \
                          "windowed, full (videos 1, 1, 2, 2, 3, 3)"
     return line
+
+
+INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense int8 tensor cores
+QUANT_COHORT = (502, 380, 128, 3)
+
+
+def rel_l1(a, b) -> float:
+    """sum |a - b| / sum |b| of two waveforms."""
+    import numpy as np
+
+    return float(np.abs(a - b).sum() / max(float(np.abs(b).sum()), 1.0))
+
+
+def qconv_runner(inputs, kw):
+    """(kernel fn, plain fn, bytes moved, operations) of one recorded
+    og_qconv launch: the sources, weights, scales and residual read once,
+    the output written once; two operations per MAC."""
+    import math as _m
+
+    from openglottal_tpu_torch.ops import qconv_cuda
+
+    xs, w8, sw, b, res = inputs
+    x = xs if len(xs) > 1 else xs[0]
+    n, h, w = xs[0].shape[:3]
+    cout, kh, kw_, cin = w8.shape
+    ho = qconv_cuda.out_size(h, kh, kw["stride"], kw["pad"])
+    wo = qconv_cuda.out_size(w, kw_, kw["stride"], kw["pad"])
+    out_elem = 4 if kw["epilogue"] == "f32" else 1
+    nbytes = (sum(_m.prod(s.shape) for s in xs) + w8.numel() + 8 * cout
+              + n * ho * wo * cout * (out_elem + (res is not None)))
+    ops = 2 * n * ho * wo * cout * kh * kw_ * cin
+    return (lambda: qconv_cuda.qconv(x, w8, sw, b, **kw, residual=res),
+            lambda: qconv_cuda.qconv_plain(x, w8, sw, b, **kw, residual=res),
+            nbytes, ops)
+
+
+def quant_layer_times(dev, frames: int = 128) -> list:
+    """Per U-Net layer shape at ``frames`` frames: og_qconv's ms beside its
+    bound (max of 2 MACs / 1,979 TOPS and bytes / 3.35 TB/s), cuDNN's
+    bfloat16 conv at the same shape (channels_last, bias and ReLU not
+    included) and ``torch._int_mm`` over the layer's im2col matrix (for the
+    record only: it computes the s32 product, not the layer)."""
+    import torch
+    import torch.nn.functional as F
+
+    from openglottal_tpu_torch.ops import qconv_cuda
+
+    rows = []
+    for label, h, w, srcs, cout in QCONV_UNET + QCONV_UNET_WINDOW:
+        pad = 0 if "window" in label else 1
+        cin = sum(srcs)
+        xs = tuple(torch.randint(0, 127, (frames, h, w, c), dtype=torch.int8,
+                                 device=dev) for c in srcs)
+        x = xs if len(xs) > 1 else xs[0]
+        w8 = torch.randint(-127, 128, (cout, 3, 3, cin), dtype=torch.int8,
+                           device=dev)
+        sw = torch.full((cout,), 1e-3, device=dev)
+        b = torch.zeros(cout, device=dev)
+        inputs = (xs, w8, sw, b, None)
+        kw = dict(sx=1e-3, stride=1, pad=pad, epilogue="relu_q", s_next=0.05)
+        kfn, _, nbytes, ops = qconv_runner(inputs, kw)
+        ms = time_cuda(kfn, 10)
+        xb = torch.randn(frames, cin, h, w, device=dev, dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = time_cuda(lambda: F.conv2d(xb, wb, padding=pad), 10)
+        del xb
+        ho = h + 2 * pad - 2
+        m = frames * ho * ho
+        a = torch.randint(-127, 128, (m, 9 * cin), dtype=torch.int8,
+                          device=dev)
+        bm = torch.randint(-127, 128, (9 * cin, cout), dtype=torch.int8,
+                           device=dev)
+        try:
+            int_mm_ms = time_cuda(lambda: torch._int_mm(a, bm), 5)
+        except RuntimeError as e:          # shapes _int_mm refuses
+            int_mm_ms = f"refused: {str(e)[:80]}"
+        del a, bm, xs, x
+        t_ops = ops / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"layer": label, "shape": [frames, h, w, cin, cout],
+                     "pad": pad, "ms": ms, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "tensor_tops": ops / ms / 1e9,
+                     "cudnn_bf16_ms": cudnn_ms, "int_mm_im2col_ms": int_mm_ms})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def quant_phase(pipes, weights, videos, counted, expect_counts, hold_record,
+                host_syncs, device_kernels, smi) -> tuple:
+    """int8 serving (``GlottalPipelines(quant="int8" | "int8-full")``) of
+    ``unet`` (windowed with its ok redo, and full-frame), its cohort and
+    ``unet-only`` on the main path's 502-frame videos, demo weights,
+    conf 0.25, calibrated on video 0's first 64 frames: every og_qconv launch
+    of the main runs held exactly equal to its plain version; int8 vs bf16
+    waveforms (relative L1 < 0.05, the JAX selftest's int8-full gate), int8
+    windowed vs full-frame (<= 2.0 px a frame), the "int8" gate equal to
+    the bf16 run's, a cohort of mixed lengths equal to the per-video calls,
+    save -> load equal, card vs CPU on 12 frames (< 0.05), host syncs per
+    video; then per-layer times, the int8 U-Net stage's device ms and walls
+    per video in turns.  Raises on any failed check; returns (the phase's
+    line, the "int8" windowed main run's record, its launch counts)."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.models import quant as quant_mod
+    from openglottal_tpu_torch.models.unet import chunk_window_origin
+    from openglottal_tpu_torch.pipelines import CHUNK, WIN, GlottalPipelines
+
+    bf = torch.bfloat16
+    v = videos[0]
+    t0 = time.perf_counter()
+    q = {}
+    for mode in ("int8", "int8-full"):
+        for route, win in (("windowed", None), ("full", False)):
+            q[(mode, route)] = GlottalPipelines(dtype=bf, quant=mode,
+                                                window_decoder=win, **weights)
+        q[(mode, "windowed")].calibrate(v)
+        q[(mode, "full")]._qparams = q[(mode, "windowed")]._qparams
+    torch.cuda.synchronize()
+    line = {"video": "synthetic_video(t=502, size=256, seed=0, "
+                     "realistic=False), channel 0; calibrated on its first "
+                     "64 frames", "calibration_s": time.perf_counter() - t0,
+            "nvidia_smi": smi, "launches": {}, "launches_held": 0}
+    bf16 = {"windowed": pipes["bf16"],
+            "full": GlottalPipelines(dtype=bf, window_decoder=False,
+                                     **weights)}
+    for p in [*q.values(), bf16["full"]]:
+        p.extract_features(videos[1], "unet")            # warm-up (cuDNN)
+
+    # the main runs, every launch counted and held
+    n_q = {"int8": 17, "int8-full": 17 + 62}     # og_qconv launches a chunk
+    areas, main_record, main_counts = {}, None, None
+    for (mode, route), p in q.items():
+        def run(p=p):
+            pending = p.yolo_unet_areas_deferred(v)
+            return p.yolo_unet_areas_resolve(pending), pending[1]
+
+        record = []
+        (a, ok), got = counted(run, record)
+        expect_counts(f"quant {mode}/{route}", got,
+                      {k: (n_q[mode] * N_CHUNKS if k == "qconv" else
+                           N_CHUNKS if k in ("gate_scan", "box_count") else 0)
+                       for k in got})
+        if route == "windowed" and (ok is None or not bool(ok)):
+            raise AssertionError(f"{mode}: the windowed int8 decoder did not "
+                                 f"fit the served video")
+        hold_record(f"quant {mode}/{route}", record)
+        line["launches_held"] += len(record)
+        line["launches"][f"{mode}/{route}"] = got
+        areas[(mode, route)] = a
+        if (mode, route) == ("int8", "windowed"):
+            main_record, main_counts = record, got
+        else:
+            del record
+    want = {r: bf16[r].extract_features(v, "unet")["_area"] for r in bf16}
+    for (mode, route), a in areas.items():
+        rel = rel_l1(a, want[route])
+        line[f"int8_vs_bf16_rel_l1_{mode}_{route}"] = rel
+        if rel >= 0.05:
+            raise AssertionError(f"{mode}/{route}: int8 vs bf16 relative L1 "
+                                 f"{rel} (limit 0.05)")
+    for mode in ("int8", "int8-full"):
+        d = np.abs(areas[(mode, "windowed")] - areas[(mode, "full")])
+        line[f"windowed_vs_full_max_abs_px_{mode}"] = float(d.max())
+        if d.max() > 2.0:
+            raise AssertionError(f"{mode}: windowed vs full-frame int8 areas "
+                                 f"differ by {d.max()} px (limit 2.0)")
+        u8 = q[(mode, "windowed")].unet_only_areas(v).cpu().numpy()
+        ub = pipes["bf16"].unet_only_areas(v).cpu().numpy()
+        rel = rel_l1(u8, ub)
+        line[f"int8_vs_bf16_rel_l1_{mode}_unet_only"] = rel
+        if rel >= 0.05:
+            raise AssertionError(f"{mode}/unet-only: int8 vs bf16 relative "
+                                 f"L1 {rel} (limit 0.05)")
+    # "int8" keeps the bf16 detector: its gate is the bf16 run's
+    gray = pipes["bf16"]._to_gray(v)
+    gq = q[("int8", "windowed")]._unet_gated(None, gray, True)
+    gb = pipes["bf16"]._unet_gated(None, gray, True)
+    if not (torch.equal(gq[2], gb[2]) and torch.equal(gq[3], gb[3])):
+        raise AssertionError("int8: the gate's valid/boxes differ from the "
+                             "bf16 run's")
+    line["int8_gate_equals_bf16"] = True
+    boxes, valid = gq[3], gq[2]
+    line["chunk_windows_oy_ox_fits"] = [
+        [int(o[1]), int(o[2]), bool(o[0])] for o in (
+            chunk_window_origin(boxes[i:i + CHUNK], valid[i:i + CHUNK], 256,
+                                256, WIN, lattice=4, margin=6)
+            for i in range(0, T_FRAMES, CHUNK))]
+
+    # a cohort of mixed lengths against the per-video calls (exact)
+    cohort = [vid[:t] for vid, t in zip(videos, QUANT_COHORT)]
+    for mode in ("int8", "int8-full"):
+        p = q[(mode, "windowed")]
+        multi = p.yolo_unet_areas_gray_multi(cohort)
+        for i, (a, g) in enumerate(zip(multi, cohort)):
+            if not np.array_equal(a, p.yolo_unet_areas_gray(g).cpu().numpy()):
+                raise AssertionError(f"{mode} cohort: video {i} differs from "
+                                     f"its per-video call")
+    line["cohort_equals_per_video"] = {"lengths": list(QUANT_COHORT),
+                                       "modes": ["int8", "int8-full"]}
+
+    # save -> load: the same waveform; card vs CPU on 12 frames
+    qfile = Path("openglottal_tpu_torch/build/quant_check/qparams.npz")
+    q[("int8-full", "windowed")].save_qparams(qfile)
+    back = GlottalPipelines(dtype=bf, quant="int8-full", **weights)
+    back.load_qparams(qfile)
+    if not np.array_equal(back.extract_features(v, "unet")["_area"],
+                          areas[("int8-full", "windowed")]):
+        raise AssertionError("int8-full: the reloaded calibration's waveform "
+                             "differs")
+    line["save_load_same_waveform"] = True
+    small = v[:12]
+    card = GlottalPipelines(dtype=torch.float32, quant="int8", **weights)
+    cpu = GlottalPipelines(dtype=torch.float32, quant="int8", device="cpu",
+                           **weights)
+    card.load_qparams(qfile)
+    cpu.load_qparams(qfile)
+    for p in (card, cpu):
+        p._qparams.pop("yolo")
+    a_cpu = cpu.yolo_unet_areas(small).numpy()
+    a_card = card.yolo_unet_areas(small).cpu().numpy()
+    line["card_vs_cpu_rel_l1_12_frames"] = rel_l1(a_card, a_cpu)
+    if line["card_vs_cpu_rel_l1_12_frames"] >= 0.05:
+        raise AssertionError(f"int8: card vs CPU relative L1 "
+                             f"{line['card_vs_cpu_rel_l1_12_frames']}")
+
+    # host syncs and device kernels per video, int8 against bf16
+    line["host_syncs_per_video"], line["host_sync_sites"] = {}, {}
+    line["n_device_kernels_per_video"] = {}
+    for key, p in (("bf16/windowed", bf16["windowed"]),
+                   ("bf16/full", bf16["full"]),
+                   *((f"{m}/{r}", q[(m, r)]) for m, r in q)):
+        n, sites = host_syncs(lambda: p.extract_features(v, "unet"))
+        line["host_syncs_per_video"][key] = n
+        line["host_sync_sites"][key] = sites
+        line["n_device_kernels_per_video"][key] = sum(device_kernels(
+            lambda: p.extract_features(v, "unet")).values())
+    for m, r in q:
+        if line["host_syncs_per_video"][f"{m}/{r}"] != \
+                line["host_syncs_per_video"][f"bf16/{r}"]:
+            raise AssertionError(f"{m}/{r}: host syncs per video differ from "
+                                 f"the bf16 route's")
+
+    # the int8 U-Net stage on one 128-frame chunk, by CUDA events, against
+    # the bf16 U-Net's, both routes (the window at chunk 0's origin)
+    qp = q[("int8", "windowed")]._qparams["unet"]
+    g = gray[:CHUNK]
+    _, oy, ox = chunk_window_origin(boxes[:CHUNK], valid[:CHUNK], 256, 256,
+                                    WIN, lattice=4, margin=6)
+    unet = pipes["bf16"].unet
+    xin = pipes["bf16"]._unet_input(g)
+
+    def bf16_window():
+        d3, s2, s1 = unet.apply_to_d3(xin)
+        return unet.tail_from_ymw(unet.mid_window(d3, s2, oy, ox, WIN), s1,
+                                  oy, ox, WIN)
+
+    enc = quant_mod.qunet_to_d3(qp, g)
+    stage = {
+        "int8_to_d3": lambda: quant_mod.qunet_to_d3(qp, g),
+        "int8_window_tail": lambda: quant_mod.qunet_tail_from_d3_window(
+            qp, *enc, oy, ox, WIN),
+        "int8_full_tail": lambda: quant_mod.qunet_tail_from_d3_full(qp, *enc),
+        "int8_windowed_unet": lambda: quant_mod.qunet_tail_from_d3_window(
+            qp, *quant_mod.qunet_to_d3(qp, g), oy, ox, WIN),
+        "int8_full_unet": lambda: quant_mod.qunet_logits(qp, g),
+        "bf16_windowed_unet": bf16_window,
+        "bf16_full_unet": lambda: unet.logits(xin)}
+    line["unet_stage_device_ms_per_chunk"] = {
+        k: time_cuda(f, 5) for k, f in stage.items()}
+    del enc
+
+    # walls per video in turns, over three distinct videos
+    walls = {}
+    for route in ("windowed", "full"):
+        order = [("bf16", bf16[route]), ("int8", q[("int8", route)]),
+                 ("int8-full", q[("int8-full", route)])]
+        order = order + order[::-1]
+        for tag, p in order:
+            for vid in videos[1:4]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p.extract_features(vid, "unet")
+                walls.setdefault(f"{tag}/{route}", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+    line["wall_ms_per_video_in_turns"] = walls
+    line["turn_order"] = ("per route: bf16, int8, int8-full, int8-full, "
+                          "int8, bf16, each over videos 1, 2, 3")
+    line["layers_128_frames"] = quant_layer_times(torch.device("cuda"))
+    return line, main_record, main_counts
 
 
 # the cohort: eight 256² gray videos of these lengths, two of them realistic
@@ -1070,6 +1516,7 @@ def main() -> int:
         areas_cuda,
         blobs,
         blobs_cuda,
+        qconv_cuda,
         scan_cuda,
     )
     from openglottal_tpu_torch.ops.blur import gaussian_blur
@@ -1130,12 +1577,13 @@ def main() -> int:
 
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
-                **areas_cuda.LAUNCHES}
+                **areas_cuda.LAUNCHES, **qconv_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         blobs_cuda.reset_launch_counts()
         scan_cuda.reset_launch_counts()
         areas_cuda.reset_launch_counts()
+        qconv_cuda.reset_launch_counts()
 
     # ── kernels vs plain versions on stress inputs (exact) ──────────────
     max_err = {k: 0 for k in counts()}
@@ -1746,7 +2194,19 @@ def main() -> int:
              256, 256, gate_mod.GateParams()),
             (*(torch.from_numpy(np.asarray(x)).to(dev) for x in th), 0.7))
 
+    # og_qconv on every int8 layer shape, each epilogue and the edge cases
+    # (qconv_stress_cases): int8 outputs and float32 bits exactly equal
+    qconv_labels = []
+    for label, x, w8, sw, b, kw in qconv_stress_cases(dev):
+        got = qconv_cuda.qconv(x, w8, sw, b, **kw)
+        want = qconv_cuda.qconv_plain(x, w8, sw, b, **kw)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        hold("qconv", got, want)
+        qconv_labels.append(label)
+
     say("kernels", ok=True, compared="exact equality with the plain version",
+        qconv_stress_cases=qconv_labels,
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress), box_count_stress_cases=box_stress,
         box_count_tables_by_size=box_tables,
@@ -1807,12 +2267,14 @@ def main() -> int:
         """fn() with every launch count set to 0 just before and read just
         after; launches are also recorded into ``record`` when given."""
         blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
+        qconv_cuda.RECORD = record
         reset_counts()
         try:
             out = fn()
             return out, counts()
         finally:
             blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
+            qconv_cuda.RECORD = None
 
     def host_syncs(fn):
         """(count, sites) of the host synchronisations one call of fn()
@@ -2040,10 +2502,14 @@ def main() -> int:
                             "cohort-guided-vft"),
         "thresh_chain_batch": ("openglottal_tpu/models/tracker.py:377",
                                "cohort-guided-vft"),
+        # the int8 convolutions (unet's windowed int8 main path): XLA's
+        # lowering of quant.py's _qconv, no Pallas kernel
+        "qconv": ("openglottal_tpu/models/quant.py:304", "quant-unet"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
     source["box_count"] = "openglottal_tpu_torch/csrc/areas.cu"
+    source["qconv"] = "openglottal_tpu_torch/csrc/qconv.cu"
     # the C entry point each wrapper launches
     c_entry = {"dual_cc_batch": "og_dual_cc",
                "dual_min_prop_batch": "og_dual_min_prop",
@@ -2052,7 +2518,8 @@ def main() -> int:
                "thresh_chain": "og_thresh_chain",
                "motion_map": "og_motion_map", "box_count": "og_box_count",
                "gate_scan_batch": "og_gate_scan_batch",
-               "thresh_chain_batch": "og_thresh_chain_batch"}
+               "thresh_chain_batch": "og_thresh_chain_batch",
+               "qconv": "og_qconv"}
 
     def links(code):
         """Neighbour links this input makes the union-find test and join:
@@ -2070,6 +2537,8 @@ def main() -> int:
 
     def runners(name, inputs, kw):
         """(kernel fn, plain fn, bytes moved, operations) for one launch."""
+        if name == "qconv":
+            return qconv_runner(inputs, kw)
         if name == "dual_cc_batch":
             (code,) = inputs
             px = code.numel()
@@ -2213,6 +2682,7 @@ def main() -> int:
             e["bytes"].append(nbytes)
             e["ops"].append(ops)
             big = max((c.x for c in inputs) if name == "box_count"
+                      else inputs[0] if name == "qconv"
                       else inputs, key=torch.numel)
             e["shapes"].append(list(big.shape))
 
@@ -2283,6 +2753,18 @@ def main() -> int:
     reset_counts()
     path_launches.update(stream_counts)
     say("stream", **stream_line)
+
+    # ── int8 serving: both modes, both routes, og_qconv on the card ─────
+    quant_line, quant_record, quant_counts = quant_phase(
+        pipes, weights, videos, counted, expect_counts, hold_record,
+        host_syncs, device_kernels, smi)
+    reset_counts()
+    path_launches["quant-unet/bf16"] = quant_counts
+    measure("quant-unet", quant_record)     # (not kept: ~6 GB of inputs)
+    del quant_record
+    reset_counts()
+    say("quant", compared="every recorded launch exactly equal to its plain "
+        "version", **quant_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -2605,7 +3087,8 @@ def main() -> int:
         at = [i for i, s in enumerate(e["shapes"]) if math.prod(s) == big]
         n = len(at)
         t_bytes = sum(e["bytes"][i] for i in at) / n / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(e["ops"][i] for i in at) / n / FP32_OPS_PER_S * 1e3
+        rate = INT8_OPS_PER_S if name == "qconv" else FP32_OPS_PER_S
+        t_ops = sum(e["ops"][i] for i in at) / n / rate * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source[name],
             "c_entry": c_entry[name],

@@ -5,6 +5,7 @@ Counterpart of ``openglottal_tpu/cli.py``'s ``run`` command, with its flags:
     python -m openglottal_tpu_torch.cli run VIDEO --pipeline unet \\
         --yolo-weights weights/demo_yolo.npz \\
         --unet-weights weights/demo_unet.npz [--stream CHUNK] \\
+        [--quant int8|int8-full [--calib VIDEO] [--qparams NPZ]] \
         [--device cuda|cpu] [-o results]
 
 ``--stream CHUNK`` decodes and serves the video CHUNK frames at a time in
@@ -14,9 +15,17 @@ to their sequential forms); without it the whole video is decoded and
 served (``extract_features``).  ``--device`` picks the device (the CUDA
 device by default; ``cpu`` on purpose).  Videos are read by the port's own
 AVI reader (``data/video.py``: uncompressed gray and BI_RGB).  Weights are
-``.npz`` files.  int8 serving (``--quant``, ``--calib``, ``--qparams``) is
-not ported yet, nor are the other commands of the JAX package's command
-line (dataset building, training, evaluation, scripts).
+``.npz`` files.
+
+``--quant int8`` serves the U-Net in int8 (``int8-full``: the detector too;
+``models/quant.py``) on the routes the JAX package quantizes (``unet`` and
+``unet-only`` on 256² video; streams stay bfloat16, as the JAX package's
+do).  ``--qparams NPZ``: a calibration file loaded if it exists, else
+written after calibrating (on ``--calib VIDEO``'s first 64 frames if given,
+else on the input video's); its layout is the JAX package's, so either
+package reads the other's.  ``--calib`` / ``--qparams`` without ``--quant``
+is an error.  The other commands of the JAX package's command line (dataset
+building, training, evaluation, scripts) are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,12 +57,18 @@ def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
     run_p.add_argument("--output", "-o", default="results")
     run_p.add_argument("--conf", type=float, default=None,
                        help="YOLO confidence threshold (default from config).")
-    run_p.add_argument("--quant", default=None,
-                       help="int8 serving: not ported yet.")
+    run_p.add_argument("--quant", choices=["int8", "int8-full"], default=None,
+                       help="int8 serving: the U-Net post-training quantized "
+                            "(calibrated on the input video unless --calib or "
+                            "--qparams says otherwise), on the unet / "
+                            "unet-only whole-video paths; 'int8-full' "
+                            "quantizes the YOLO detector too.")
     run_p.add_argument("--calib", default=None, metavar="VIDEO",
-                       help="int8 calibration video: not ported yet.")
+                       help="int8 calibration video (its first 64 frames).")
     run_p.add_argument("--qparams", default=None, metavar="NPZ",
-                       help="int8 calibration file: not ported yet.")
+                       help="Persisted int8 calibration: loaded if the file "
+                            "exists, else written after calibration (the JAX "
+                            "package's .npz layout).")
     run_p.add_argument("--stream", type=int, default=0, metavar="CHUNK",
                        help="Process the video in CHUNK-frame segments with "
                             "bounded memory (all five pipelines; the results "
@@ -74,9 +89,8 @@ def main(argv: list[str] | None = None) -> None:
 
 
 def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
-    if args.quant or args.calib or args.qparams:
-        parser.error("int8 serving (--quant, --calib, --qparams) is not "
-                     "ported yet")
+    if (args.calib or args.qparams) and not args.quant:
+        parser.error("--calib/--qparams need --quant int8 or int8-full")
     if args.stream < 0:
         parser.error("--stream must be >= 0")
     needs_yolo = args.pipeline in ("vft", "guided-vft", "unet", "crop-unet")
@@ -95,7 +109,7 @@ def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
         iter_frames_bgr,
         load_frames_bgr,
     )
-    from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.pipelines import CALIB_FRAMES, GlottalPipelines
     from openglottal_tpu_torch.utils.io import (
         load_unet_weights,
         load_yolo_weights,
@@ -115,7 +129,19 @@ def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
         yolo_variables=weights(args.yolo_weights, load_yolo_weights),
         conf=cfg.detector.conf, gate_params=cfg.gate_params(),
         vft_params=cfg.vft_params(), ygvft_params=cfg.ygvft_params(),
-        device=args.device)
+        quant=args.quant, device=args.device)
+    if args.quant:
+        if args.qparams and os.path.exists(args.qparams):
+            pipe.load_qparams(args.qparams)
+        elif args.calib:
+            pipe.calibrate(pipe.prepare(
+                load_frames_bgr(args.calib)[:CALIB_FRAMES])[1])
+        if args.qparams and not os.path.exists(args.qparams):
+            if pipe._qparams is None:
+                pipe.calibrate(pipe.prepare(
+                    load_frames_bgr(args.video)[:CALIB_FRAMES])[1])
+            pipe.save_qparams(args.qparams)
+            print(f"int8 calibration saved to {args.qparams}")
     if args.stream:
         feats = pipe.stream_features(
             iter_frames_bgr(args.video, chunk=args.stream), args.pipeline)

@@ -22,8 +22,19 @@ letterboxed to 256² (bilinear, rounded to uint8) and its boxes mapped back;
 the U-Net of ``unet`` / ``unet-only`` runs on frames resized to 256² and its
 probabilities are resized back.  Both trackers run frame-parallel by default
 and as a sequential per-frame loop with ``parallel_trackers=False`` (the
-debug form).  Meshes and int8 raise ``NotImplementedError`` until a later
-slice ports them.
+debug form).  Meshes raise ``NotImplementedError`` until a later slice
+ports them.
+
+int8 serving (``quant="int8"``: the U-Net post-training quantized, the
+detector bfloat16; ``"int8-full"``: the detector too; ``models/quant.py``,
+every interior convolution one launch of ``og_qconv``) takes the routes the
+JAX package quantizes: ``unet`` on 256² video of which one channel crossed
+(windowed with its ``ok`` redo, or full-frame), its cohorts and
+``unet-only`` on 256² frames.  Other input, the other pipelines,
+``run_pipeline_full`` and streams stay bfloat16, as in the JAX package.  The
+calibration is made on the first video served (its first 64 frames) unless
+:meth:`GlottalPipelines.calibrate` or :meth:`GlottalPipelines.load_qparams`
+made it first.
 
 Streaming (``stream_areas``, ``stream_features``) serves all five
 pipelines from an iterable of 256² chunks in memory bounded by the chunk:
@@ -61,6 +72,7 @@ import torch
 from openglottal_tpu_torch.data.prefetch import prefetch_to_device
 from openglottal_tpu_torch.data.video import bgr_to_gray_u8
 from openglottal_tpu_torch.features import kinematic_features
+from openglottal_tpu_torch.models import quant as quant_mod
 from openglottal_tpu_torch.models.fold import (
     UNET_STEM,
     YOLO_STEM,
@@ -111,6 +123,8 @@ from openglottal_tpu_torch.utils.io import load_weights_npz
 VFT_INIT = 2     # init crops of the motion tracker
 YGVFT_INIT = 2   # init frames of the guided tracker
 CHUNK = 128      # frame-chunk size for batched model passes
+CALIB_FRAMES = 64   # frames of the int8 calibration
+QUANT_MODES = (None, "int8", "int8-full")
 SIZE = 256       # the networks' frame size
 WIN = 160        # the windowed decoder's window side (frame pixels)
 PIPELINES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
@@ -320,6 +334,14 @@ def _to_u8(x):
     return torch.round(x).clamp(0, 255).to(torch.uint8)
 
 
+def _unet_features(sd) -> tuple:
+    """The encoder widths of a U-Net ``state_dict`` (32, 64, 128, 256 for
+    the served model; narrower trees load too)."""
+    n = sum(1 for k in sd if k.startswith("downs.") and k.endswith(
+        ".net.0.weight"))
+    return tuple(int(sd[f"downs.{i}.net.0.weight"].shape[0]) for i in range(n))
+
+
 def _as_tree(weights):
     """A weight tree given as such or as the path of an ``.npz`` file."""
     if weights is None or isinstance(weights, dict):
@@ -344,7 +366,8 @@ class GlottalPipelines:
     full-frame route); ``None`` turns it on when the weights are folded and
     both models are given, as the JAX package does.  ``use_plain_kernels``
     is a test hook: it routes every hand-written kernel to its plain version
-    on any device.
+    on any device.  ``quant``: None, ``"int8"`` or ``"int8-full"`` (the int8
+    serving mode, module docstring); it needs folded weights.
     """
 
     def __init__(self, unet_variables=None, crop_unet_variables=None,
@@ -359,8 +382,9 @@ class GlottalPipelines:
                  use_plain_kernels: bool = False):
         if mesh is not None:
             raise NotImplementedError("mesh sharding is ported in a later slice")
-        if quant is not None:
-            raise NotImplementedError("int8 serving is ported in a later slice")
+        if quant not in QUANT_MODES:
+            raise ValueError(
+                f"quant must be None, 'int8' or 'int8-full', got {quant!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = resolve_device(device)
@@ -388,11 +412,22 @@ class GlottalPipelines:
             if self._fuse:
                 sds = {k: (fold_yolo if k == "yolo" else fold_unet)(sd)
                        for k, sd in sds.items()}
+        if quant is not None and not self._fuse:
+            raise ValueError("quant needs BN-folded variables "
+                             "(provide batch_stats or pre-folded weights)")
+        self._quant = quant
+        self._qparams = None
+        # the folded float32 weights the int8 mode quantizes (the stems not
+        # scaled by 1/255, as the JAX package's trees are)
+        self._folded = {} if quant is None else {
+            k: {n: t.to(self.device) for n, t in sds[k].items()}
+            for k in ("unet", "yolo") if k in sds}
         self.unet = self.crop_unet = self.yolo = None
         for name in ("unet", "crop_unet"):
             if name in sds:
                 setattr(self, name, self._build(
-                    UNet(fuse_bn=self._fuse),
+                    UNet(fuse_bn=self._fuse, features=_unet_features(
+                        sds[name])),
                     absorb_u8_scale(sds[name], UNET_STEM)))
         if "yolo" in sds:
             self.yolo = self._build(
@@ -415,6 +450,69 @@ class GlottalPipelines:
         model = model.eval().requires_grad_(False)
         return model.to(device=self.device, dtype=self.dtype,
                         memory_format=torch.channels_last)
+
+    # ── int8 serving: calibration and its persistence ───────────────────
+
+    @torch.no_grad()
+    def calibrate(self, gray_u8):
+        """Quantize the models for the int8 mode on the first CALIB_FRAMES
+        frames of ``gray_u8`` ((N, 256, 256) uint8, host or device) as the
+        activation-range calibration set: the U-Net always, the detector in
+        ``"int8-full"``.  Called with the first video served when not called
+        before."""
+        if self._quant is None:
+            raise ValueError("calibrate needs quant='int8' or 'int8-full'")
+        g = gray_u8[:CALIB_FRAMES]
+        g = (g if isinstance(g, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(np.asarray(g))))
+        g = g.to(self.device)
+        qp = {"unet": quant_mod.quantize_unet(self._folded["unet"], g)}
+        if self._quant == "int8-full" and "yolo" in self._folded:
+            cin = self._folded["yolo"][YOLO_STEM].shape[1]
+            x = g.float()[..., None].expand(-1, -1, -1, cin)
+            qp["yolo"] = quant_mod.quantize_yolo(self._folded["yolo"], x)
+        self._qparams = qp
+        return self
+
+    def save_qparams(self, path):
+        """Persist the int8 calibration in the JAX package's ``.npz`` layout
+        (``models/quant.save_qparams``), so that serving does not depend on
+        which video came first."""
+        if self._qparams is None:
+            raise ValueError("not calibrated yet: call calibrate() first")
+        quant_mod.save_qparams(self._qparams, path)
+        return self
+
+    def load_qparams(self, path):
+        """Restore a persisted calibration (this package's or the JAX
+        package's ``.npz``); no lazy calibration follows."""
+        if self._quant is None:
+            raise ValueError("load_qparams needs quant='int8'/'int8-full'")
+        self._qparams = quant_mod.load_qparams(path, self.device)
+        return self
+
+    def _q(self, gray):
+        """The qparams of the int8 routes, calibrating on ``gray`` (the
+        first video served) when there are none."""
+        if self._qparams is None:
+            self.calibrate(gray)
+        return self._qparams
+
+    def _int8_route(self, frames_dev, gray) -> bool:
+        """Whether ``unet`` serves this video in int8: the int8 mode and 256²
+        video of which one channel crossed (the JAX package's rule)."""
+        return (self._quant is not None and frames_dev is None
+                and tuple(gray.shape[1:3]) == (SIZE, SIZE))
+
+    def _qdetect_chunk(self, qp, gray_chunk):
+        """The int8 detector (``"int8-full"``) on a chunk of 256² gray
+        frames: raw 0..255 values, the channel broadcast to the stem's
+        three -> (has (N,), raw boxes (N, 4) f32)."""
+        h, w = gray_chunk.shape[1:]
+        cin = qp["stem_bf16"]["kernel"].shape[1]
+        x = gray_chunk.float()[..., None].expand(-1, -1, -1, cin)
+        outs = quant_mod.qyolo_forward(qp, x, self.use_plain_kernels)
+        return max_conf_detect(outs, h, w, self.conf)[:2]
 
     # ── input ───────────────────────────────────────────────────────────
 
@@ -763,11 +861,19 @@ class GlottalPipelines:
     @torch.no_grad()
     def unet_only_areas(self, gray_u8):
         """Pipeline 5: the U-Net's mask area of every frame, no gate ->
-        (T,) float32 on the device."""
+        (T,) float32 on the device (in the int8 mode, 256² frames through
+        the int8 U-Net)."""
         self._require("unet")
+        gray = self._to_gray(gray_u8)
+        if self._quant is not None and tuple(gray.shape[1:]) == (SIZE, SIZE):
+            qp = self._q(gray)["unet"]
+            return self._chunks(
+                lambda g: quant_mod.qunet_masks(
+                    qp, g, self.use_plain_kernels).sum((1, 2)).to(
+                        torch.float32), gray)
         return self._chunks(
             lambda g: self._segment_chunk(g).sum((1, 2)).to(torch.float32),
-            self._to_gray(gray_u8))
+            gray)
 
     def _windowed(self, frames_dev, gray) -> bool:
         """Whether pipeline 3 takes the windowed decoder on this input: the
@@ -776,7 +882,7 @@ class GlottalPipelines:
         return (self.window_decoder and frames_dev is None
                 and tuple(gray.shape[1:]) == (SIZE, SIZE))
 
-    def _window_areas(self, enc, valid, boxes):
+    def _window_areas(self, enc, valid, boxes, qp=None):
         """The windowed decoder on one chunk (JAX package:
         ``_unet_windowed_areas_chunk_fn``, ``tail="window"``, after
         ``unet_apply_to_d3``): one (WIN, WIN) window covering the union of
@@ -784,7 +890,16 @@ class GlottalPipelines:
         host) and the last two decoder levels on it -> (logits (N, WIN,
         WIN), fits 0-d bool, oy, ox), for the in-box count of ``logits >
         0``.  Where the boxes do not fit, the origin is still in the frame
-        and the logits are computed, but only ``fits`` is to be trusted."""
+        and the logits are computed, but only ``fits`` is to be trusted.
+        With ``qp`` (the int8 U-Net's qparams), ``enc`` is
+        ``models/quant.qunet_to_d3``'s output and the int8 tail runs."""
+        if qp is not None:
+            x8, skip1, skip2 = enc
+            fits, oy, ox = chunk_window_origin(boxes, valid, *skip1.shape[1:3],
+                                               WIN, lattice=4, margin=6)
+            logits = quant_mod.qunet_tail_from_d3_window(
+                qp, x8, skip1, skip2, oy, ox, WIN, self.use_plain_kernels)
+            return logits, fits, oy, ox
         d3out, skip2, skip1 = enc
         h, w = skip1.shape[2:]
         fits, oy, ox = chunk_window_origin(boxes, valid, h, w, WIN,
@@ -795,7 +910,7 @@ class GlottalPipelines:
 
     @torch.no_grad()
     def _unet_gated_multi(self, videos, window: bool,
-                          want_masks: bool = False):
+                          want_masks: bool = False, quant: bool | None = None):
         """Pipeline 3 over K videos (``videos``: (frames_dev | None, gray)
         pairs, as :meth:`_prepare` gives them) in one loop over chunk
         indices: for chunk j, each video's U-Net, detector and temporal gate
@@ -823,7 +938,17 @@ class GlottalPipelines:
         device; ``ok`` (windowed route) is False when a chunk's boxes did
         not fit its window, and the areas are then to be redone on the
         full-frame route.  ``want_masks``: the full-frame route's masks
-        too."""
+        too.
+
+        ``quant`` (None: :meth:`_int8_route` of every video): the int8 U-Net
+        (``models/quant``: ``qunet_to_d3`` and the windowed tail, or
+        ``qunet_logits``), calibrated on the first video when not yet, and
+        in ``"int8-full"`` the int8 detector.  JAX package:
+        ``_fused_yolo_unet_video_qw`` / ``_q`` and their ``_multi`` forms."""
+        if quant is None:
+            quant = all(self._int8_route(f, g) for f, g in videos)
+        qp = self._q(videos[0][1]) if quant else None
+        qdet = quant and "yolo" in qp
         st = []
         for frames_dev, gray in videos:
             t, h, w = gray.shape
@@ -843,15 +968,24 @@ class GlottalPipelines:
                     g = v["gray"][i:i + CHUNK]
                     if g.shape[0] == 0:
                         continue
+                    up = self.use_plain_kernels
                     if window:
-                        enc = self.unet.apply_to_d3(self._unet_input(g))
+                        enc = (quant_mod.qunet_to_d3(qp["unet"], g, up)
+                               if quant else
+                               self.unet.apply_to_d3(self._unet_input(g)))
+                    elif quant:
+                        scores, thr = quant_mod.qunet_logits(qp["unet"], g,
+                                                             up), 0.0
                     else:
                         scores, thr = self._scores_chunk(g)
-                    has, raw = self._detect_chunk(v["det_in"][i:i + CHUNK])
+                    det = v["det_in"][i:i + CHUNK]
+                    has, raw = (self._qdetect_chunk(qp["yolo"], det) if qdet
+                                else self._detect_chunk(det))
                     vv, bb = v["gate"](has, self._frame_boxes(raw, *v["hw"]))
                     out = v["areas"][i:i + CHUNK]
                     if window:
-                        logits, fits, oy, ox = self._window_areas(enc, vv, bb)
+                        logits, fits, oy, ox = self._window_areas(
+                            enc, vv, bb, qp["unet"] if quant else None)
                         del enc
                         v["fits"].append(fits)
                         table.append(CountChunk(logits, vv, bb, oy, ox, out))
@@ -868,10 +1002,10 @@ class GlottalPipelines:
                  torch.cat(v["masks"]) if want_masks else None) for v in st]
 
     def _unet_gated(self, frames_dev, gray, window: bool,
-                    want_masks: bool = False):
+                    want_masks: bool = False, quant: bool | None = None):
         """:meth:`_unet_gated_multi` of one video."""
         return self._unet_gated_multi([(frames_dev, gray)], window,
-                                      want_masks)[0]
+                                      want_masks, quant)[0]
 
     def yolo_unet_areas_deferred(self, frames_u8):
         """Pipeline 3 queued without any host read -> an opaque handle for
@@ -1244,7 +1378,8 @@ class GlottalPipelines:
         to their sequential forms (``parallel_trackers=False``).  Colour
         chunks detect on their BGR frames and segment on gray, as the
         whole-video calls do; chunks of other sizes than 256² raise
-        ``ValueError``.  An empty stream gives an empty waveform."""
+        ``ValueError``.  An empty stream gives an empty waveform.  In the
+        int8 mode streams stay bfloat16, as the JAX package's do."""
         if pipeline in ("vft", "guided-vft"):
             self._require("yolo")
             return self._stream_tracker_areas(chunks, pipeline, prefetch)
@@ -1380,8 +1515,9 @@ class GlottalPipelines:
         self._require("yolo")
         if pipeline == "unet":
             self._require("unet")
+            # bfloat16 in the int8 mode too, as the JAX package's
             areas, _, valid, boxes, masks = self._unet_gated(
-                frames_dev, gray, False, want_masks=True)
+                frames_dev, gray, False, want_masks=True, quant=False)
             return masks & valid[:, None, None], valid, boxes, areas
         valid, boxes = self._gated(frames_dev, gray)
         if pipeline == "crop-unet":

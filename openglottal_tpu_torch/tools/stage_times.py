@@ -2,7 +2,7 @@
 
     python3 -m openglottal_tpu_torch.tools.stage_times [--frames 502] [--out DIR]
         [--pipelines guided-vft,unet,unet-full,vft] [--dtypes bf16,f32]
-        [--cohort K]
+        [--cohort K] [--quant int8|int8-full]
 
 Serves synthetic 256x256 videos through ``guided-vft``, ``unet`` (its
 windowed decoder, the default on this input), ``unet-full`` (``unet`` with
@@ -31,6 +31,17 @@ one host read of the window choice), ``window_gather``, ``percentile``,
 ``thresh_chain_batch``, ``threshold_compare``, ``blob_filter_total`` (and
 its kernels apart), ``area_sum_and_read``; each also per video.
 
+``--quant MODE`` serves ``unet`` / ``unet-full`` in the int8 mode
+(``GlottalPipelines(quant=MODE)``, calibrated on the first video) and splits
+the int8 U-Net into its stages: ``int8_stem`` (the bfloat16 stem and its
+requantisation), ``int8_convs_to_d3`` (the og_qconv launches and max-pools
+of the encoder, the bottleneck and the two deeper decoder levels),
+``int8_upsamplers`` (the four bfloat16 transposed convs, dequantised in and
+requantised out), ``int8_window_cuts`` (the window gathers; windowed route),
+``int8_convs_levels_2_3`` (the og_qconv launches of the last two levels) and
+``int8_head`` (the float32 1x1 head); ``int8-full`` times its int8 detector
+as ``detector``.
+
 Fails without a CUDA device.  With ``--out`` the lines are also written to
 ``DIR/stage_times.jsonl``.
 """
@@ -55,6 +66,9 @@ def main() -> int:
     ap.add_argument("--dtypes", default="bf16,f32")
     ap.add_argument("--cohort", type=int, default=0,
                     help="K: also time guided-vft's cohort form on K videos")
+    ap.add_argument("--quant", choices=["int8", "int8-full"], default=None,
+                    help="serve unet / unet-full in this int8 mode, the int8 "
+                         "U-Net stage by stage")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stage_times: no CUDA device available", file=sys.stderr)
@@ -62,6 +76,7 @@ def main() -> int:
 
     from openglottal_tpu_torch import pipelines as P
     from openglottal_tpu_torch.data.synthetic import synthetic_video
+    from openglottal_tpu_torch.models import quant as Q
     from openglottal_tpu_torch.models import tracker
     from openglottal_tpu_torch.models.gate import (
         GateCarry,
@@ -273,6 +288,93 @@ def main() -> int:
         st["crop_h_w"] = [h0, w0]
         return st
 
+    def qunet_stages(st, qp, g, window, oy=None, ox=None):
+        """The int8 U-Net (``models/quant.qunet_to_d3`` and a tail) on one
+        chunk, stage by stage -> logits."""
+        s = qp["act_scales"]
+        enc, bneck, dec, _ = Q._names()
+        x8 = timed(st, "int8_stem", lambda: Q._stem(qp, g))
+
+        def conv(st_name, x, layer, sx, sn, pad=1):
+            return timed(st, st_name, lambda: Q._qc(x, layer, sx, sn, pad))
+
+        skips, sx = [], s["enc0_mid"]
+        for i, name in enumerate(enc):
+            if i > 0:
+                x8 = conv("int8_convs_to_d3", x8, qp[name]["Conv_0"], sx,
+                          s[f"enc{i}_mid"])
+                sx = s[f"enc{i}_mid"]
+            x8 = conv("int8_convs_to_d3", x8, qp[name]["Conv_1"], sx,
+                      s[f"enc{i}_out"])
+            sx = s[f"enc{i}_out"]
+            skips.append(x8)
+            x8 = timed(st, "int8_convs_to_d3", lambda x=x8: Q._pool2(x))
+        x8 = conv("int8_convs_to_d3", x8, qp[bneck]["Conv_0"], sx,
+                  s["bneck_mid"])
+        x8 = conv("int8_convs_to_d3", x8, qp[bneck]["Conv_1"], s["bneck_mid"],
+                  s["bneck_out"])
+        sx = s["bneck_out"]
+        mw, wh = P.WIN // 2 + 6, P.WIN + 4
+        for i in range(4):
+            deep = i < 2
+            src = x8
+            if not deep and window:
+                m0y, m0x = oy // 2 - 3, ox // 2 - 3
+                src = (timed(st, "int8_window_cuts", lambda: Q._cut(
+                    x8, m0y // 2, m0x // 2, mw // 2, mw // 2)) if i == 2
+                    else x8)
+            u8 = timed(st, "int8_upsamplers",
+                       lambda: Q._qup(qp, src, sx, i))
+            s8 = skips.pop()
+            if not deep and window:
+                s8 = timed(st, "int8_window_cuts", lambda: (
+                    Q._cut(s8, m0y, m0x, mw, mw) if i == 2
+                    else Q._cut(s8, oy - 2, ox - 2, wh, wh)))
+            where = "int8_convs_to_d3" if deep else "int8_convs_levels_2_3"
+            pad = 0 if (window and not deep) else 1
+            x8 = conv(where, (s8, u8), qp[dec[i]]["Conv_0"], s[f"up{i}"],
+                      s[f"dec{i}_mid"], pad)
+            x8 = conv(where, x8, qp[dec[i]]["Conv_1"], s[f"dec{i}_mid"],
+                      s[f"dec{i}_out"], pad)
+            sx = s[f"dec{i}_out"]
+        return timed(st, "int8_head", lambda: Q._head(qp, x8, sx))
+
+    def qunet_unet_stages(gp, video):
+        """Pipeline 3's loop in the int8 mode, the int8 U-Net by
+        :func:`qunet_stages`; the detector int8 in ``int8-full``."""
+        st = {}
+        gray = timed(st, "upload", lambda: gp._to_gray(video))
+        window = gp._windowed(None, gray)
+        qp = gp._q(gray)
+        gate = GateCarry(256, 256, gp.gate_params)
+        areas, fits = [], []
+        with torch.no_grad():
+            for i in range(0, gray.shape[0], P.CHUNK):
+                g = gray[i:i + P.CHUNK]
+                if "yolo" in qp:
+                    has, raw = timed(st, "detector", lambda:
+                                     gp._qdetect_chunk(qp["yolo"], g))
+                else:
+                    has, raw, _ = timed(st, "detector",
+                                        lambda: gp._yolo_chunk(g))
+                v, b = timed(st, "gate_scan", lambda: gate(has, raw))
+                oy = ox = None
+                if window:
+                    f, oy, ox = timed(st, "window_origin", lambda:
+                                      chunk_window_origin(b, v, 256, 256,
+                                                          P.WIN, lattice=4,
+                                                          margin=6))
+                    fits.append(f)
+                logits = qunet_stages(st, qp["unet"], g, window, oy, ox)
+                areas.append(timed(st, "box_count", lambda: box_count(
+                    logits, 0.0, v, b, 0 if oy is None else oy,
+                    0 if ox is None else ox)))
+        out = torch.cat(areas)
+        if window:
+            out = torch.cat([out, torch.stack(fits).all()[None].float()])
+        timed(st, "read", lambda: out.cpu())
+        return st
+
     def unet_stages(gp, video):
         """Pipeline 3's loop (``GlottalPipelines._unet_gated``) stage by
         stage: the windowed decoder where ``gp`` takes it, else the
@@ -330,6 +432,14 @@ def main() -> int:
         pipes = {"windowed": P.GlottalPipelines(dtype=dtype, **weights),
                  "full": P.GlottalPipelines(dtype=dtype, window_decoder=False,
                                             **weights)}
+        if args.quant:
+            pipes.update(
+                {f"q{k}": P.GlottalPipelines(dtype=dtype, quant=args.quant,
+                                             window_decoder=k == "windowed",
+                                             **weights)
+                 for k in ("windowed", "full")})
+            pipes["qwindowed"].calibrate(videos[0])
+            pipes["qfull"]._qparams = pipes["qwindowed"]._qparams
         for pipeline, stage_fn in (("guided-vft", guided_stages),
                                    ("unet", unet_stages),
                                    ("unet-full", unet_stages),
@@ -338,6 +448,10 @@ def main() -> int:
                 continue
             gp = pipes["full" if pipeline == "unet-full" else "windowed"]
             served = "unet" if pipeline == "unet-full" else pipeline
+            if args.quant and served == "unet":
+                gp = pipes["q" + ("full" if pipeline == "unet-full"
+                                  else "windowed")]
+                stage_fn = qunet_unet_stages
             gp.extract_features(videos[0], served)            # warm-up
             wall = []
             for v in videos:
@@ -361,6 +475,7 @@ def main() -> int:
             top = sorted(evs, key=lambda e: -e.device_time_total)[:12]
             line = {
                 "pipeline": pipeline, "dtype": tag, "frames": args.frames,
+                "quant": args.quant if served == "unet" else None,
                 "device": torch.cuda.get_device_name(0),
                 "wall_ms": wall, "stages_ms": stages,
                 "profile": {

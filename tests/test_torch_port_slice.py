@@ -338,9 +338,15 @@ def test_unknown_pipeline_is_value_error():
 
 @pytest.mark.parametrize("case", ["mesh", "quant"])
 def test_later_options_raise_not_implemented(case):
-    kw = {"mesh": {"mesh": object()}, "quant": {"quant": "int8"}}[case]
-    with pytest.raises(NotImplementedError):
-        GlottalPipelines(device="cpu", **kw)
+    """Meshes wait for a later slice.  int8 serving is served
+    (tests/test_torch_port_quant.py): without folded weights it raises
+    ValueError, as the JAX package's constructor does."""
+    if case == "mesh":
+        with pytest.raises(NotImplementedError):
+            GlottalPipelines(device="cpu", mesh=object())
+        return
+    with pytest.raises(ValueError, match="folded"):
+        GlottalPipelines(device="cpu", quant="int8")
 
 
 def test_device_none_raises_without_cuda():

@@ -651,7 +651,7 @@ def test_cli_run_stream_writes_the_features(tmp_path):
     (["--pipeline", "unet-only"], "--unet-weights"),
     (["--pipeline", "crop-unet", "--yolo-weights", "y.npz"],
      "--crop-weights"),
-    (["--pipeline", "vft", "--yolo-weights", "y.npz", "--quant", "int8"],
+    (["--pipeline", "vft", "--yolo-weights", "y.npz", "--qparams", "q.npz"],
      "int8"),
 ])
 def test_cli_parser_errors(argv, message, capsys):
