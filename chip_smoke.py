@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                 # everything
     python3 chip_smoke.py --kernels-only  # build + kernel checks
+    python3 chip_smoke.py --qconv         # build + og_qconv alone: its stress
+        # cases, then every U-Net layer shape in turns with PR 10's kernel
+        # (tools/qconv_pr10.cu), cuDNN's bf16 conv and _int_mm
     python3 chip_smoke.py --against DIR [DIR ...]
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
@@ -66,13 +69,15 @@ AVI through the port's reader and ``python -m openglottal_tpu_torch.cli run
 --stream 128`` against ``extract_features``.  The int8 convolution of
 ``csrc/qconv.cu`` (``og_qconv``) is held exactly equal to its plain version
 on every int8 layer shape of the U-Net and YOLOv8n with each epilogue (and
-the edge cases of ``qconv_stress_cases``); the ``quant`` line serves
-``unet`` in the int8 modes ("int8", "int8-full") on both routes, its cohort
-and ``unet-only`` on the 502-frame video, calibrated on its first 64
+the edge cases of ``qconv_stress_cases``, both of the kernel's forms), its
+silu_q cases also to the plain version run on the CPU; the ``quant`` line
+serves ``unet`` in the int8 modes ("int8", "int8-full") on both routes, its
+cohort and ``unet-only`` on the 502-frame video, calibrated on its first 64
 frames, every og_qconv launch held equal to its plain version, int8 against
 bf16 waveforms, windowed against full-frame, save / load, card against
-CPU, host syncs, og_qconv per layer beside its bound, cuDNN's bf16 conv and
-``torch._int_mm``, the int8 U-Net stage's device ms and walls in turns.
+CPU, host syncs, og_qconv per layer beside its bound, PR 10's kernel in
+turns, cuDNN's bf16 conv and ``torch._int_mm``, the int8 U-Net stage's
+device ms and walls in turns.
 Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
@@ -332,6 +337,95 @@ def qconv_stress_cases(dev, seed: int = 0, frames: int = 2):
     w8[:8] = 127
     for epi in ("relu_q", "f32"):
         cases.append((f"saturated {epi}", x, w8, sw, b,
+                      dict(sx=1e-6, pad=1, epilogue=epi,
+                           s_next=None if epi == "f32" else 0.5)))
+    cases.extend(qconv_tiling_cases(dev, rng, i8, layer, scales))
+    return cases
+
+
+def qconv_tiling_cases(dev, rng, i8, layer, scales) -> list:
+    """The stress cases of og_qconv's tiling (128 output pixels by the whole
+    of C_out up to 256, C_out 512 as two column tiles, 128 bytes of K a
+    stage): M tails of 1 to 127 rows past a 128-row tile at C_out 256 and
+    512; two K sources with c0 = 32 and with c0 != c1 under a 3x3 window;
+    C_in 16 and 48 under a 3x3 stride-2 window; a source whose pixels are
+    48 bytes apart (16-byte, not 128-byte aligned); the f32 head at C_out 1
+    and 17; the largest sums of both signs over two column tiles."""
+    import torch
+
+    cases = []
+    # (frames, H, W): M = frames * H * W = 128 q + tail
+    for (fr, h, w), cout in (((1, 1, 129), 256), ((1, 1, 191), 512),
+                             ((1, 1, 192), 256), ((1, 1, 193), 512),
+                             ((1, 1, 255), 256), ((3, 5, 9), 512),
+                             ((2, 9, 15), 256), ((1, 1, 1), 512)):
+        sx, sn = scales(64, 3)
+        cases.append((f"M tail {fr * h * w % 128} of {fr * h * w} cout={cout}",
+                      i8(fr, h, w, 64, lo=0), *layer(64, cout, 3),
+                      dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    for c0, c1, cout in ((32, 32, 32), (48, 16, 64)):
+        wide = i8(2, 40, 36, c0 + c1 + 16, lo=0)
+        xs = (i8(2, 40, 36, c0, lo=0), wide[..., 16:16 + c1])
+        sx, sn = scales(c0 + c1, 3)
+        cases.append((f"two sources {c0}+{c1} 3x3", xs,
+                      *layer(c0 + c1, cout, 3),
+                      dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    for cin, epi in ((16, "silu_q"), (48, "relu_q"), (48, "silu_q")):
+        sx, sn = scales(cin, 3)
+        cases.append((f"C_in {cin} 3x3 s2 {epi}", i8(2, 37, 30, cin),
+                      *layer(cin, 32, 3),
+                      dict(sx=sx, stride=2, pad=1, epilogue=epi, s_next=sn)))
+    # pixels 48 bytes apart: a 32-channel slice of a 48-channel tensor,
+    # cut as a window at an odd origin
+    wide = i8(2, 50, 44, 48, lo=0)
+    sx, sn = scales(32, 3)
+    cases.append(("48-byte pixel stride window", wide[:, 3:43, 5:41, 16:],
+                  *layer(32, 64, 3),
+                  dict(sx=sx, pad=0, epilogue="relu_q", s_next=sn)))
+    for cout in (1, 17):
+        sx, _ = scales(64, 1)
+        cases.append((f"f32 head cout={cout}", i8(2, 32, 32, 64),
+                      *layer(64, cout, 1), dict(sx=sx, pad=0, epilogue="f32")))
+    # the halo form (stride 1, rows of 64 or 128 output pixels): two
+    # sources whose k32 step spans both (48 + 16 channels), a window view
+    # whose pixels are 48 bytes apart, pad 0, C_out 128 (two blocks a
+    # tile), 17 and the f32 head at C_out 1, a 1x1 layer, an odd count of
+    # 64-pixel rows, a row of 130 pixels (a tile past its end)
+    wide = i8(2, 64, 128, 64, lo=0)
+    sx, sn = scales(64, 3)
+    cases.append(("halo two sources 48+16", (wide[..., :48], i8(2, 64, 128,
+                                                                16, lo=0)),
+                  *layer(64, 64, 3),
+                  dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    wide = i8(2, 70, 136, 48, lo=0)
+    sx, sn = scales(32, 3)
+    cases.append(("halo 48-byte pixel stride window",
+                  wide[:, 3:67, 5:133, 16:], *layer(32, 32, 3),
+                  dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    cases.append(("halo pad 0", wide[:, 2:68, 3:133, :32], *layer(32, 64, 3),
+                  dict(sx=sx, pad=0, epilogue="relu_q", s_next=sn)))
+    for cout, epi in ((128, "relu_q"), (17, "silu_q"), (1, "f32")):
+        sx, sn = scales(32, 3)
+        cases.append((f"halo cout={cout} {epi}", i8(2, 64, 64, 32, lo=0),
+                      *layer(32, cout, 3),
+                      dict(sx=sx, pad=1, epilogue=epi,
+                           s_next=None if epi == "f32" else sn)))
+    sx, sn = scales(64, 1)
+    cases.append(("halo 1x1", i8(2, 32, 128, 64), *layer(64, 64, 1),
+                  dict(sx=sx, pad=0, epilogue="silu_q", s_next=sn)))
+    for (h, w), cout in (((63, 64), 32), ((5, 130), 64), ((3, 30), 128)):
+        sx, sn = scales(32, 3)
+        cases.append((f"halo {h}x{w} cout={cout}", i8(3, h, w, 32, lo=0),
+                      *layer(32, cout, 3),
+                      dict(sx=sx, pad=1, epilogue="relu_q", s_next=sn)))
+    # the largest sums of both signs: +-127 inputs and weights, K = 9 * 512,
+    # C_out 512 (two column tiles); rows of w = +-127 everywhere
+    x = torch.full((1, 16, 16, 512), 127, dtype=torch.int8, device=dev)
+    w8, sw, b = layer(512, 512, 3)
+    w8 = torch.where(w8 >= 0, 127, -127).to(torch.int8)
+    w8[:8], w8[300:308] = 127, -127
+    for epi in ("relu_q", "f32"):
+        cases.append((f"largest |sum| cout=512 {epi}", x, w8, sw, b,
                       dict(sx=1e-6, pad=1, epilogue=epi,
                            s_next=None if epi == "f32" else 0.5)))
     return cases
@@ -642,16 +736,109 @@ def qconv_runner(inputs, kw):
             nbytes, ops)
 
 
-def quant_layer_times(dev, frames: int = 128) -> list:
-    """Per U-Net layer shape at ``frames`` frames: og_qconv's ms beside its
-    bound (max of 2 MACs / 1,979 TOPS and bytes / 3.35 TB/s), cuDNN's
-    bfloat16 conv at the same shape (channels_last, bias and ReLU not
-    included) and ``torch._int_mm`` over the layer's im2col matrix (for the
-    record only: it computes the s32 product, not the layer)."""
+def qconv_stress(dev, hold) -> tuple:
+    """og_qconv on every stress case (``qconv_stress_cases``) against its
+    plain version, int8 bytes and float32 bits (``hold(name, got, want)``
+    raises on a difference); the silu_q cases also against the plain
+    version run on the CPU (the SiLU's exp is written out, so the bytes are
+    the same there).  Returns (labels, labels of the silu_q cases)."""
     import torch
-    import torch.nn.functional as F
 
     from openglottal_tpu_torch.ops import qconv_cuda
+
+    def cpu(t):
+        return None if t is None else (
+            tuple(s.cpu() for s in t) if isinstance(t, tuple) else t.cpu())
+
+    labels, silu = [], []
+    for label, x, w8, sw, b, kw in qconv_stress_cases(dev):
+        got = qconv_cuda.qconv(x, w8, sw, b, **kw)
+        want = qconv_cuda.qconv_plain(x, w8, sw, b, **kw)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        hold("qconv", got, want)
+        if kw["epilogue"] == "silu_q":
+            on_cpu = qconv_cuda.qconv_plain(
+                cpu(x), w8.cpu(), sw.cpu(), b.cpu(),
+                **{k: cpu(v) if k == "residual" else v
+                   for k, v in kw.items()})
+            if not torch.equal(got.cpu(), on_cpu):
+                raise AssertionError(f"qconv {label}: the kernel's silu_q "
+                                     f"bytes differ from the plain version "
+                                     f"on the CPU")
+            silu.append(label)
+        labels.append(label)
+    return labels, silu
+
+
+@contextlib.contextmanager
+def qconv_library(lib):
+    """Routes ops/qconv_cuda's launches through another build of the kernel
+    (PR 10's first form, tools/qconv_pr10.cu: the same C interface and
+    Args) for a timing in turns; the served paths never load it."""
+    from openglottal_tpu_torch.ops import qconv_cuda
+
+    own = qconv_cuda._lib
+    qconv_cuda._lib = lambda: lib
+    try:
+        yield
+    finally:
+        qconv_cuda._lib = own
+
+
+def pr10_qconv_library():
+    """tools/qconv_pr10.cu built like the package's sources (its own
+    library, loaded beside csrc/qconv.cu's) -> (library, ptxas summary)."""
+    from openglottal_tpu_torch.ops import _build
+
+    lib, log = _build.build_others(
+        {"qconv_pr10": Path("openglottal_tpu_torch/tools/qconv_pr10.cu")},
+        ("-Xptxas", "-v"))["qconv_pr10"]
+    lib.og_qconv.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.og_qconv.restype = ctypes.c_int
+    return lib, ptxas_summary(log)
+
+
+def qconv_tiling(n, h, w, srcs, cout, k, stride, pad) -> dict:
+    """og_qconv's form for a layer, its tile width, ring stages, thread
+    blocks an SM, dynamic shared memory and 64-pixel blocks a warpgroup's
+    tile (from the built library; the form and stages held against the
+    wrapper's own statement of the rules, ``qconv_cuda.halo_stages``)."""
+    from openglottal_tpu_torch.ops import _build, qconv_cuda
+
+    lib = _build.load("qconv")
+    bn = lib.og_qconv_tile_n(cout)
+    if bn != qconv_cuda.tile_n(cout):
+        raise AssertionError(f"og_qconv_tile_n({cout}) = {bn}, the wrapper's "
+                             f"tile_n says {qconv_cuda.tile_n(cout)}")
+    a = qconv_cuda._Args()
+    a.c0, a.c1 = srcs[0], sum(srcs[1:])
+    a.n, a.h, a.w_in, a.cout, a.kh, a.kw = n, h, w, cout, k, k
+    a.stride, a.pad = stride, pad
+    a.ho = qconv_cuda.out_size(h, k, stride, pad)
+    a.wo = qconv_cuda.out_size(w, k, stride, pad)
+    shape = (ctypes.c_int * 4)()
+    lib.og_qconv_form.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    halo = lib.og_qconv_form(ctypes.byref(a), shape)
+    want = qconv_cuda.halo_stages(a.ho, a.wo, a.c0, a.c1, cout, k, k, stride)
+    if (shape[0] if halo else 0) != want:
+        raise AssertionError(f"og_qconv_form: {halo} / {shape[0]} stages, "
+                             f"the wrapper's halo_stages says {want}")
+    return {"form": "halo" if halo else "gather", "tile_n": bn,
+            "stages": shape[0], "blocks_per_sm": shape[1],
+            "smem_bytes": shape[2], "blocks_of_64_a_tile": shape[3]}
+
+
+def quant_layer_times(dev, frames: int = 128, pr10_lib=None) -> list:
+    """Per U-Net layer shape at ``frames`` frames: og_qconv's ms beside its
+    bound (max of 2 MACs / 1,979 TOPS and bytes / 3.35 TB/s), PR 10's
+    kernel in turns (``pr10_lib``: PR 10, new, new, PR 10, each the mean of
+    10 queued launches; the two outputs must be equal), cuDNN's bfloat16
+    conv at the same shape (channels_last, bias and ReLU not included) and
+    ``torch._int_mm`` over the layer's im2col matrix (for the record only:
+    it computes the s32 product, not the layer)."""
+    import torch
+    import torch.nn.functional as F
 
     rows = []
     for label, h, w, srcs, cout in QCONV_UNET + QCONV_UNET_WINDOW:
@@ -667,7 +854,20 @@ def quant_layer_times(dev, frames: int = 128) -> list:
         inputs = (xs, w8, sw, b, None)
         kw = dict(sx=1e-3, stride=1, pad=pad, epilogue="relu_q", s_next=0.05)
         kfn, _, nbytes, ops = qconv_runner(inputs, kw)
-        ms = time_cuda(kfn, 10)
+        turns = {"new": [], "pr10": []}
+        if pr10_lib is not None:
+            with qconv_library(pr10_lib):
+                turns["pr10"].append(time_cuda(kfn, 10))
+                old_out = kfn()
+        turns["new"] += [time_cuda(kfn, 10), time_cuda(kfn, 10)]
+        if pr10_lib is not None:
+            with qconv_library(pr10_lib):
+                turns["pr10"].append(time_cuda(kfn, 10))
+            if not torch.equal(kfn(), old_out):
+                raise AssertionError(f"qconv {label}: the kernel and PR 10's "
+                                     f"differ")
+            del old_out
+        ms = sum(turns["new"]) / 2
         xb = torch.randn(frames, cin, h, w, device=dev, dtype=torch.bfloat16
                          ).contiguous(memory_format=torch.channels_last)
         wb = torch.randn(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16
@@ -688,10 +888,15 @@ def quant_layer_times(dev, frames: int = 128) -> list:
         t_ops = ops / INT8_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({"layer": label, "shape": [frames, h, w, cin, cout],
-                     "pad": pad, "ms": ms, "bound_ms": max(t_ops, t_bytes),
+                     "pad": pad, "ms": ms, "ms_turns": turns["new"],
+                     "pr10_ms": (sum(turns["pr10"]) / 2 if turns["pr10"]
+                                 else None),
+                     "pr10_ms_turns": turns["pr10"],
+                     "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "tensor_tops": ops / ms / 1e9,
-                     "cudnn_bf16_ms": cudnn_ms, "int_mm_im2col_ms": int_mm_ms})
+                     "cudnn_bf16_ms": cudnn_ms, "int_mm_im2col_ms": int_mm_ms,
+                     **qconv_tiling(frames, h, w, srcs, cout, 3, 1, pad)})
         torch.cuda.empty_cache()
     return rows
 
@@ -897,7 +1102,12 @@ def quant_phase(pipes, weights, videos, counted, expect_counts, hold_record,
     line["wall_ms_per_video_in_turns"] = walls
     line["turn_order"] = ("per route: bf16, int8, int8-full, int8-full, "
                           "int8, bf16, each over videos 1, 2, 3")
-    line["layers_128_frames"] = quant_layer_times(torch.device("cuda"))
+    pr10_lib, line["pr10_kernel_ptxas"] = pr10_qconv_library()
+    rows = quant_layer_times(torch.device("cuda"), pr10_lib=pr10_lib)
+    line["layers_128_frames"] = rows
+    line["chunk_sum_17_layers_ms"] = {
+        k: sum(r[k] for r in rows[:len(QCONV_UNET)])
+        for k in ("ms", "pr10_ms", "bound_ms", "cudnn_bf16_ms")}
     return line, main_record, main_counts
 
 
@@ -1544,6 +1754,23 @@ def main() -> int:
     say("build", seconds=round(time.perf_counter() - t0, 2),
         sources=[f"openglottal_tpu_torch/csrc/{n}.cu" for n in _build.SOURCES],
         ptxas={n: ptxas_summary(log) for n, log in logs.items()})
+
+    if "--qconv" in args:
+        # og_qconv alone: the stress cases, then every U-Net layer shape in
+        # turns with PR 10's kernel
+        def hold_equal(name, got, want):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: differs from its plain version")
+
+        labels, silu = qconv_stress(dev, hold_equal)
+        pr10_lib, pr10_ptxas = pr10_qconv_library()
+        rows = quant_layer_times(dev, pr10_lib=pr10_lib)
+        say("qconv", nvidia_smi=smi, stress_cases=len(labels),
+            silu_equal_to_plain_on_cpu=len(silu), pr10_ptxas=pr10_ptxas,
+            layers_128_frames=rows, chunk_sum_17_layers_ms={
+                k: sum(r[k] for r in rows[:len(QCONV_UNET)])
+                for k in ("ms", "pr10_ms", "bound_ms", "cudnn_bf16_ms")})
+        return 0
 
     # where the union-find keeps its grids, and how many of its blocks share
     # an SM, at each frame size a launch below takes (one rule in blobs.cu
@@ -2196,17 +2423,11 @@ def main() -> int:
 
     # og_qconv on every int8 layer shape, each epilogue and the edge cases
     # (qconv_stress_cases): int8 outputs and float32 bits exactly equal
-    qconv_labels = []
-    for label, x, w8, sw, b, kw in qconv_stress_cases(dev):
-        got = qconv_cuda.qconv(x, w8, sw, b, **kw)
-        want = qconv_cuda.qconv_plain(x, w8, sw, b, **kw)
-        if got.dtype == torch.float32:
-            got, want = got.view(torch.int32), want.view(torch.int32)
-        hold("qconv", got, want)
-        qconv_labels.append(label)
+    qconv_labels, qconv_silu_cpu = qconv_stress(dev, hold)
 
     say("kernels", ok=True, compared="exact equality with the plain version",
         qconv_stress_cases=qconv_labels,
+        qconv_silu_equal_to_plain_on_cpu=qconv_silu_cpu,
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress), box_count_stress_cases=box_stress,
         box_count_tables_by_size=box_tables,
@@ -2764,7 +2985,8 @@ def main() -> int:
     del quant_record
     reset_counts()
     say("quant", compared="every recorded launch exactly equal to its plain "
-        "version", **quant_line)
+        "version", silu_stress_cases_equal_to_plain_on_cpu=qconv_silu_cpu,
+        **quant_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 

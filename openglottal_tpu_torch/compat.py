@@ -30,25 +30,19 @@ from openglottal_tpu_torch.models.tracker import (
     ygvft_initialize,
     ygvft_step,
 )
-from openglottal_tpu_torch.ops.resize import crop_resize_bilinear
+from openglottal_tpu_torch.ops.resize import resize_linear_cv2
 from openglottal_tpu_torch.pipelines import GlottalPipelines, resolve_device
 from openglottal_tpu_torch.utils.io import load_yolo_weights
 
 
 def _resize_to(frame: np.ndarray, w: int, h: int) -> np.ndarray:
-    """A (H, W) frame resized to (h, w) where its size differs: bilinear,
-    half-pixel centres (``ops/resize.crop_resize_bilinear`` over the whole
-    frame), rounded to the frame's dtype where it is an integer one."""
+    """A (H, W) frame resized to (h, w) where its size differs:
+    ``cv2.resize(..., INTER_LINEAR)`` as ``ops/resize.resize_linear_cv2``
+    emulates it."""
     frame = np.asarray(frame)
     if frame.shape[1] == w and frame.shape[0] == h:
         return frame
-    x = torch.from_numpy(np.ascontiguousarray(frame, np.float32))
-    out = crop_resize_bilinear(x, 0, 0, frame.shape[0], frame.shape[1], h, w)
-    out = out.numpy()
-    if np.issubdtype(frame.dtype, np.integer):
-        info = np.iinfo(frame.dtype)
-        out = np.clip(np.round(out), info.min, info.max)
-    return out.astype(frame.dtype)
+    return resize_linear_cv2(frame, w, h)
 
 
 def _frame_tensor(frame, device) -> torch.Tensor:

@@ -68,7 +68,10 @@ def fold_batchnorm(sd: dict, eps: float) -> dict:
         beta = sd[f"{bn}.bias"].to(torch.float32)
         mean = sd[f"{bn}.running_mean"].to(torch.float32)
         var = sd[f"{bn}.running_var"].to(torch.float32)
-        scale = gamma / torch.sqrt(var + eps)
+        # sqrt in float64 rounded once to float32 is the correctly rounded
+        # float32 sqrt, which jnp.sqrt gives; torch.sqrt on the CPU is one
+        # ulp off on some values
+        scale = gamma / torch.sqrt((var + eps).double()).float()
         bias = beta - mean * scale
         if f"{conv}.bias" in sd:   # defensive; these convs are bias-free
             bias = bias + sd[f"{conv}.bias"] * scale

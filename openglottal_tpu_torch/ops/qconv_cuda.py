@@ -8,14 +8,18 @@ weights, and one of three epilogues on the s32 sums,
 
     y      = fma(f32(acc), f32(sx) * sw[o], b[o])
     relu_q : q(max(y, 0))
-    silu_q : q(y * (1 / (1 + exp(-y))))  [fma(f32(r8), s_r, .) with a residual]
+    silu_q : q(y * (1 / (1 + exp(-y))))  [fma(f32(r8), s_r, .) with a residual;
+             exp as XLA's CPU code computes it]
     f32    : y
     q(v)   = clip(rint(v * f32(1 / s_next)), -127, 127) as int8,
 
 the rounding the JAX package's compiled code takes (XLA fuses ``acc * m + b``
 into an fma and multiplies by the float32 reciprocal of a constant scale).
-The kernel keeps the s32 sums in registers; PyTorch has no int8 convolution
-on CUDA (``F.conv2d`` on int8 tensors wraps around on the CPU).
+The kernel (wgmma s8 x s8 -> s32 over rings of stages fed by TMA and
+cp.async, tiles of output pixels by the whole of C_out up to 256, in one of
+two forms by shape: see the source's note, and :func:`halo_stages`) keeps
+the s32 sums in registers; PyTorch has no int8 convolution on CUDA
+(``F.conv2d`` on int8 tensors wraps around on the CPU).
 
 The activations are one (N, H, W, C) int8 tensor or two whose channels are
 concatenated along K (the decoder's skip and upsample: the concatenation is
@@ -36,7 +40,9 @@ exact (|products| <= 127², sums <= 9 * 512 * 127² < 2**53; rounded to the
 integer in case a library algorithm on the card is not), never ``F.conv2d``
 on int8 tensors.  It then takes the kernel's operations one by one: the
 fma by ``ops/fma.fma32`` (correctly rounded), products by a float32 value,
-``torch.exp`` / ``torch.reciprocal`` as the kernel's ``expf`` and division.
+the SiLU's exp as XLA's CPU code takes it (:func:`exp_xla`, the kernel's
+``exp_xla``), so the plain version gives the same bits on the CPU and on
+the card, and they are the JAX package's.
 """
 
 from __future__ import annotations
@@ -95,6 +101,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def tile_n(cout: int) -> int:
+    """The kernel's tile width for C_out (``og_qconv_tile_n``): the whole
+    of C_out up to 256 in one tile (16, 32, 64, 128 or 256 columns), so
+    each im2col row is gathered once; C_out 512 takes two tiles of 256."""
+    for bn in (16, 32, 64, 128):
+        if cout <= bn:
+            return bn
+    return 256
+
+
+SMEM_MAX = 232448        # a block's dynamic shared memory on the H100
+
+
+def halo_stages(ho: int, wo: int, c0: int, c1: int, cout: int, kh: int,
+                kw: int, stride: int) -> int:
+    """Ring stages of the kernel's halo form for a layer, 0 where the layer
+    takes the gathering form (``halo_plan`` in ``csrc/qconv.cu``, rule for
+    rule): stride 1, C_in a multiple of 32, C_out <= 128, and the layer's
+    weights with two stages or more (an even count, at most 8) of a tile's
+    input window beside them in shared memory.  The kernel's shapes, tried
+    in order (blocks of 64 output pixels a tile, thread blocks an SM, each
+    of the two with half the shared memory): C_out <= 16: 4 and 2, then 4
+    and 1; <= 32: 2 and 2, then 2 and 1; <= 64: 1 and 2, then 2 and 1;
+    <= 128: 1 and 1.  A tile's rows are min(128, its pixels) wide (64
+    where the output is 64 pixels wide or less); its window is its rows +
+    kh - 1 input rows of its row's pixels + kw - 1."""
+    cin = c0 + c1
+    if stride != 1 or cin % 32 or cout > 128:
+        return 0
+    bn = tile_n(cout)
+    shapes = {16: ((4, 2), (4, 1)), 32: ((2, 2), (2, 1)),
+              64: ((1, 2), (2, 1)), 128: ((1, 1),)}[bn]
+    for mb, per_sm in shapes:
+        tw = min(128, mb * 64) if wo > 64 else 64
+        hr, hw = mb * 64 // tw + kh - 1, tw + kw - 1
+        if hw > 256:
+            return 0
+        weights = -(-kh * kw * cin // 128) * bn * 128
+        stage = hr * (cin // 16) * (-(-hw * 16 // 128) * 128)
+        budget = (SMEM_MAX - 2048) // 2 if per_sm == 2 else SMEM_MAX
+        free = budget - 1024 - weights - 2 * 64 * bn - 8 * 17
+        stages = min(free // stage, 8) & ~1
+        if stages >= 2:
+            return stages
+    return 0
+
+
 def f32(v: float) -> float:
     """``v`` rounded to float32 (a Python float holding a float32 value)."""
     return float(np.float32(v))
@@ -113,6 +166,41 @@ def _sources(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
+# The float32 exp that XLA's CPU code emits (a Cephes polynomial after a
+# two-constant reduction by ln 2, every multiply-add fused); csrc/qconv.cu's
+# exp_xla takes the same steps with __fmaf_rn.
+EXP_LO, EXP_HI = -87.8, 88.8
+TINY32 = 2.0 ** -126                 # the least normal float32
+EXP_LOG2E = 1.44269504088896341
+EXP_C1, EXP_C2 = 0.693359375, -2.12194440e-4
+EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+         1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_xla(x):
+    """exp of a float32 tensor as XLA's CPU code computes it, bit for bit:
+    n = clamp(floor(fma(x, log2 e, 0.5)), -127, 127), a = x - n ln 2 in two
+    fmas, a degree-5 polynomial in fmas, times 2**n (0 for n = -127), a
+    subnormal result flushed to 0."""
+    x = x.float().clamp(f32(EXP_LO), f32(EXP_HI))
+    c = lambda v: torch.full_like(x, f32(v))                 # noqa: E731
+    n = torch.floor(fma32(f32(EXP_LOG2E), x, c(0.5))).clamp(-127.0, 127.0)
+    a = fma32(-f32(EXP_C1), n, x)
+    a = fma32(-f32(EXP_C2), n, a)
+    z = fma32(f32(EXP_P[0]), a, c(EXP_P[1]))
+    for p in EXP_P[2:]:
+        z = fma32(z, a, c(p))
+    z = fma32(z, a * a, a) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return flush32(z * pow2)
+
+
+def flush32(v):
+    """A float32 tensor with its subnormal values flushed to zero, as XLA's
+    CPU code runs (exp and 1 / (1 + exp) are never negative)."""
+    return torch.where(v < TINY32, torch.zeros_like(v), v)
+
+
 def qconv_plain(x, w8, sw, b, sx: float, stride: int = 1, pad: int = 1,
                 epilogue: str = "relu_q", s_next: float | None = None,
                 residual=None, s_res: float | None = None):
@@ -129,7 +217,7 @@ def qconv_plain(x, w8, sw, b, sx: float, stride: int = 1, pad: int = 1,
     if epilogue == "relu_q":
         v = y.clamp_min(0.0)
     elif epilogue == "silu_q":
-        v = y * torch.reciprocal(torch.exp(-y) + 1.0)
+        v = y * flush32(1.0 / (exp_xla(-y) + 1.0))
         if residual is not None:
             v = fma32(f32(s_res), residual.float(), v)
     else:

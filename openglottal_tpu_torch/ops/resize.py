@@ -2,7 +2,8 @@
 INTER_NEAREST, the reference's letterbox geometry).
 
 Counterpart of ``openglottal_tpu/ops/resize.py`` (all but the host-side
-``letterbox_np``, which needs cv2).
+``letterbox_np``, which calls cv2; :func:`resize_linear_cv2` is cv2's
+INTER_LINEAR without cv2, for it and for the compat trackers).
 
 Semantics: bilinear src = (dst + 0.5) * in/out - 0.5, border replicate, no
 antialiasing; nearest src = floor(dst * in/out); a crop window replicates
@@ -266,6 +267,69 @@ def resize_nearest(img, out_h: int, out_w: int):
     return _gather2(img.to(torch.float32),
                     _nearest_taps(h, out_h, device=img.device),
                     _nearest_taps(w, out_w, device=img.device))
+
+
+# ── cv2.resize(INTER_LINEAR) on the host ────────────────────────────────────
+
+def _cv2_linear_taps(in_size: int, out_size: int, f32_coord: bool):
+    """cv2's linear taps of one axis: (i0, i1, fraction).  f = (d + 0.5) *
+    in/out - 0.5 in float64 (rounded to float32 before the floor on the
+    fixed-point path); the indices are clamped to the axis, the fraction is
+    not (a clamped pair repeats one pixel)."""
+    d = np.arange(out_size, dtype=np.float64)
+    f = (d + 0.5) * (in_size / out_size) - 0.5
+    if f32_coord:
+        f = f.astype(np.float32).astype(np.float64)
+    s = np.floor(f)
+    i0 = np.clip(s, 0, in_size - 1).astype(np.int64)
+    i1 = np.clip(s + 1, 0, in_size - 1).astype(np.int64)
+    return i0, i1, (f - s).astype(np.float32)
+
+
+def resize_linear_cv2(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    of an (H, W) or (H, W, C) array, without cv2.  Rows first, then
+    columns, as OpenCV 5.0's resize:
+
+      * uint8: 11-bit weights a = rint(f * 2048); the row pass keeps
+        x0 * (2048 - a) + x1 * a exactly; the column pass takes 16-bit
+        high products of (row >> 4) with each weight, and
+        (sum + 2) >> 2.  Equal to cv2 bit for bit, any size or channel
+        count;
+      * anything else in float32: each pass is fma(x1 - x0, f, x0),
+        rounded once (``ops/fma.fma32``).  Equal to cv2 on 2-D frames of
+        two rows or more; integer types are rounded back to their range.
+    """
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    extra = (1,) * (img.ndim - 2)
+    if img.dtype == np.uint8:
+        x0, x1, fx = _cv2_linear_taps(w, out_w, True)
+        y0, y1, fy = _cv2_linear_taps(h, out_h, True)
+        a = np.rint(fx * np.float32(2048)).astype(np.int64).reshape(
+            (1, -1) + extra)
+        b = np.rint(fy * np.float32(2048)).astype(np.int64).reshape(
+            (-1, 1) + extra)
+        x = img.astype(np.int64)
+        rows = x[:, x0] * (2048 - a) + x[:, x1] * a
+        t = ((rows[y0] >> 4) * (2048 - b) >> 16) + ((rows[y1] >> 4) * b >> 16)
+        return np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
+
+    def lerp(v0, v1, f):
+        v0 = torch.from_numpy(np.ascontiguousarray(v0))
+        v1 = torch.from_numpy(np.ascontiguousarray(v1))
+        return fma32(torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(f, v0.shape))), v1 - v0, v0).numpy()
+
+    x = img.astype(np.float32)
+    x0, x1, fx = _cv2_linear_taps(w, out_w, False)
+    y0, y1, fy = _cv2_linear_taps(h, out_h, False)
+    rows = lerp(x[:, x0], x[:, x1], fx.reshape((1, -1) + extra))
+    out = lerp(rows[y0], rows[y1], fy.reshape((-1, 1) + extra))
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        out = np.clip(np.rint(out), info.min, info.max)
+    return out.astype(img.dtype)
 
 
 # ── letterbox (static geometry) ─────────────────────────────────────────────

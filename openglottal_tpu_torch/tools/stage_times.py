@@ -483,6 +483,10 @@ def main() -> int:
                     "device_kernel_ms": dev_ms,
                     "device_busy_share": dev_ms / prof_wall if evs else None,
                     "n_device_kernels": int(sum(e.count for e in evs)),
+                    # og_qconv's launches, both of its forms (the gathering
+                    # qconv_kernel and qconv_halo_kernel, every tile width)
+                    "og_qconv_ms": sum(e.device_time_total for e in evs
+                                       if "qconv" in e.key) / 1e3,
                     "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
                                        for e in top}},
             }

@@ -734,20 +734,23 @@ def test_temporal_detector_and_gate_equal_jax_compat():
 
 def test_resize_to_against_cv2():
     """The compat trackers' resize of frames of another size than the
-    first: within 1 grey level of cv2's INTER_LINEAR on uint8 (cv2 rounds
-    through 11-bit fixed point) and within 1e-4 on float32."""
+    first == cv2's INTER_LINEAR bit for bit: uint8 through its 11-bit
+    fixed point, float32 through its per-pass fma."""
     import cv2
 
     rng = np.random.default_rng(0)
-    for h, w, oh, ow in ((40, 50, 48, 40), (100, 90, 64, 70)):
+    for h, w, oh, ow in ((40, 50, 48, 40), (100, 90, 64, 70),
+                         (256, 256, 48, 40)):
         f = rng.integers(0, 256, (h, w), dtype=np.uint8)
         a = compat._resize_to(f, ow, oh)
         b = cv2.resize(f, (ow, oh), interpolation=cv2.INTER_LINEAR)
         assert a.dtype == np.uint8 and a.shape == (oh, ow)
-        assert np.abs(a.astype(int) - b).max() <= 1
-        ff = f.astype(np.float32)
-        np.testing.assert_allclose(
-            compat._resize_to(ff, ow, oh),
-            cv2.resize(ff, (ow, oh), interpolation=cv2.INTER_LINEAR),
-            atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(a, b)
+        ff = f.astype(np.float32) * np.float32(1.37) + np.float32(0.1)
+        fa = compat._resize_to(ff, ow, oh)
+        assert fa.dtype == np.float32
+        np.testing.assert_array_equal(
+            fa.view(np.int32),
+            cv2.resize(ff, (ow, oh), interpolation=cv2.INTER_LINEAR
+                       ).view(np.int32))
     assert compat._resize_to(f, w, h) is f
