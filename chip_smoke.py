@@ -77,7 +77,15 @@ frames, every og_qconv launch held equal to its plain version, int8 against
 bf16 waveforms, windowed against full-frame, save / load, card against
 CPU, host syncs, og_qconv per layer beside its bound, PR 10's kernel in
 turns, cuDNN's bf16 conv and ``torch._int_mm``, the int8 U-Net stage's
-device ms and walls in turns.
+device ms and walls in turns.  The count kernels of ``csrc/eval.cu``
+(``og_frame_counts``, ``og_otsu_counts``) are held exactly equal to their
+plain versions on stress inputs (``EVAL_SHAPES``: all-zero and all-one
+frames, empty, one-pixel and edge boxes, odd frame sizes, bool and uint8
+masks, unaligned buffers); the ``eval`` line runs ``eval.evaluate_patient``
+over the five pipelines on a 502-frame colour video in bf16 and f32 with
+its synthetic masks as the ground truth, every recorded launch held, walls
+per video, host syncs, device kernels, and the card's float32 rows against
+the CPU port's on 12 frames.
 Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
@@ -1705,6 +1713,245 @@ def stream_phase(pipes, weights, videos, counted, hold_record, host_syncs,
     return line, path_counts
 
 
+# ── evaluation: the count kernels of csrc/eval.cu and evaluate_patient ──────
+
+# (frames, h, w) of the count kernels' stress inputs: the served 256², odd
+# sizes whose frames do not start on 16-byte boundaries, a wide ragged
+# frame, 1x1 frames
+EVAL_SHAPES = ((10, 256, 256), (10, 37, 53), (10, 240, 320), (7, 17, 300),
+               (3, 1, 1))
+# the card's float32 evaluation rows against the CPU port's, a frame: the
+# mask tolerance of tests/test_torch_port_eval.py (a Dice or IoU step of
+# 0.01 is a few pixels of a glottis mask)
+EVAL_CARD_VS_CPU_TOL = 0.01
+
+
+def eval_stress_inputs(dev, t, h, w, seed):
+    """(pred, gt, valid, boxes, gray) of t frames at (h, w): all-zero and
+    all-one frames, empty boxes, one-pixel boxes at two corners, boxes at,
+    across and past the frame's edges and outside it, invalid frames, a
+    bimodal gray frame with a dark glottis and all-0 / all-255 frames."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pred = rng.random((t, h, w)) < 0.4
+    gt = rng.random((t, h, w)) < 0.3
+    pred[0] = False
+    pred[1] = True
+    gt[1] = True
+    gt[2 % t] = False
+    boxes = np.stack([rng.integers(-10, w, t), rng.integers(-10, h, t),
+                      rng.integers(0, w + 10, t), rng.integers(0, h + 10, t)],
+                     1)
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2])
+    special = [[0, 0, w, h], [w - 1, h - 1, w, h], [5, 5, 5, 9],
+               [0, 0, 1, 1], [-30, -30, w + 30, h + 30], [w, h, w + 5, h + 5],
+               [w // 3, -4, w - 2, h // 2]]
+    for i, b in enumerate(special[:t]):
+        boxes[i] = b
+    valid = rng.random(t) < 0.8
+    valid[:min(t, 5)] = True
+    valid[-1] = False
+    g = rng.normal(170, 12, (t, h, w))
+    g[:, h // 5:h // 2, w // 4:w // 2] = rng.normal(45, 9, (
+        t, h // 2 - h // 5, w // 2 - w // 4))
+    g = np.clip(g, 0, 255).astype(np.uint8)
+    g[-1] = 0
+    g[-2] = 255
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (to(pred), to(gt), to(valid), to(boxes.astype(np.int32)), to(g),
+            to((pred * rng.integers(1, 256, (t, h, w))).astype(np.uint8)))
+
+
+def eval_stress(dev, hold, unaligned) -> list:
+    """og_frame_counts (unmasked, box-masked, both from one pass) and
+    og_otsu_counts (with and without gt) on every EVAL_SHAPES input,
+    bool and uint8 masks, 16-byte aligned and unaligned buffers (pred and
+    gt at the same and at different offsets), each held exactly equal to
+    its plain version (``hold(name, got, want)`` raises on a difference);
+    thresholds by their bits.  Returns the cases' labels."""
+    import torch
+
+    from openglottal_tpu_torch.ops import eval_cuda
+
+    labels = []
+    for t, h, w in EVAL_SHAPES:
+        pred, gt, valid, boxes, gray, pred_u8 = eval_stress_inputs(
+            dev, t, h, w, seed=h * 1000 + w)
+        gt_u8 = gt.to(torch.uint8) * 255
+        for tag, p, g in (
+                ("bool", pred, gt), ("uint8", pred_u8, gt_u8),
+                ("bool+uint8", pred, gt_u8),
+                ("unaligned 1/1", unaligned(pred, 1), unaligned(gt, 1)),
+                ("unaligned 3/8", unaligned(pred_u8, 3), unaligned(gt, 8))):
+            for kw in ({}, {"valid": valid, "boxes": boxes},
+                       {"valid": valid, "boxes": boxes, "unmasked": True}):
+                hold("frame_counts", eval_cuda.frame_counts(p, g, **kw),
+                     eval_cuda.frame_counts(p, g, **kw, use_plain=True))
+                labels.append(f"frame_counts {t}x{h}x{w} {tag} "
+                              f"{'+'.join(kw) or 'unmasked'}")
+        for tag, gr, g in (("gt", gray, gt), ("gt uint8", gray, gt_u8),
+                           ("no gt", gray, None),
+                           ("unaligned", unaligned(gray, 5),
+                            unaligned(gt, 2))):
+            (kt, kc), (pt, pc) = (
+                eval_cuda.otsu_counts(gr, g, valid, boxes),
+                eval_cuda.otsu_counts(gr, g, valid, boxes, use_plain=True))
+            hold("otsu_counts", kt.view(torch.int32), pt.view(torch.int32))
+            hold("otsu_counts", kc, pc)
+            labels.append(f"otsu_counts {t}x{h}x{w} {tag}")
+    return labels
+
+
+def eval_runner(name, inputs, kw):
+    """(kernel fn, plain fn, bytes moved, operations) of one recorded launch
+    of og_frame_counts or og_otsu_counts.  Bytes: the masks read once (the
+    Otsu launch: the in-box gray pixels and the whole gt), valid, boxes and
+    the outputs; operations: per pixel the two byte tests and the AND (and
+    the in-box test and two more ANDs when box-masked), per in-box pixel of
+    the Otsu launch the histogram add, the compare and the AND, and its
+    256-bin walk (eight float operations a bin)."""
+    from openglottal_tpu_torch.ops import eval_cuda
+
+    if name == "frame_counts":
+        pred, gt, valid, boxes = inputs
+        t = pred.shape[0]
+        px = pred.numel()
+        boxed = boxes is not None
+        nbytes = 2 * px + (17 * t if boxed else 0) + t * (
+            24 if kw["unmasked"] else 12)
+        return (lambda: eval_cuda.frame_counts(pred, gt, valid, boxes, **kw),
+                lambda: eval_cuda.frame_counts(pred, gt, valid, boxes, **kw,
+                                               use_plain=True),
+                nbytes, px * (6 if boxed else 3))
+    gray, gt, valid, boxes = inputs
+    t = gray.shape[0]
+    inbox = int(eval_cuda.inbox_masks(boxes, *gray.shape[1:]).sum())
+    nbytes = inbox + (0 if gt is None else gt.numel()) + t * (17 + 4 + 12)
+    return (lambda: eval_cuda.otsu_counts(gray, gt, valid, boxes),
+            lambda: eval_cuda.otsu_counts(gray, gt, valid, boxes,
+                                          use_plain=True),
+            nbytes, 3 * inbox + 8 * 256 * t)
+
+
+def eval_phase(pipes, cpu_pipe, counted, expect_counts, hold_record,
+               host_syncs, device_kernels, smi) -> tuple:
+    """``eval.evaluate_patient`` with the demo weights (U-Net, crop U-Net
+    and YOLO, conf 0.25) on a 502-frame synthetic 256² colour video (the
+    realistic form: texture, noise and blur, so that no row is trivially
+    1.0) with its ``synthetic_video`` masks as the ground truth, bf16 and
+    float32: the
+    five pipelines' rows (keys, lengths, values in [0, 1]); og_frame_counts
+    launched 3 times (U-Net masks unmasked and box-masked from one pass,
+    the crop U-Net, the guided tracker) and og_otsu_counts once; every
+    recorded launch (the blob kernels and scans of the path too) held
+    exactly equal to its plain version; ``aggregate``; host syncs and
+    device kernels per video; walls per video over three distinct videos;
+    the card's float32 rows against the CPU port's on a 12-frame clip:
+    ``yolo+otsu`` bit-equal on every frame whose gate (valid, box) agrees
+    (the frames whose gate differs are listed), and every row within
+    EVAL_CARD_VS_CPU_TOL a frame.  Raises on any
+    failed check; returns (the phase's line, the bf16 run's record, its
+    launch counts)."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.data.synthetic import synthetic_video
+    from openglottal_tpu_torch.eval import PIPELINES, aggregate, \
+        evaluate_patient
+    from openglottal_tpu_torch.pipelines import YGVFT_INIT
+
+    def patient(seed, t=T_FRAMES):
+        f, m = synthetic_video(t=t, size=256, seed=seed, realistic=True)
+        return tint(f), np.ascontiguousarray(m)
+
+    def check_rows(where, rows, t):
+        if list(rows) != PIPELINES:
+            raise AssertionError(f"{where}: pipelines {list(rows)}")
+        for name, r in rows.items():
+            n = t - (YGVFT_INIT if name == "yolo+motion" else 0)
+            for k in ("dice", "iou"):
+                x = r[k]
+                if (x.shape != (n,) or x.dtype != np.float32
+                        or not ((x >= 0) & (x <= 1)).all()):
+                    raise AssertionError(f"{where}: {name} {k} {x.shape} "
+                                         f"{x.dtype} outside [0, 1]")
+            if (r["det"] is None) != (name == "unet-only") or (
+                    r["det"] is not None and r["det"].shape != (n,)):
+                raise AssertionError(f"{where}: {name} det")
+
+    line = {"nvidia_smi": smi, "frames": T_FRAMES,
+            "input": "synthetic_video(t=502, size=256, realistic=True), "
+                     "tinted to colour; ground truth: its masks"}
+    frames, gt = patient(0)
+    record, counts = None, None
+    expected = {"frame_counts": 3, "otsu_counts": 1, "gate_scan": 1}
+    for tag, pipe in pipes.items():
+        evaluate_patient(pipe, *patient(1, 64))          # warm-up (cuDNN)
+        rec = []
+        rows, got = counted(lambda: evaluate_patient(pipe, frames, gt), rec)
+        expect_counts(f"eval/{tag}", got, expected)
+        check_rows(f"eval/{tag}", rows, T_FRAMES)
+        hold_record(f"eval/{tag}", rec)
+        if tag == "bf16":
+            record, counts = rec, got
+        walls = []
+        for s in (2, 3, 4):
+            f_s, m_s = patient(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_patient(pipe, f_s, m_s)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        agg = aggregate({"p0": rows})
+        line[tag] = {
+            "launches": got, "launches_held": len(rec),
+            "wall_ms_per_video": walls,
+            "aggregate": {k: {m: v[m] for m in ("dice", "iou", "dice50",
+                                                  "det_recall", "n_frames")}
+                          for k, v in agg.items()}}
+    syncs, sites = host_syncs(lambda: evaluate_patient(pipes["bf16"], frames,
+                                                       gt))
+    line["host_syncs_per_video"], line["host_sync_sites"] = syncs, sites
+    line["device_kernels_per_video_bf16"] = sum(device_kernels(
+        lambda: evaluate_patient(pipes["bf16"], frames, gt)).values())
+
+    # the card's float32 rows against the CPU port's on 12 frames
+    clip, clip_gt = frames[:12], gt[:12]
+    card = evaluate_patient(pipes["f32"], clip, clip_gt)
+    cpu = evaluate_patient(cpu_pipe, clip, clip_gt)
+    gates = []
+    for p in (pipes["f32"], cpu_pipe):
+        v, b = p.gated_boxes(clip, True)
+        gates.append((v.cpu().numpy(), b.cpu().numpy()))
+    agree = (gates[0][0] == gates[1][0]) & (gates[0][1] == gates[1][1]).all(1)
+    max_diff = {}
+    for name in PIPELINES:
+        c, h = card[name], cpu[name]
+        if name == "yolo+otsu":
+            for k in ("dice", "iou"):
+                if not np.array_equal(c[k][agree].view(np.int32),
+                                      h[k][agree].view(np.int32)):
+                    raise AssertionError(f"eval: yolo+otsu {k} on the card "
+                                         f"differs from the CPU's where the "
+                                         f"gates agree")
+        d = max(float(np.abs(c[k] - h[k]).max()) for k in ("dice", "iou"))
+        if d > EVAL_CARD_VS_CPU_TOL:
+            raise AssertionError(f"eval: {name} card vs CPU differs by {d} "
+                                 f"(limit {EVAL_CARD_VS_CPU_TOL})")
+        max_diff[name] = d
+    line["card_vs_cpu_12_frames_f32"] = {
+        "frames_whose_gate_differs": np.nonzero(~agree)[0].tolist(),
+        "yolo_otsu_bit_equal_where_gates_agree": True,
+        "max_abs_diff_dice_iou": max_diff,
+        "rows_bit_equal": {n: bool(np.array_equal(card[n]["dice"],
+                                                  cpu[n]["dice"])
+                                   and np.array_equal(card[n]["iou"],
+                                                      cpu[n]["iou"]))
+                           for n in PIPELINES}}
+    return line, record, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1726,6 +1973,7 @@ def main() -> int:
         areas_cuda,
         blobs,
         blobs_cuda,
+        eval_cuda,
         qconv_cuda,
         scan_cuda,
     )
@@ -1804,13 +2052,15 @@ def main() -> int:
 
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
-                **areas_cuda.LAUNCHES, **qconv_cuda.LAUNCHES}
+                **areas_cuda.LAUNCHES, **qconv_cuda.LAUNCHES,
+                **eval_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         blobs_cuda.reset_launch_counts()
         scan_cuda.reset_launch_counts()
         areas_cuda.reset_launch_counts()
         qconv_cuda.reset_launch_counts()
+        eval_cuda.reset_launch_counts()
 
     # ── kernels vs plain versions on stress inputs (exact) ──────────────
     max_err = {k: 0 for k in counts()}
@@ -2238,13 +2488,13 @@ def main() -> int:
         saved = {n: _build._libs[n] for n in libs}
         _build._libs.update(libs)
         blobs_cuda._configured = scan_cuda._configured = False
-        areas_cuda._configured = False
+        areas_cuda._configured = eval_cuda._configured = False
         try:
             yield
         finally:
             _build._libs.update(saved)
             blobs_cuda._configured = scan_cuda._configured = False
-            areas_cuda._configured = False
+            areas_cuda._configured = eval_cuda._configured = False
 
     def identical(got, want):
         """Exact equality of a kernel's output(s), floats by their bits."""
@@ -2424,9 +2674,11 @@ def main() -> int:
     # og_qconv on every int8 layer shape, each epilogue and the edge cases
     # (qconv_stress_cases): int8 outputs and float32 bits exactly equal
     qconv_labels, qconv_silu_cpu = qconv_stress(dev, hold)
+    # og_frame_counts and og_otsu_counts on their stress inputs
+    eval_labels = eval_stress(dev, hold, unaligned)
 
     say("kernels", ok=True, compared="exact equality with the plain version",
-        qconv_stress_cases=qconv_labels,
+        qconv_stress_cases=qconv_labels, eval_stress_cases=len(eval_labels),
         qconv_silu_equal_to_plain_on_cpu=qconv_silu_cpu,
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress), box_count_stress_cases=box_stress,
@@ -2488,14 +2740,14 @@ def main() -> int:
         """fn() with every launch count set to 0 just before and read just
         after; launches are also recorded into ``record`` when given."""
         blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
-        qconv_cuda.RECORD = record
+        qconv_cuda.RECORD = eval_cuda.RECORD = record
         reset_counts()
         try:
             out = fn()
             return out, counts()
         finally:
             blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
-            qconv_cuda.RECORD = None
+            qconv_cuda.RECORD = eval_cuda.RECORD = None
 
     def host_syncs(fn):
         """(count, sites) of the host synchronisations one call of fn()
@@ -2726,11 +2978,17 @@ def main() -> int:
         # the int8 convolutions (unet's windowed int8 main path): XLA's
         # lowering of quant.py's _qconv, no Pallas kernel
         "qconv": ("openglottal_tpu/models/quant.py:304", "quant-unet"),
+        # evaluate_patient's counts: XLA's fusions of eval.py's
+        # frame_metrics_batch (+ box_masked) and otsu_in_box_masks
+        "frame_counts": ("openglottal_tpu/eval.py:29", "eval"),
+        "otsu_counts": ("openglottal_tpu/eval.py:44", "eval"),
     }
     source = {k: "openglottal_tpu_torch/csrc/blobs.cu" for k in blobs_cuda.LAUNCHES}
     source.update({k: "openglottal_tpu_torch/csrc/scan.cu" for k in scan_cuda.LAUNCHES})
     source["box_count"] = "openglottal_tpu_torch/csrc/areas.cu"
     source["qconv"] = "openglottal_tpu_torch/csrc/qconv.cu"
+    source.update({k: "openglottal_tpu_torch/csrc/eval.cu"
+                   for k in eval_cuda.LAUNCHES})
     # the C entry point each wrapper launches
     c_entry = {"dual_cc_batch": "og_dual_cc",
                "dual_min_prop_batch": "og_dual_min_prop",
@@ -2740,7 +2998,8 @@ def main() -> int:
                "motion_map": "og_motion_map", "box_count": "og_box_count",
                "gate_scan_batch": "og_gate_scan_batch",
                "thresh_chain_batch": "og_thresh_chain_batch",
-               "qconv": "og_qconv"}
+               "qconv": "og_qconv", "frame_counts": "og_frame_counts",
+               "otsu_counts": "og_otsu_counts"}
 
     def links(code):
         """Neighbour links this input makes the union-find test and join:
@@ -2760,6 +3019,8 @@ def main() -> int:
         """(kernel fn, plain fn, bytes moved, operations) for one launch."""
         if name == "qconv":
             return qconv_runner(inputs, kw)
+        if name in eval_cuda.LAUNCHES:
+            return eval_runner(name, inputs, kw)
         if name == "dual_cc_batch":
             (code,) = inputs
             px = code.numel()
@@ -2904,7 +3165,8 @@ def main() -> int:
             e["ops"].append(ops)
             big = max((c.x for c in inputs) if name == "box_count"
                       else inputs[0] if name == "qconv"
-                      else inputs, key=torch.numel)
+                      else [x for x in inputs if x is not None],
+                      key=torch.numel)
             e["shapes"].append(list(big.shape))
 
     for path, record in recorded.items():
@@ -2987,6 +3249,19 @@ def main() -> int:
     say("quant", compared="every recorded launch exactly equal to its plain "
         "version", silu_stress_cases_equal_to_plain_on_cpu=qconv_silu_cpu,
         **quant_line)
+
+    # ── evaluation: evaluate_patient over the five pipelines ────────────
+    t_eval = time.perf_counter()
+    eval_line, eval_record, eval_counts = eval_phase(
+        pipes, cpu_pipe, counted, expect_counts, hold_record, host_syncs,
+        device_kernels, smi)
+    reset_counts()
+    path_launches["eval/bf16"] = eval_counts
+    measure("eval", eval_record)
+    reset_counts()
+    say("eval", compared="every recorded launch exactly equal to its plain "
+        "version", stress_cases=len(eval_labels),
+        phase_seconds=time.perf_counter() - t_eval, **eval_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 

@@ -289,3 +289,21 @@ def chunk_window_origin(boxes, valid, h: int, w: int, win: int,
             & (oy <= lo[1]) & (hi[1] <= oy + win)
             & (ox + win + margin <= w) & (oy + win + margin <= h))
     return fits, oy, ox
+
+
+def segment_frames(variables, frames_gray_u8, threshold: float = 0.5,
+                   dtype=torch.float32, device=None):
+    """Masks of (N, H, W) uint8 gray frames, batched, as the reference's
+    per-frame ``unet_segment_frame`` makes them: each frame resized to 256²
+    (bilinear), segmented, its probabilities resized back and compared with
+    ``threshold`` -> (N, H, W) bool on the device.  This is
+    ``GlottalPipelines.segment_video`` on a U-Net-only instance (the
+    serving path's U-Net and resizes).
+
+    ``variables``: the JAX package's U-Net tree (folded or not).
+    ``device=None`` is the CUDA device (raises without one)."""
+    from openglottal_tpu_torch.pipelines import GlottalPipelines
+
+    pipe = GlottalPipelines(unet_variables=variables, dtype=dtype,
+                            device=device)
+    return pipe.segment_video(frames_gray_u8, threshold)

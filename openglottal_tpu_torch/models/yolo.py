@@ -261,3 +261,30 @@ def max_conf_detect(level_outputs, size_h: int, size_w: int,
     idx = idx.clamp(max=a - 1)                  # all-NaN row: keep in range
     best_box = boxes.gather(1, idx[:, None, None].expand(-1, 1, 4))[:, 0]
     return best_conf > conf_thresh, best_box, best_conf
+
+
+class YoloDetector:
+    """Batched detector: BGR uint8 frames -> each frame's max-confidence box.
+
+    Counterpart of the JAX package's ``YoloDetector`` (the reference's
+    ``TemporalDetector`` configuration surface: the confidence threshold);
+    the temporal gate lives in ``models/gate.py`` and reads this output.
+    It is ``GlottalPipelines.detect_video`` on a detector-only instance (the
+    serving path's detector, one class).  ``variables``: the JAX package's
+    YOLOv8 tree (folded or not).  ``device=None`` is the CUDA device (raises
+    without one)."""
+
+    def __init__(self, variables, conf: float = 0.25, dtype=torch.float32,
+                 device=None):
+        from openglottal_tpu_torch.pipelines import GlottalPipelines
+
+        self.pipe = GlottalPipelines(yolo_variables=variables, conf=conf,
+                                     dtype=dtype, device=device)
+
+    def detect_frames(self, frames_bgr_u8):
+        """(N, H, W, 3) uint8 BGR, host or device -> (has (N,) bool, box
+        (N, 4) float32 xyxy, conf (N,)) at the frames' own size.  256² is
+        the detector's size; other sizes are letterboxed upstream, as every
+        evaluation path of the reference does (``GlottalPipelines.
+        gated_boxes`` does it itself)."""
+        return self.pipe.detect_video(frames_bgr_u8)

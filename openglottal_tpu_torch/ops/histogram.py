@@ -1,8 +1,13 @@
-"""uint8 histogram-based ops: exact masked percentiles.
+"""uint8 histogram-based ops: exact masked percentiles and the Otsu
+threshold.
 
 Counterpart of ``openglottal_tpu/ops/histogram.py``.  The reference computes
 ``np.percentile(pixels_in_roi, pct)`` per frame; for integer-valued [0, 255]
 pixels that is exactly computable from counts, with no data-dependent shapes.
+Its Otsu threshold (cv2's THRESH_OTSU semantics) is a float32 walk over the
+256 bins, written here step by step as the reference's compiled code rounds
+it (found by comparing bits): sequential float32 cumulative sums, never
+``torch.cumsum``, whose CPU accumulator is wider than float32.
 """
 
 from __future__ import annotations
@@ -81,3 +86,43 @@ def masked_percentile_u8(values, mask, q: float, fallback):
     if not isinstance(fallback, torch.Tensor):   # filled on the device
         fallback = torch.full((), float(fallback), device=val.device)
     return torch.where(n > 0, val, fallback)
+
+
+def otsu_threshold_from_hist(hist: torch.Tensor):
+    """Otsu threshold of (..., 256) float32 histograms -> (...,) float32,
+    the first bin of maximum between-class variance.  Every step rounds to
+    float32 once, as the reference's compiled code rounds it:
+
+      p = hist / max(n, 1); w0, mu = sequential float32 cumulative sums of
+      p and p * v; w1 = 1 - w0; denom = w0 * w1; num = mu_total * w0 - mu
+      (two roundings, not one fma); sigma = (num * num) / max(denom, 1e-12)
+      where denom > 1e-12, else -1.
+
+    Eager float32 tensor ops each round once; the cumulative sums are a loop
+    over the bins (each add one rounding)."""
+    hist = hist.to(torch.float32)
+    n = hist.sum(-1, keepdim=True)          # integers: exact in any order
+    p = hist / torch.clamp(n, min=1.0)
+    pv = p * torch.arange(256, dtype=torch.float32, device=hist.device)
+    w0, mu = torch.empty_like(p), torch.empty_like(p)
+    a = torch.zeros_like(p[..., 0])
+    b = torch.zeros_like(a)
+    for i in range(256):
+        a = a + p[..., i]
+        b = b + pv[..., i]
+        w0[..., i] = a
+        mu[..., i] = b
+    denom = w0 * (1.0 - w0)
+    num = mu[..., 255:] * w0 - mu
+    sigma = torch.where(denom > 1e-12,
+                        (num * num) / torch.clamp(denom, min=1e-12), -1.0)
+    return torch.argmax(sigma, -1).to(torch.float32)
+
+
+def otsu_threshold(values: torch.Tensor, mask: torch.Tensor | None = None):
+    """Otsu threshold of uint8 ``values`` (optionally masked), cv2
+    THRESH_OTSU semantics -> 0-d float32; binarise with ``values > t``."""
+    if mask is None:
+        mask = torch.ones(values.shape, dtype=torch.bool,
+                          device=values.device)
+    return otsu_threshold_from_hist(masked_histogram_u8(values, mask))

@@ -1,9 +1,10 @@
 """Resize, crop-resize and letterbox with cv2 semantics (INTER_LINEAR,
 INTER_NEAREST, the reference's letterbox geometry).
 
-Counterpart of ``openglottal_tpu/ops/resize.py`` (all but the host-side
-``letterbox_np``, which calls cv2; :func:`resize_linear_cv2` is cv2's
-INTER_LINEAR without cv2, for it and for the compat trackers).
+Counterpart of ``openglottal_tpu/ops/resize.py``.  The host-side
+:func:`letterbox_np`, which calls cv2 in the reference, runs on
+:func:`resize_linear_cv2` and :func:`resize_nearest_cv2`: cv2's
+INTER_LINEAR and INTER_NEAREST without cv2 (also for the compat trackers).
 
 Semantics: bilinear src = (dst + 0.5) * in/out - 0.5, border replicate, no
 antialiasing; nearest src = floor(dst * in/out); a crop window replicates
@@ -332,6 +333,19 @@ def resize_linear_cv2(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     return out.astype(img.dtype)
 
 
+def resize_nearest_cv2(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_NEAREST)``
+    of an (H, W) or (H, W, C) array, without cv2: source index
+    min(floor(d * (1 / (out / in))), in - 1) per axis, in float64 as cv2
+    computes it (:func:`_nearest_taps`); values move unchanged."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    cpu = torch.device("cpu")
+    rows = _static_nearest_taps(h, out_h, 0.0, float(h), cpu).numpy()
+    cols = _static_nearest_taps(w, out_w, 0.0, float(w), cpu).numpy()
+    return img[rows][:, cols]
+
+
 # ── letterbox (static geometry) ─────────────────────────────────────────────
 
 def letterbox_info(h: int, w: int, size: int = 256):
@@ -342,6 +356,20 @@ def letterbox_info(h: int, w: int, size: int = 256):
     content_w = int(round(w * scale))
     return (size - content_h) // 2, (size - content_w) // 2, content_h, \
         content_w
+
+
+def letterbox_np(img: np.ndarray, size: int = 256, value: int = 0):
+    """Host-side letterbox of one (H, W) or (H, W, C) array to (size, size)
+    (+ C): INTER_LINEAR for C channels, INTER_NEAREST for 2-D arrays (the
+    reference's choice for images and masks), padded with ``value``; equal
+    to the reference's cv2 letterbox on uint8 arrays."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    pt, pl, ch, cw = letterbox_info(h, w, size)
+    resize = resize_linear_cv2 if img.ndim == 3 else resize_nearest_cv2
+    out = np.full((size, size) + img.shape[2:], value, dtype=img.dtype)
+    out[pt:pt + ch, pl:pl + cw] = resize(img, cw, ch)
+    return out
 
 
 @functools.lru_cache(maxsize=64)

@@ -65,6 +65,7 @@ CUDA device is available; the CPU is used only when asked for by name.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -678,11 +679,20 @@ class GlottalPipelines:
         return gate_scan(has, raw, h, w, self.gate_params,
                          use_plain=self.use_plain_kernels)
 
-    def gated_boxes(self, frames_bgr_u8, sequential: bool = True):
-        """Detector + temporal gate of a (T, H, W, 3) BGR video, at its own
-        frame size -> (valid (T,), boxes (T, 4) int32)."""
-        has, raw, _ = self.detect_video(frames_bgr_u8)
-        return self._gate(has, raw, *frames_bgr_u8.shape[1:3], sequential)
+    @torch.no_grad()
+    def gated_boxes(self, frames_u8, sequential: bool = True):
+        """Detector + gate of a (T, H, W, 3) BGR or (T, H, W) gray uint8
+        video, host or device -> (valid (T,) bool, boxes (T, 4) int32) on
+        the device in the frames' coordinates; frames other than 256² go to
+        the detector letterboxed (:meth:`_gated`).  ``sequential=False``
+        gates every frame on its own."""
+        self._require("yolo")
+        f = frames_u8
+        if not isinstance(f, torch.Tensor):
+            f = torch.from_numpy(np.ascontiguousarray(f))
+        f = f.to(self.device)
+        return self._gated(f if f.dim() == 4 else None,
+                           f if f.dim() == 3 else None, sequential)
 
     def _tracker(self, parallel_fn, scan_fn):
         """The tracker form this instance runs."""
@@ -771,19 +781,26 @@ class GlottalPipelines:
 
     # ── pipeline 2: guided VFT ──────────────────────────────────────────
 
+    def _ygvft_track(self, gray, valid, boxes):
+        """ONE guided-tracker pass (frame-parallel, or the sequential scan
+        with ``parallel_trackers=False``) over the frames after the
+        YGVFT_INIT seed frames -> (masks (t - YGVFT_INIT, h, w) bool, areas
+        (t - YGVFT_INIT,) float32), on the device."""
+        vin = valid[:YGVFT_INIT]
+        # first valid init frame, picked on the device (no host read)
+        fi = torch.argmax(vin.to(torch.uint8)).reshape(1)
+        return self._tracker(ygvft_parallel, ygvft_scan)(
+            gray[:YGVFT_INIT], vin.any(), boxes.index_select(0, fi)[0],
+            gray[YGVFT_INIT:], valid[YGVFT_INIT:], boxes[YGVFT_INIT:],
+            params=self.ygvft_params, use_plain=self.use_plain_kernels)
+
     def _ygvft_compute(self, gray, valid, boxes, t, want_masks: bool = False):
         """Shared guided-VFT core: ONE tracker pass (frame-parallel, or the
         sequential scan with ``parallel_trackers=False``) -> (areas (t,)
         np.float32, masks (t, h, w) bool tensor | None).  The first
         YGVFT_INIT frames seed the tracker and emit zero / empty outputs."""
         h, w = gray.shape[1:]
-        vin = valid[:YGVFT_INIT]
-        # first valid init frame, picked on the device (no host read)
-        fi = torch.argmax(vin.to(torch.uint8)).reshape(1)
-        masks_v, areas_v = self._tracker(ygvft_parallel, ygvft_scan)(
-            gray[:YGVFT_INIT], vin.any(), boxes.index_select(0, fi)[0],
-            gray[YGVFT_INIT:], valid[YGVFT_INIT:], boxes[YGVFT_INIT:],
-            params=self.ygvft_params, use_plain=self.use_plain_kernels)
+        masks_v, areas_v = self._ygvft_track(gray, valid, boxes)
         areas = np.zeros(t, np.float32)
         areas[YGVFT_INIT:] = areas_v.cpu().numpy()
         masks = None
@@ -815,11 +832,8 @@ class GlottalPipelines:
     def ygvft_eval_masks(self, gray, valid, boxes):
         """Guided-tracker masks of the non-init frames, (t - YGVFT_INIT, h,
         w) bool, given the gate's outputs (the init frames are excluded from
-        evaluation metrics)."""
-        t = gray.shape[0]
-        _, masks = self._ygvft_compute(gray, valid, boxes, t,
-                                       want_masks=True)
-        return masks[YGVFT_INIT:]
+        evaluation metrics); the areas are not read back."""
+        return self._ygvft_track(gray, valid, boxes)[0]
 
     # ── pipelines 3 and 5: the U-Net ────────────────────────────────────
 
@@ -833,30 +847,36 @@ class GlottalPipelines:
         0..255)."""
         return torch.sigmoid(self.unet(self._unet_input(x256))[:, 0])
 
-    def _scores_chunk(self, gray_chunk):
-        """(scores (N, H, W), threshold) of a chunk of gray frames, a pixel
-        being in the mask where its score exceeds the threshold: at 256² the
-        logits as the head gives them (``logits > 0`` is ``p > 0.5``);
-        other sizes are resized to 256² (bilinear) and their probabilities
-        resized back, with threshold 0.5."""
+    def _scores_chunk(self, gray_chunk, threshold: float = 0.5):
+        """(scores (N, H, W), cut) of a chunk of gray frames, a pixel being
+        in the mask where its score exceeds the cut (its probability
+        exceeds ``threshold``): at 256² the logits as the head gives them,
+        cut at logit(threshold) (0 for 0.5: ``logits > 0`` is ``p >
+        0.5``); other sizes are resized to 256² (bilinear) and their
+        probabilities resized back, cut at ``threshold``."""
         h, w = gray_chunk.shape[1:]
         if (h, w) == (SIZE, SIZE):
-            return self.unet.logits(self._unet_input(gray_chunk))[:, 0], 0.0
+            return (self.unet.logits(self._unet_input(gray_chunk))[:, 0],
+                    math.log(threshold / (1.0 - threshold)))
         x = resize_bilinear(gray_chunk.to(torch.float32), SIZE, SIZE)
         return resize_bilinear(self._unet_probs_chunk(x), h, w
-                               ).contiguous(), 0.5
+                               ).contiguous(), threshold
 
-    def _segment_chunk(self, gray_chunk):
+    def _segment_chunk(self, gray_chunk, threshold: float = 0.5):
         """Boolean masks of a chunk of (N, H, W) gray frames."""
-        scores, thr = self._scores_chunk(gray_chunk)
-        return scores > thr
+        scores, cut = self._scores_chunk(gray_chunk, threshold)
+        return scores > cut
 
     @torch.no_grad()
-    def segment_video(self, gray_u8):
+    def segment_video(self, gray_u8, threshold: float = 0.5):
         """(T, H, W) gray -> (T, H, W) boolean masks of the full-frame
-        U-Net."""
+        U-Net, a pixel in the mask where its probability exceeds
+        ``threshold`` (in (0, 1))."""
         self._require("unet")
-        return self._chunks(self._segment_chunk, self._to_gray(gray_u8))
+        if not 0.0 < threshold < 1.0:
+            raise ValueError(f"threshold must lie in (0, 1), got {threshold}")
+        return self._chunks(lambda g: self._segment_chunk(g, threshold),
+                            self._to_gray(gray_u8))
 
     @torch.no_grad()
     def unet_only_areas(self, gray_u8):

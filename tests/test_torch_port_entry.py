@@ -169,6 +169,9 @@ def test_gated_letterbox_branch_exact(colour):
         v, b = gp._gated(fdev, gray, sequential=sequential)
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+        v, b = gp.gated_boxes(vid, sequential)     # the public gate
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
 
 def test_bgr_and_gray_entries_give_the_same_boxes():
