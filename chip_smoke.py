@@ -6,6 +6,8 @@
     python3 chip_smoke.py --qconv         # build + og_qconv alone: its stress
         # cases, then every U-Net layer shape in turns with PR 10's kernel
         # (tools/qconv_pr10.cu), cuDNN's bf16 conv and _int_mm
+    python3 chip_smoke.py --mjpg          # build + the MJPG read path alone
+        # (the "mjpg" line and the two JPEG kernels' entries)
     python3 chip_smoke.py --against DIR [DIR ...]
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
@@ -17,8 +19,8 @@
         # one on the served chunk
 
 The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
-``areas.cu``, ``qconv.cu``) are built with nvcc, one process each, all
-started together.
+``areas.cu``, ``qconv.cu``, ``eval.cu``, ``jpeg.cu``) are built with nvcc,
+one process each, all started together.
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -85,8 +87,20 @@ masks, unaligned buffers); the ``eval`` line runs ``eval.evaluate_patient``
 over the five pipelines on a 502-frame colour video in bf16 and f32 with
 its synthetic masks as the ground truth, every recorded launch held, walls
 per video, host syncs, device kernels, and the card's float32 rows against
-the CPU port's on 12 frames.
-Prints
+the CPU port's on 12 frames.  The MJPG decode kernels of ``csrc/jpeg.cu``
+(``og_jpeg_entropy``, ``og_jpeg_idct_bgr``) are held exactly equal to their
+plain versions (``data/jpeg.py``) on 64 stress streams
+(``tools/jpeg_stress.py``: every sampling form, odd sizes, restart
+intervals, extreme coefficients, 16-bit quantisers, no DHT) and two broken
+ones, and 4:2:x of odd height is refused; the ``mjpg`` line reads every
+fixture of ``tests/data/mjpg`` on the card against the digests of cv2's
+frames written beside them (the one it refuses, refused), and a
+502-frame 256² MJPG clip whole and in chunks of 128 (every launch held,
+every frame against its cv2 digest), serves it through ``unet`` bf16
+whole, streamed and by the command line with the waveform equal to the
+same frames from host memory, and times the kernels, the read from disk
+to the card (host syncs, the host parse's share) and unet after it, in
+turns with the same frames as a BI_RGB 24-bit and as a Y800 AVI.  Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -1952,6 +1966,426 @@ def eval_phase(pipes, cpu_pipe, counted, expect_counts, hold_record,
     return line, record, counts
 
 
+# ── MJPG: baseline-JPEG decode on the card (csrc/jpeg.cu) ───────────────────
+
+MJPG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "mjpg"
+MJPG_REAL = "real_256_64.avi"       # repeated into the T_FRAMES-frame clip
+MJPG_PLAIN_FRAMES = 64              # frames the plain versions are timed on
+MJPG_WEIGHTS = dict(unet_variables="weights/demo_unet.npz",
+                    yolo_variables="weights/demo_yolo.npz", conf=0.25)
+
+
+def mjpg_stress_cases() -> list:
+    """(label, JPEG frames) of the decoder's stress streams
+    (tools/jpeg_stress.py): every sampling form, sizes that are not
+    multiples of 16 (1x1, 37x53, 72x136; 4:2:x, whose odd heights are
+    refused, at 2x1 and 38x53), restart intervals of 1 and 5 MCUs, DC
+    differences of +-2047 and AC levels of +-1023, every zero run (ZRL
+    chains, blocks without an EOB, blocks of only a DC term), 16-bit
+    quantisation tables whose products wrap int16, frames without a DHT."""
+    from openglottal_tpu_torch.tools.jpeg_stress import stress_frames
+
+    cases, seed = [], 0
+    for kind in ("extreme", "dense", "sparse", "noise"):
+        for sampling in ("gray", "4:4:4", "4:2:2", "4:2:0"):
+            for (h, w), restart, qmax, dht in (((37, 53), 0, 1, True),
+                                               ((16, 16), 1, 65535, True),
+                                               ((1, 1), 0, 255, False),
+                                               ((72, 136), 5, 255, False)):
+                if sampling in ("4:2:2", "4:2:0"):
+                    h += h % 2
+                cases.append((
+                    f"{kind} {sampling} {h}x{w} restart {restart} q<={qmax}"
+                    f"{'' if dht else ' annex-K'}",
+                    stress_frames(kind, h, w, sampling, t=3, seed=seed,
+                                  restart=restart, quant_max=qmax, dht=dht)))
+                seed += 1
+    return cases
+
+
+def mjpg_parse(frames, first: int = 0):
+    """JPEG frames -> the packed chunk, tables carried as a video carries
+    them."""
+    from openglottal_tpu_torch.data import jpeg
+
+    state = jpeg.JpegState()
+    return jpeg.pack([jpeg.parse_frame(f, state, first + i)
+                      for i, f in enumerate(frames)], first)
+
+
+def mjpg_hold(dev, hold, p, unaligned_by: int = 0):
+    """Both kernels on one packed chunk against their plain versions (the
+    entropy decode's coefficients and error flags, the IDCT of the plain
+    coefficients and of the kernel's); the packed bytes ``unaligned_by``
+    bytes (a multiple of 4) past a fresh allocation."""
+    import torch
+
+    from openglottal_tpu_torch.data import jpeg
+    from openglottal_tpu_torch.ops import jpeg_cuda
+
+    dp = jpeg_cuda.upload(p, dev)
+    if unaligned_by:
+        buf = torch.empty(dp.data.numel() + unaligned_by, dtype=torch.uint8,
+                          device=dev)
+        dp.data = buf[unaligned_by:].copy_(dp.data)
+    coef, err = jpeg_cuda.entropy_decode(dp)
+    want_coef, want_err = jpeg.entropy_decode_plain(p)
+    hold("jpeg_entropy", err.cpu(), torch.from_numpy(want_err))
+    if want_err.any():
+        return int(want_err.sum())
+    hold("jpeg_entropy", coef.cpu(), torch.from_numpy(want_coef))
+    want = torch.from_numpy(jpeg.idct_bgr_plain(want_coef, p))
+    hold("jpeg_idct_bgr", jpeg_cuda.idct_bgr(coef, dp).cpu(), want)
+    hold("jpeg_idct_bgr", jpeg_cuda.idct_bgr(
+        torch.from_numpy(want_coef).to(dev), dp).cpu(), want)
+    return 0
+
+
+def mjpg_stress(dev, hold) -> dict:
+    """The stress streams, each at two byte offsets, and two broken streams
+    (cut short; all-ones codes) whose error flags must equal the plain
+    version's and whose read must raise naming the frame."""
+    from openglottal_tpu_torch.ops import jpeg_cuda
+
+    cases = mjpg_stress_cases()
+    for k, (_, frames) in enumerate(cases):
+        p = mjpg_parse(frames)
+        mjpg_hold(dev, hold, p)
+        mjpg_hold(dev, hold, p, 4 * (1 + k % 3))
+    good = next(f for c, f in cases if c.startswith("noise 4:2:0 38x53"))
+    body = good[1].index(b"\xff\xda")
+    short = good[1][:body + 40]
+    ones = good[1][:body + 20] + b"\xff\x00" * 64 + b"\xff\xd9"
+    broken = {}
+    for name, frame in (("short", short), ("all-ones codes", ones)):
+        p = mjpg_parse([good[0], frame, good[2]])
+        broken[name] = mjpg_hold(dev, hold, p)
+        if broken[name] != 1:
+            raise AssertionError(f"jpeg: the {name} frame was not flagged")
+        try:
+            jpeg_cuda.decode(p, dev)
+        except ValueError as e:
+            if "frame 1" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"jpeg: the {name} frame did not raise")
+    # 4:2:x of odd height is refused on the host, before any upload
+    from openglottal_tpu_torch.tools.jpeg_stress import stress_frames
+    for sampling in ("4:2:2", "4:2:0"):
+        try:
+            mjpg_parse(stress_frames("noise", 37, 53, sampling, t=1))
+        except ValueError as e:
+            if f"{sampling} of odd height" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"jpeg: {sampling} of odd height was "
+                                 f"decoded")
+    return {"cases": len(cases), "frames": sum(len(f) for _, f in cases),
+            "labels": [c for c, _ in cases], "broken_streams_flagged": broken,
+            "odd_height_4_2_x_refused": True}
+
+
+def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
+               stress=None) -> tuple:
+    """The MJPG read path on the card.  The stress streams and every
+    fixture of tests/data/mjpg (cv2- and PIL-written) through both kernels
+    against their plain versions, the card's frames against the digests of
+    cv2's frames written beside the fixtures; then a T_FRAMES-frame 256²
+    clip (the realistic fixture's 64 frames repeated: MJPG frames are
+    independent) read by ``read_frames`` and ``iter_frames`` (chunks of
+    128), every launch held against the plain version of its frames, every
+    frame against its cv2 digest, served through ``unet`` (bf16, whole and
+    streamed, and through the command line both ways) with its waveform
+    equal to the same frames served from host memory; the kernels' times,
+    bounds, registers, the plain versions' times, host syncs per clip, the
+    read from disk to the card (the host parse's share measured) and unet's
+    time, in turns with the same frames as a BI_RGB 24-bit AVI and as a
+    Y800 AVI.  Returns (the phase's line, the kernels' entries)."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch import cli
+    from openglottal_tpu_torch.data import jpeg
+    from openglottal_tpu_torch.data.video import (
+        _pieces,
+        bgr_to_gray_u8,
+        iter_frames,
+        read_frames,
+    )
+    from openglottal_tpu_torch.ops import jpeg_cuda
+    from openglottal_tpu_torch.tools.jpeg_stress import (
+        jpeg_frames_of,
+        write_mjpg_avi,
+    )
+
+    t_phase = time.perf_counter()
+    line = {"stress": stress or mjpg_stress(dev, hold)}
+    digests = json.loads((MJPG_DIR / "digests.json").read_text())
+
+    def sha(frames):
+        x = frames.cpu().numpy()
+        if x.ndim == 3:
+            x = np.repeat(x[..., None], 3, axis=-1)
+        return [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest()
+                for f in x]
+
+    def hold_launches(record, plain_of):
+        """Each recorded launch equal to the plain version of its frames:
+        ``plain_of(frame number)`` -> (coefficients, BGR) of the plain
+        decode."""
+        n = 0
+        for name, inputs, outputs in record:
+            if name == "jpeg_entropy":
+                frames_ = range(inputs.t)
+                coef, err = outputs
+                if int(err.abs().sum()) != 0:
+                    raise AssertionError("jpeg_entropy flagged a good frame")
+                want = torch.from_numpy(np.stack(
+                    [plain_of(i)[0] for i in frames_]))
+                hold("jpeg_entropy", coef.cpu(), want)
+            else:
+                want = np.stack([plain_of(i)[1] for i in range(inputs[1].t)])
+                hold("jpeg_idct_bgr", outputs.cpu(), torch.from_numpy(want))
+            n += 1
+        return n
+
+    # every fixture: the card's frames == the plain decode, and == cv2's
+    # digests where the fixture was decoded exactly when it was written
+    fixtures, held, plain = {}, 0, {}
+    for name, d in sorted(digests.items()):
+        path = MJPG_DIR / name
+        if "refused" in d:
+            try:
+                read_frames(path, dev)
+            except ValueError as e:
+                if str(e) != d["refused"]:
+                    raise
+            else:
+                raise AssertionError(f"{name}: read, not refused")
+            fixtures[name] = {"refused": d["refused"]}
+            continue
+        record = []
+        jpeg_cuda.RECORD = record
+        try:
+            got = read_frames(path, dev)
+        finally:
+            jpeg_cuda.RECORD = None
+        p = mjpg_parse(jpeg_frames_of(path))
+        coef, _ = jpeg.entropy_decode_plain(p)
+        bgr = jpeg.idct_bgr_plain(coef, p)
+        plain[name] = (p, coef, bgr)
+        held += hold_launches(record, lambda i: (coef[i], bgr[i]))
+        hold("jpeg_idct_bgr", got.cpu(), torch.from_numpy(bgr))
+        match = sum(a == b for a, b in zip(sha(got), d["sha256"]))
+        if match != len(d["sha256"]):
+            raise AssertionError(f"{name}: {len(d['sha256']) - match} frames "
+                                 f"differ from cv2's")
+        fixtures[name] = {"shape": list(got.shape), "sampling": p.geo.sampling,
+                          "frames_equal_to_cv2": f"{match}/{len(d['sha256'])}"}
+    line["fixtures"] = fixtures
+
+    # the served clip: the realistic fixture's frames repeated
+    real = jpeg_frames_of(MJPG_DIR / MJPG_REAL)
+    tmp = Path(tempfile.mkdtemp(prefix="mjpg_"))
+    clip = tmp / "clip.avi"
+    write_mjpg_avi(clip, [real[i % len(real)] for i in range(T_FRAMES)], 256,
+                   256)
+    p64, coef64, bgr64 = plain[MJPG_REAL]
+    want_sha = [digests[MJPG_REAL]["sha256"][i % len(real)]
+                for i in range(T_FRAMES)]
+
+    def plain_of(first):
+        return lambda i: (coef64[(first + i) % len(real)],
+                          bgr64[(first + i) % len(real)])
+
+    record = []
+    frames, launches = counted(lambda: read_frames(clip, dev), record)
+    held += hold_launches(record, plain_of(0))
+    if sha(frames) != want_sha:
+        raise AssertionError("clip: the card's frames differ from cv2's")
+    launches = {k: v for k, v in launches.items() if v}
+    if launches != {"jpeg_entropy": 1, "jpeg_idct_bgr": 1}:
+        raise AssertionError(f"clip: launches {launches}")
+    host = frames.cpu().numpy()
+    srecord = []
+    chunks, slaunches = counted(
+        lambda: list(iter_frames(clip, chunk=128, device=dev)), srecord)
+    slaunches = {k: v for k, v in slaunches.items() if v}
+    n_chunks = -(-T_FRAMES // 128)
+    if slaunches != {"jpeg_entropy": n_chunks, "jpeg_idct_bgr": n_chunks}:
+        raise AssertionError(f"clip in chunks of 128: launches {slaunches}")
+    first = 0
+    for k in range(0, len(srecord), 2):
+        held += hold_launches(srecord[k:k + 2], plain_of(first))
+        first += srecord[k][1].t
+    if not torch.equal(torch.cat(chunks), frames):
+        raise AssertionError("clip: iter_frames differs from read_frames")
+    p = mjpg_parse([real[i % len(real)] for i in range(T_FRAMES)])
+    line["clip"] = {
+        "frames": T_FRAMES, "avi_bytes": clip.stat().st_size,
+        "packed_bytes_crossing": p.nbytes,
+        "bgr_bytes": int(frames.numel()),
+        "launches_whole": launches, "launches_stream_128": slaunches,
+        "frames_equal_to_cv2_digests": T_FRAMES,
+        "host_syncs_read_frames": host_syncs(lambda: read_frames(clip, dev)),
+        "host_syncs_iter_frames_128": host_syncs(
+            lambda: list(iter_frames(clip, chunk=128, device=dev)))}
+    line["launches_held_equal_to_plain"] = held
+
+    # served through unet (bf16): whole and streamed, against host frames
+    def features(x):
+        f = pipe.extract_features(x, "unet")
+        if f is None or f["_area"].shape != (T_FRAMES,) or not np.isfinite(
+                f["_area"]).all():
+            raise AssertionError("mjpg clip: bad unet waveform")
+        return f
+
+    f_dev = features(read_frames(clip, dev))
+    f_host = features(host)
+    s_dev = pipe.stream_features(iter_frames(clip, chunk=128, device=dev),
+                                 "unet")
+    s_host = pipe.stream_features(
+        (host[i:i + 128] for i in range(0, T_FRAMES, 128)), "unet")
+    # served on a stream of the caller's: the decoded chunks come from the
+    # prefetch thread, whose decode the caller's stream must wait for
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        s_side = pipe.stream_features(
+            iter_frames(clip, chunk=128, device=dev), "unet")
+    torch.cuda.synchronize()
+    for a, b, what in ((f_dev, f_host, "whole"), (s_dev, s_host, "stream"),
+                       (s_side, s_host, "stream on a side stream")):
+        if not np.array_equal(a["_area"], b["_area"]):
+            raise AssertionError(f"mjpg clip, {what}: the waveform from card "
+                                 f"frames differs from host frames")
+    outs = {}
+    for tag, extra in (("whole", []), ("stream_128", ["--stream", "128"])):
+        out_dir = tmp / tag
+        cli.main(["run", str(clip), "--pipeline", "unet", "--yolo-weights",
+                  "weights/demo_yolo.npz", "--unet-weights",
+                  "weights/demo_unet.npz", "-o", str(out_dir), "--device",
+                  str(dev), *extra])
+        outs[tag] = json.loads((out_dir / "features.json").read_text())
+    line["served"] = {
+        "unet_bf16_whole_equal_to_host_frames": True,
+        "unet_bf16_stream_128_equal_to_host_frames": True,
+        "unet_bf16_stream_128_on_a_side_stream_equal": True,
+        "stream_equal_to_whole": bool(np.array_equal(s_dev["_area"],
+                                                     f_dev["_area"])),
+        "f0": f_dev["f0"], "cli_features": outs}
+
+    # times: the kernels at the served chunk (CUDA events), their bounds and
+    # the plain versions on the host at MJPG_PLAIN_FRAMES frames
+    dp = jpeg_cuda.upload(p, dev)
+    coef, _ = jpeg_cuda.entropy_decode(dp)
+    sub = jpeg_cuda.upload(p64, dev)
+    coef_sub, _ = jpeg_cuda.entropy_decode(sub)
+    geo = p.geo
+    coef_bytes = coef.numel() * 2
+    out_bytes = frames.numel()
+    n_coef = coef.numel()
+    ent_bytes = p.nbytes + coef_bytes + 4 * p.t
+    idct_bytes = coef_bytes + p.quant.nbytes + out_bytes
+    # operations: a symbol decode per non-zero coefficient and an EOB a
+    # block (lookup, shift, extend: ~8); the IDCT's 16 passes of 8 points a
+    # block (~64 multiply-adds each) and ~12 a pixel for the colour
+    symbols = int((coef != 0).sum()) + geo.nblk * p.t
+    ent_ops = 8 * symbols
+    idct_ops = p.t * geo.nblk * 16 * 64 * 2 + 12 * out_bytes // 3 * 2
+    entries = []
+    ptx = ptxas_summary(logs.get("jpeg", ""))
+    for name, kfn, pfn, nbytes, ops in (
+            ("jpeg_entropy", lambda: jpeg_cuda.entropy_decode(dp),
+             lambda: jpeg.entropy_decode_plain(p64), ent_bytes, ent_ops),
+            ("jpeg_idct_bgr", lambda: jpeg_cuda.idct_bgr(coef, dp),
+             lambda: jpeg.idct_bgr_plain(coef_sub.cpu().numpy(), p64),
+             idct_bytes, idct_ops)):
+        sub_fn = ((lambda: jpeg_cuda.entropy_decode(sub))
+                  if name == "jpeg_entropy"
+                  else (lambda: jpeg_cuda.idct_bgr(coef_sub, sub)))
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "openglottal_tpu_torch/csrc/jpeg.cu",
+            "c_entry": f"og_{name}",
+            "replaces": "openglottal_tpu/data/video.py:32",
+            "path": "mjpg", "launches": launches[name],
+            "launches_stream_128": slaunches[name],
+            "max_abs_err": 0,
+            "ms": time_cuda(kfn, 20),
+            "ms_at_plain_frames": time_cuda(sub_fn, 20),
+            "plain_ms": time_host(pfn, 1), "plain_frames": MJPG_PLAIN_FRAMES,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None,
+            "library": "n/a: no PyTorch call decodes JPEG (torchvision is "
+                       "absent)",
+            "shapes": [[p.t, geo.nblk, 64]],
+            "ptxas": {k: v for k, v in ptx.items()
+                      if k.startswith(name.split("_", 1)[1])}})
+    line["kernel_times"] = {e["name"]: {k: e[k] for k in (
+        "ms", "ms_at_plain_frames", "plain_ms", "bound_ms", "bound_by")}
+        for e in entries}
+
+    # the read from disk to a device tensor, and what it costs end to end:
+    # the MJPG clip against the same decoded frames as a BI_RGB 24-bit AVI
+    # (colour too, so the same full-frame unet route; uploaded decoded) and
+    # as Y800 (one channel, unet's windowed route), in turns.  The host
+    # parse (the RIFF walk, the marker parse, the unstuffing and the pack)
+    # is timed alone, so its share of the MJPG read is measured.
+    y800 = tmp / "clip_y800.avi"
+    write_y800_avi(y800, bgr_to_gray_u8(host))
+    bgr24 = tmp / "clip_bgr24.avi"      # BI_RGB: compression 0, bottom up
+    write_mjpg_avi(bgr24, [np.ascontiguousarray(f[::-1]).tobytes()
+                           for f in host], 256, 256, fourcc=b"\0\0\0\0")
+    if not torch.equal(read_frames(bgr24, dev), frames):
+        raise AssertionError("the BI_RGB clip's frames differ from the MJPG "
+                             "clip's")
+
+    def host_parse():
+        for _, body, first in _pieces(clip, 512):
+            jpeg.pack(body, first)
+
+    parse_ms = [time_host(host_parse, 1) for _ in range(3)]
+    clips = {"mjpg": clip, "bgr24": bgr24, "y800": y800}
+    read_ms = {k: [] for k in clips}
+    unet_ms = {k: [] for k in clips}
+    for tag in ("mjpg", "bgr24", "y800", "y800", "bgr24", "mjpg"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = read_frames(clips[tag], dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe.extract_features(x, "unet")
+        t2 = time.perf_counter()
+        read_ms[tag].append((t1 - t0) * 1e3)
+        unet_ms[tag].append((t2 - t1) * 1e3)
+        del x
+    line["read"] = {
+        "what": "read_frames: disk -> uint8 tensor on the card, synchronised",
+        "ms_per_frame": {k: min(v) / T_FRAMES for k, v in read_ms.items()},
+        "mjpg_host_parse_ms_per_frame": min(parse_ms) / T_FRAMES,
+        "mjpg_host_parse_share_of_read": min(parse_ms) / min(read_ms["mjpg"]),
+        "unet_bf16_ms_per_frame_after_read": {
+            k: min(v) / T_FRAMES for k, v in unet_ms.items()}}
+    line["decode_ms_per_frame"] = min(read_ms["mjpg"]) / T_FRAMES
+    line["read_ms_in_turns"] = read_ms
+    line["unet_bf16_ms_in_turns"] = unet_ms
+    line["host_parse_ms"] = parse_ms
+    line["unet_bf16_wall_ms_in_turns"] = {
+        k: [r + u for r, u in zip(read_ms[k], unet_ms[k])] for k in clips}
+    line["walls_note"] = ("wall = read + unet; mjpg and bgr24 hold the same "
+                          "colour frames and take unet's full-frame route; "
+                          "y800 crosses one channel and takes the windowed "
+                          "route")
+    line["nvidia_smi"] = smi
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    return line, entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1974,6 +2408,7 @@ def main() -> int:
         blobs,
         blobs_cuda,
         eval_cuda,
+        jpeg_cuda,
         qconv_cuda,
         scan_cuda,
     )
@@ -2053,7 +2488,7 @@ def main() -> int:
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
                 **areas_cuda.LAUNCHES, **qconv_cuda.LAUNCHES,
-                **eval_cuda.LAUNCHES}
+                **eval_cuda.LAUNCHES, **jpeg_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         blobs_cuda.reset_launch_counts()
@@ -2061,6 +2496,7 @@ def main() -> int:
         areas_cuda.reset_launch_counts()
         qconv_cuda.reset_launch_counts()
         eval_cuda.reset_launch_counts()
+        jpeg_cuda.reset_launch_counts()
 
     # ── kernels vs plain versions on stress inputs (exact) ──────────────
     max_err = {k: 0 for k in counts()}
@@ -2079,6 +2515,68 @@ def main() -> int:
         """x copied to an address ``by`` elements past a fresh allocation."""
         return torch.empty(x.numel() + by, dtype=x.dtype, device=dev
                            )[by:].view(x.shape).copy_(x)
+
+    def counted(fn, record=None):
+        """fn() with every launch count set to 0 just before and read just
+        after; launches are also recorded into ``record`` when given."""
+        blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
+        qconv_cuda.RECORD = eval_cuda.RECORD = jpeg_cuda.RECORD = record
+        reset_counts()
+        try:
+            out = fn()
+            return out, counts()
+        finally:
+            blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
+            qconv_cuda.RECORD = eval_cuda.RECORD = jpeg_cuda.RECORD = None
+
+    def host_syncs(fn):
+        """(count, sites) of the host synchronisations one call of fn()
+        makes, by PyTorch's sync debug mode."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (switching the debug mode on warns once itself, from torch/cuda)
+        hits = [w for w in caught if "synchroniz" in str(w.message)
+                and not w.filename.endswith("torch/cuda/__init__.py")]
+        return len(hits), sorted(
+            {f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno}" for w in hits})
+
+    def device_kernels(fn):
+        """{name: count} of the device work (kernels, copies, fills) that one
+        call of fn() runs, by torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if (getattr(e, "device_time_total", 0) > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA):
+                out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
+        return out
+
+
+    if "--mjpg" in args:
+        # the MJPG read path alone: its stress streams, fixtures and clip
+        mjpg_line, mjpg_entries = mjpg_phase(
+            dev, GlottalPipelines(dtype=torch.bfloat16, **MJPG_WEIGHTS), hold,
+            counted, host_syncs, smi, logs)
+        say("mjpg", compared="exact equality with the plain version, every "
+            "stress stream and every recorded launch", **mjpg_line)
+        print(json.dumps({"kernels": mjpg_entries, "timing": TIMING}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     rng = np.random.default_rng(0)
     stress = []
@@ -2676,9 +3174,12 @@ def main() -> int:
     qconv_labels, qconv_silu_cpu = qconv_stress(dev, hold)
     # og_frame_counts and og_otsu_counts on their stress inputs
     eval_labels = eval_stress(dev, hold, unaligned)
+    # og_jpeg_entropy and og_jpeg_idct_bgr on their stress streams
+    mjpg_stress_line = mjpg_stress(dev, hold)
 
     say("kernels", ok=True, compared="exact equality with the plain version",
         qconv_stress_cases=qconv_labels, eval_stress_cases=len(eval_labels),
+        jpeg_stress_cases=mjpg_stress_line["cases"],
         qconv_silu_equal_to_plain_on_cpu=qconv_silu_cpu,
         shapes=[list(stress[i].shape) for i in first_batch],
         stress_batches=len(stress), box_count_stress_cases=box_stress,
@@ -2735,52 +3236,6 @@ def main() -> int:
             pipe.extract_features(v, pipeline)
             ms.append((time.perf_counter() - t0) * 1e3)
         return ms
-
-    def counted(fn, record=None):
-        """fn() with every launch count set to 0 just before and read just
-        after; launches are also recorded into ``record`` when given."""
-        blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
-        qconv_cuda.RECORD = eval_cuda.RECORD = record
-        reset_counts()
-        try:
-            out = fn()
-            return out, counts()
-        finally:
-            blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
-            qconv_cuda.RECORD = eval_cuda.RECORD = None
-
-    def host_syncs(fn):
-        """(count, sites) of the host synchronisations one call of fn()
-        makes, by PyTorch's sync debug mode."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        # (switching the debug mode on warns once itself, from torch/cuda)
-        hits = [w for w in caught if "synchroniz" in str(w.message)
-                and not w.filename.endswith("torch/cuda/__init__.py")]
-        return len(hits), sorted(
-            {f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno}" for w in hits})
-
-    def device_kernels(fn):
-        """{name: count} of the device work (kernels, copies, fills) that one
-        call of fn() runs, by torch.profiler."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if (getattr(e, "device_time_total", 0) > 0
-                    and e.device_type == torch.autograd.DeviceType.CUDA):
-                out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
-        return out
 
     def expect_counts(where, got, expected):
         for k, n in expected.items():
@@ -3262,6 +3717,15 @@ def main() -> int:
     say("eval", compared="every recorded launch exactly equal to its plain "
         "version", stress_cases=len(eval_labels),
         phase_seconds=time.perf_counter() - t_eval, **eval_line)
+
+    # ── MJPG: the clip read on the card, served through unet ────────────
+    mjpg_line, mjpg_entries = mjpg_phase(dev, pipes["bf16"], hold, counted,
+                                         host_syncs, smi, logs,
+                                         mjpg_stress_line)
+    reset_counts()
+    held["mjpg"] = mjpg_line["launches_held_equal_to_plain"]
+    say("mjpg", compared="exact equality with the plain version, every "
+        "stress stream and every recorded launch", **mjpg_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -3607,6 +4071,9 @@ def main() -> int:
                in scan_times
                else {}),
         })
+    for e in mjpg_entries:
+        e["max_abs_err"] = max_err[e["name"]]
+    kernels += mjpg_entries
     print(json.dumps({"kernels": kernels, "timing": TIMING}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ whole-video call, for ``unet`` to its full-frame route and for the trackers
 to their sequential forms); without it the whole video is decoded and
 served (``extract_features``).  ``--device`` picks the device (the CUDA
 device by default; ``cpu`` on purpose).  Videos are read by the port's own
-AVI reader (``data/video.py``: uncompressed gray and BI_RGB).  Weights are
+AVI reader (``data/video.py``: uncompressed gray and BI_RGB, and MJPG,
+which crosses to the device compressed and is decoded there) straight onto
+the pipelines' device (``read_frames`` / ``iter_frames``).  Weights are
 ``.npz`` files.
 
 ``--quant int8`` serves the U-Net in int8 (``int8-full``: the detector too;
@@ -46,7 +48,8 @@ def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
     parser.add_argument("--config", help="JSON or YAML config path.")
     sub = parser.add_subparsers(dest="command", required=True)
     run_p = sub.add_parser("run", help="Run inference on a video file.")
-    run_p.add_argument("video", help="Path to an input .avi video.")
+    run_p.add_argument("video", help="Path to an input .avi video "
+                       "(uncompressed, or MJPG: decoded on the device).")
     run_p.add_argument("--yolo-weights", help="YOLO weights, .npz (required "
                        "for vft, guided-vft, unet, crop-unet).")
     run_p.add_argument("--unet-weights", help="U-Net weights, .npz "
@@ -105,10 +108,7 @@ def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
         parser.error("--crop-weights is required for the crop-unet pipeline.")
 
     from openglottal_tpu_torch.config import load_config
-    from openglottal_tpu_torch.data.video import (
-        iter_frames_bgr,
-        load_frames_bgr,
-    )
+    from openglottal_tpu_torch.data.video import iter_frames, read_frames
     from openglottal_tpu_torch.pipelines import CALIB_FRAMES, GlottalPipelines
     from openglottal_tpu_torch.utils.io import (
         load_unet_weights,
@@ -130,24 +130,30 @@ def _cmd_run(parser: argparse.ArgumentParser, args) -> None:
         conf=cfg.detector.conf, gate_params=cfg.gate_params(),
         vft_params=cfg.vft_params(), ygvft_params=cfg.ygvft_params(),
         quant=args.quant, device=args.device)
+
+    def calib_frames(path):
+        # the video's first CALIB_FRAMES frames, decoded on the device
+        for x in iter_frames(path, chunk=CALIB_FRAMES, device=pipe.device):
+            return x
+        return read_frames(path, device=pipe.device)
+
     if args.quant:
         if args.qparams and os.path.exists(args.qparams):
             pipe.load_qparams(args.qparams)
         elif args.calib:
-            pipe.calibrate(pipe.prepare(
-                load_frames_bgr(args.calib)[:CALIB_FRAMES])[1])
+            pipe.calibrate(pipe.prepare(calib_frames(args.calib))[1])
         if args.qparams and not os.path.exists(args.qparams):
             if pipe._qparams is None:
-                pipe.calibrate(pipe.prepare(
-                    load_frames_bgr(args.video)[:CALIB_FRAMES])[1])
+                pipe.calibrate(pipe.prepare(calib_frames(args.video))[1])
             pipe.save_qparams(args.qparams)
             print(f"int8 calibration saved to {args.qparams}")
     if args.stream:
         feats = pipe.stream_features(
-            iter_frames_bgr(args.video, chunk=args.stream), args.pipeline)
+            iter_frames(args.video, chunk=args.stream, device=pipe.device),
+            args.pipeline)
     else:
-        feats = pipe.extract_features(load_frames_bgr(args.video),
-                                      args.pipeline)
+        feats = pipe.extract_features(
+            read_frames(args.video, device=pipe.device), args.pipeline)
     if feats is None:
         print("No glottis detected — check your weights or input video.")
         sys.exit(1)

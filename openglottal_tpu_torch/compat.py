@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from openglottal_tpu_torch.data.video import load_frames_bgr
+from openglottal_tpu_torch.data.video import read_frames
 from openglottal_tpu_torch.features import kinematic_features  # noqa: F401
 from openglottal_tpu_torch.models.gate import GateParams, gate_init, gate_step
 from openglottal_tpu_torch.models.tracker import (
@@ -197,25 +197,29 @@ class TemporalDetector:
 
 def extract_features_detector(avi_path, detector: TemporalDetector,
                               vft_init: int = 2):
-    """Pipeline 1 (``vft``) on a video file."""
-    return detector._pipelines().extract_features(load_frames_bgr(avi_path),
-                                                  "vft")
+    """Pipeline 1 (``vft``) on a video file, read onto the pipelines'
+    device."""
+    pipe = detector._pipelines()
+    return pipe.extract_features(read_frames(avi_path, pipe.device), "vft")
 
 
 def extract_features_yolo_guided_vft(avi_path, detector: TemporalDetector,
                                      ygvft_init: int = 2):
-    """Pipeline 2 (``guided-vft``) on a video file."""
-    return detector._pipelines().extract_features(load_frames_bgr(avi_path),
-                                                  "guided-vft")
+    """Pipeline 2 (``guided-vft``) on a video file, read onto the
+    pipelines' device."""
+    pipe = detector._pipelines()
+    return pipe.extract_features(read_frames(avi_path, pipe.device),
+                                 "guided-vft")
 
 
 def extract_features_unet(avi_path, detector: TemporalDetector | None,
                           model_variables, device=None):
     """Pipeline 3 (``unet``), or ``unet-only`` without a detector, on a
-    video file; ``device`` places the pipelines when no detector does."""
-    frames = load_frames_bgr(avi_path)
+    video file (read onto the pipelines' device); ``device`` places the
+    pipelines when no detector does."""
     if detector is None:
         pipe = GlottalPipelines(unet_variables=model_variables, device=device)
-        return pipe.extract_features(frames, "unet-only")
+        return pipe.extract_features(read_frames(avi_path, pipe.device),
+                                     "unet-only")
     pipe = detector._pipelines(unet_variables=model_variables)
-    return pipe.extract_features(frames, "unet")
+    return pipe.extract_features(read_frames(avi_path, pipe.device), "unet")

@@ -5,24 +5,42 @@ reference's formula, cv2's fixed-point BT.601 coefficients, bit for bit.
 (It is the reference's formula that is matched, not cv2 itself: cv2 5.0.0's
 ``cvtColor`` differs from it by 1 on 0.26 % of colours.)
 
-``load_frames_bgr`` / ``iter_frames_bgr`` decode a video as the JAX
-package's do, as (T, H, W, 3) uint8 BGR frames, but without cv2, which the
-port does not import: the port reads AVI files itself, in numpy.  It walks
-the RIFF tree (``RIFF AVI `` and any ``RIFF AVIX`` that follow it, nested
-``LIST`` chunks such as ``movi`` and ``rec ``, ``JUNK`` and index chunks
-skipped, each chunk's data padded to an even length) and takes the frames
-of the first video stream (``##db`` / ``##dc`` chunks) in file order, so an
-absent or broken ``idx1`` does not matter.  Formats decoded:
+The JAX package decodes with cv2; the port reads AVI files itself, in numpy,
+and decodes MJPG on the card.  It walks the RIFF tree (``RIFF AVI `` and
+any ``RIFF AVIX`` that follow it, nested ``LIST`` chunks such as ``movi``
+and ``rec ``, ``JUNK`` and index chunks skipped, each chunk's data padded
+to an even length) and takes the frames of the first video stream (``##db``
+/ ``##dc`` chunks) in file order, so an absent or broken ``idx1`` does not
+matter.  Formats decoded:
 
   * uncompressed 8-bit gray (fourcc ``Y800``, ``GREY``, ``Y8  ``): rows top
     down, returned as three equal BGR channels, as cv2 returns them;
   * ``BI_RGB`` (compression 0, or the fourcc ``DIB ``), 24-bit BGR or 8-bit
     palettised: rows bottom up for a positive height, top down for a
-    negative one, each row padded to a multiple of 4 bytes.
+    negative one, each row padded to a multiple of 4 bytes;
+  * MJPG (fourcc ``MJPG``, ``mjpg`` or ``AVI1``): baseline JPEG frames
+    (``data/jpeg.py``: 8-bit, gray or 4:4:4 / 4:2:2 / 4:2:0, restart
+    intervals, the Annex K Huffman tables where a frame has none), parsed on
+    the host and decoded on the card by ``ops/jpeg_cuda`` (two kernels),
+    equal to cv2's frames (FFmpeg's IDCT and swscale's conversion) bit for
+    bit; 4:2:0 / 4:2:2 frames of odd height, which swscale scales through
+    bicubic chroma filters not ported here, are refused (ROADMAP.md, C).
+    Only the compressed bytes cross to the card.
 
-Any other codec (MJPG, I420, ...) raises ``ValueError`` naming its fourcc:
-compressed decode is not ported.  A missing or empty file gives no frames,
-as cv2 gives none.
+Any other codec (I420, H.264, ...) raises ``ValueError`` naming its fourcc,
+as does a container other than RIFF AVI (``.mp4``).  A missing or empty
+file gives no frames, as cv2 gives none.
+
+Host frames (the JAX package's contract): ``load_frames_bgr`` /
+``iter_frames_bgr`` return (T, H, W, 3) uint8 BGR numpy arrays; MJPG frames
+are decoded on ``device`` and copied back once.  Device frames:
+``read_frames`` / ``iter_frames`` return uint8 tensors on ``device``, (T,
+H, W) for gray sources (a one-component MJPG, and uncompressed frames whose
+channels are equal, as the pipelines' own check finds them) and (T, H, W,
+3) BGR otherwise: uncompressed frames are uploaded once, an MJPG chunk
+crosses as its packed compressed bytes (from pinned memory, on a side
+stream) and is decoded there.  ``device=None`` is the CUDA device (raises
+without one); ``"cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ import torch
 
 GRAY_FOURCCS = (b"Y800", b"GREY", b"Y8  ")
 RGB_FOURCCS = (b"\x00\x00\x00\x00", b"DIB ")
+MJPG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1")
 
 
 def bgr_to_gray_u8(frames_bgr):
@@ -51,6 +70,34 @@ def bgr_to_gray_u8(frames_bgr):
     gray = (r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14
     return gray.to(out_dtype) if isinstance(gray, torch.Tensor) else \
         gray.astype(out_dtype)
+
+
+def is_monochrome(frames_np) -> bool:
+    """Host-side check whether a (T, H, W, 3) uint8 video has equal channels
+    (checked on first/middle/last frames)."""
+    if not isinstance(frames_np, np.ndarray) or frames_np.ndim != 4:
+        return False
+    t = frames_np.shape[0]
+    if t == 0:
+        return False
+    f = frames_np[[0, t // 2, t - 1]]
+    return bool((f[..., 0] == f[..., 1]).all()
+                and (f[..., 1] == f[..., 2]).all())
+
+
+def _resolve(device) -> torch.device:
+    """``None`` -> the CUDA device (raises without one)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "MJPG frames are decoded on a CUDA device and none is "
+                "available; pass device='cpu' to decode on the CPU on "
+                "purpose")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # ── the AVI reader ──────────────────────────────────────────────────────────
@@ -81,7 +128,9 @@ class _Format:
         clr_used = struct.unpack("<I", strf[32:36])[0]
         self.w, self.h = w, abs(h)
         self.palette = None
-        if comp in GRAY_FOURCCS and bits == 8:
+        if comp in MJPG_FOURCCS:
+            self.kind, self.stride, self.bottom_up = "mjpg", 0, False
+        elif comp in GRAY_FOURCCS and bits == 8:
             self.kind, self.stride, self.bottom_up = "gray", w, False
         elif comp in RGB_FOURCCS and bits in (24, 8):
             self.kind = "bgr" if bits == 24 else "pal"
@@ -97,13 +146,14 @@ class _Format:
             name = comp.decode("latin-1") if comp != b"\0\0\0\0" else "BI_RGB"
             raise ValueError(
                 f"AVI: codec {name!r} ({bits}-bit) is not decoded; this "
-                f"reader decodes uncompressed Y800 / GREY / Y8 gray and "
-                f"BI_RGB 24-bit or 8-bit palettised frames")
+                f"reader decodes uncompressed Y800 / GREY / Y8 gray, BI_RGB "
+                f"24-bit or 8-bit palettised and MJPG (baseline JPEG) "
+                f"frames")
         if self.w <= 0 or self.h <= 0:
             raise ValueError(f"AVI: bad frame size {w}x{h}")
 
     def decode(self, data: bytes) -> np.ndarray:
-        """One frame chunk -> (H, W, 3) uint8 BGR."""
+        """One uncompressed frame chunk -> (H, W, 3) uint8 BGR."""
         need = self.stride * self.h
         if len(data) < need:
             raise ValueError(f"AVI: a frame chunk holds {len(data)} bytes, "
@@ -121,9 +171,9 @@ class _Format:
         return self.palette[rows[:, :self.w]]
 
 
-def _frames(path):
-    """Decoded frames of an AVI file, one (H, W, 3) uint8 BGR array at a
-    time, in file order."""
+def _raw(path):
+    """(format, frame chunk bytes) of the video stream's frames, in file
+    order; nothing for a missing or empty file."""
     try:
         size = os.path.getsize(path)
     except OSError:
@@ -137,7 +187,7 @@ def _frames(path):
                              f"containers are not decoded)")
         state = {"streams": 0, "video": None, "fmt": None}
         for data in _walk(f, 0, size, state):
-            yield state["fmt"].decode(data)
+            yield state["fmt"], data
 
 
 def _walk(f, start: int, end: int, state: dict):
@@ -175,26 +225,155 @@ def _stream_list(f, start: int, end: int, state: dict) -> None:
             state["video"] = b"%02d" % number
 
 
-def load_frames_bgr(path) -> np.ndarray:
-    """Decode all frames of an AVI file as one (T, H, W, 3) uint8 BGR
-    array; (0, 0, 0, 3) for a missing or empty file."""
-    frames = list(_frames(path))
-    if not frames:
-        return np.zeros((0, 0, 0, 3), np.uint8)
-    return np.stack(frames)
+def _pieces(path, chunk: int):
+    """The video in pieces of ``chunk`` frames (the rest last): ("host",
+    (n, H, W, 3) uint8 BGR array) for uncompressed frames, ("mjpg", list of
+    parsed frames, number of the first) for MJPG; the tables carry across
+    pieces as FFmpeg carries them."""
+    from openglottal_tpu_torch.data import jpeg
 
-
-def iter_frames_bgr(path, chunk: int = 512):
-    """Decode an AVI file as a stream of (n <= chunk, H, W, 3) uint8 BGR
-    arrays, ``chunk`` frames each and the rest last: bounded host memory for
-    the streaming pipelines (``GlottalPipelines.stream_areas``)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    frames = []
-    for fr in _frames(path):
-        frames.append(fr)
-        if len(frames) == chunk:
-            yield np.stack(frames)
-            frames = []
-    if frames:
-        yield np.stack(frames)
+    buf, first, n, state = [], 0, 0, None
+    kind = None
+    for fmt, data in _raw(path):
+        kind = fmt.kind
+        if kind == "mjpg":
+            state = state or jpeg.JpegState()
+            frame = jpeg.parse_frame(data, state, n)
+            if 4 * frame.geo.h < 3 * fmt.h:
+                # FFmpeg's test for a frame of two interlaced fields
+                raise ValueError(
+                    f"JPEG frame {n}: {frame.geo.h} rows in a {fmt.h}-row "
+                    f"stream: interlaced MJPG fields are not decoded")
+            buf.append(frame)
+        else:
+            buf.append(fmt.decode(data))
+        n += 1
+        if len(buf) == chunk:
+            yield _piece(kind, buf, first)
+            buf, first = [], n
+    if buf:
+        yield _piece(kind, buf, first)
+
+
+def _piece(kind, buf, first):
+    if kind == "mjpg":
+        return "mjpg", buf, first
+    return "host", np.stack(buf), first
+
+
+class _Decoder:
+    """MJPG chunks decoded on one device: on a CUDA device the packed arrays
+    go through a pinned uploader (``data/prefetch.PinnedUploader``) and are
+    decoded on its side stream, which the caller's stream then waits for
+    (the error check syncs the side stream only); on the CPU the plain
+    versions."""
+
+    def __init__(self, device: torch.device):
+        from openglottal_tpu_torch.data.prefetch import PinnedUploader
+        from openglottal_tpu_torch.ops import jpeg_cuda
+
+        self.jc = jpeg_cuda
+        self.device = device
+        self.up = PinnedUploader(device, 2) if device.type == "cuda" else None
+
+    def __call__(self, frames, first: int) -> torch.Tensor:
+        from openglottal_tpu_torch.data import jpeg
+
+        p = jpeg.pack(frames, first)
+        if self.up is None:
+            return self.jc.decode(p, self.device, first)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.up.stream):
+            out = self.jc.decode(p, self.device, first, self.up)
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_stream(self.up.stream)
+        out.record_stream(cur)
+        return out
+
+
+def _upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Uncompressed host frames on ``device``: one channel where the
+    channels are equal (``is_monochrome``), through pinned memory."""
+    if is_monochrome(frames):
+        frames = frames[..., 0]
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
+def iter_frames(path, chunk: int = 512, device=None):
+    """The video as a stream of uint8 tensors on ``device``, ``chunk``
+    frames each and the rest last: (n, H, W) for gray sources, else (n, H,
+    W, 3) BGR (see the module docstring).  An MJPG chunk's device memory is
+    its packed bytes, its coefficients (128 bytes an 8x8 block) and its
+    frames."""
+    dec, dev = None, None
+    for kind, body, first in _pieces(path, chunk):
+        if dev is None:
+            dev = _resolve(device)
+        if kind == "mjpg":
+            dec = dec or _Decoder(dev)
+            yield dec(body, first)
+        else:
+            yield _upload(body, dev)
+
+
+def _device_frames(pieces, dev: torch.device) -> torch.Tensor:
+    """The pieces of a whole video (``_pieces``) as one tensor on ``dev``;
+    MJPG pieces decoded one by one into the output."""
+    if pieces[0][0] == "host":
+        return _upload(np.concatenate([b for _, b, _ in pieces]), dev)
+    dec = _Decoder(dev)
+    out, t = None, sum(len(b) for _, b, _ in pieces)
+    for _, body, first in pieces:
+        x = dec(body, first)
+        if out is None:
+            out = torch.empty((t,) + tuple(x.shape[1:]), dtype=torch.uint8,
+                              device=dev)
+        out[first:first + len(body)] = x
+    return out
+
+
+def read_frames(path, device=None) -> torch.Tensor:
+    """All frames of an AVI file as one uint8 tensor on ``device`` ((T, H,
+    W) for gray sources, else (T, H, W, 3) BGR); (0, 0, 0, 3) for a missing
+    or empty file.  MJPG is decoded in chunks of 512 frames into the one
+    output, so the coefficients never take more than a chunk's memory."""
+    dev = _resolve(device)
+    pieces = list(_pieces(path, 512))
+    if not pieces:
+        return torch.zeros((0, 0, 0, 3), dtype=torch.uint8, device=dev)
+    return _device_frames(pieces, dev)
+
+
+def _to_host_bgr(x: torch.Tensor) -> np.ndarray:
+    a = x.cpu().numpy()
+    return np.repeat(a[..., None], 3, axis=-1) if a.ndim == 3 else a
+
+
+def load_frames_bgr(path, device=None) -> np.ndarray:
+    """Decode all frames of an AVI file as one (T, H, W, 3) uint8 BGR
+    array; (0, 0, 0, 3) for a missing or empty file.  MJPG frames are
+    decoded on ``device`` (None: the CUDA device) and copied back once."""
+    pieces = list(_pieces(path, 512))
+    if not pieces:
+        return np.zeros((0, 0, 0, 3), np.uint8)
+    if pieces[0][0] == "host":
+        return np.concatenate([b for _, b, _ in pieces])
+    return _to_host_bgr(_device_frames(pieces, _resolve(device)))
+
+
+def iter_frames_bgr(path, chunk: int = 512, device=None):
+    """Decode an AVI file as a stream of (n <= chunk, H, W, 3) uint8 BGR
+    arrays, ``chunk`` frames each and the rest last: bounded host memory for
+    the streaming pipelines (``GlottalPipelines.stream_areas``).  MJPG
+    chunks are decoded on ``device`` (None: the CUDA device)."""
+    dec = None
+    for kind, body, first in _pieces(path, chunk):
+        if kind == "host":
+            yield body
+            continue
+        dec = dec or _Decoder(_resolve(device))
+        yield _to_host_bgr(dec(body, first))

@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from openglottal_tpu_torch.data.prefetch import prefetch_to_device
-from openglottal_tpu_torch.data.video import bgr_to_gray_u8
+from openglottal_tpu_torch.data.video import bgr_to_gray_u8, is_monochrome
 from openglottal_tpu_torch.features import kinematic_features
 from openglottal_tpu_torch.models import quant as quant_mod
 from openglottal_tpu_torch.models.fold import (
@@ -260,19 +260,6 @@ def full_float32(dtype):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
-
-
-def is_monochrome(frames_np) -> bool:
-    """Host-side check whether a (T, H, W, 3) uint8 video has equal channels
-    (checked on first/middle/last frames)."""
-    if not isinstance(frames_np, np.ndarray) or frames_np.ndim != 4:
-        return False
-    t = frames_np.shape[0]
-    if t == 0:
-        return False
-    f = frames_np[[0, t // 2, t - 1]]
-    return bool((f[..., 0] == f[..., 1]).all()
-                and (f[..., 1] == f[..., 2]).all())
 
 
 def _require_256(gray):

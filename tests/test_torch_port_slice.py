@@ -357,7 +357,8 @@ def test_device_none_raises_without_cuda():
         GlottalPipelines()
 
 
-_BANNED = ("jax", "jaxlib", "flax", "orbax", "cv2", "openglottal_tpu")
+_BANNED = ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL",
+           "openglottal_tpu")
 
 
 def _imports_of(path):

@@ -559,16 +559,16 @@ def test_avi_bi_rgb_written_by_hand(tmp_path, layout):
 
 
 def test_avi_other_codecs_raise_and_missing_files_are_empty(tmp_path):
-    import cv2
+    """A codec the reader does not decode (I420 here; MJPG is decoded,
+    tests/test_torch_port_mjpg.py) raises naming its fourcc."""
+    from openglottal_tpu_torch.tools.jpeg_stress import write_mjpg_avi
 
     path = str(tmp_path / "m.avi")
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (32, 24))
-    for f in _frames(3, 24, 32, 5):
-        wr.write(f)
-    wr.release()
-    with pytest.raises(ValueError, match="MJPG"):
+    write_mjpg_avi(path, [f.tobytes() for f in _frames(3, 24, 32, 5)], 32,
+                   24, fourcc=b"I420")
+    with pytest.raises(ValueError, match="I420"):
         load_frames_bgr(path)
-    with pytest.raises(ValueError, match="MJPG"):
+    with pytest.raises(ValueError, match="I420"):
         list(iter_frames_bgr(path))
     assert load_frames_bgr(str(tmp_path / "none.avi")).shape == (0, 0, 0, 3)
     (tmp_path / "empty.avi").write_bytes(b"")
