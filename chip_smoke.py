@@ -7,7 +7,8 @@
         # cases, then every U-Net layer shape in turns with PR 10's kernel
         # (tools/qconv_pr10.cu), cuDNN's bf16 conv and _int_mm
     python3 chip_smoke.py --mjpg          # build + the MJPG read path alone
-        # (the "mjpg" line and the two JPEG kernels' entries)
+        # (the "mjpg" line and the two JPEG kernels' entries, in turns with
+        # PR 13's, tools/jpeg_pr13.cu)
     python3 chip_smoke.py --against DIR [DIR ...]
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
@@ -91,16 +92,21 @@ the CPU port's on 12 frames.  The MJPG decode kernels of ``csrc/jpeg.cu``
 (``og_jpeg_entropy``, ``og_jpeg_idct_bgr``) are held exactly equal to their
 plain versions (``data/jpeg.py``) on 64 stress streams
 (``tools/jpeg_stress.py``: every sampling form, odd sizes, restart
-intervals, extreme coefficients, 16-bit quantisers, no DHT) and two broken
-ones, and 4:2:x of odd height is refused; the ``mjpg`` line reads every
+intervals, extreme coefficients, 16-bit quantisers, no DHT), on 14
+synchronisation stress streams (codes of equal lengths, restart intervals
+of one MCU, segments shorter than a subsequence, 32-bit DC symbols, junk
+after the last block, a frame one block short) and two broken ones, the
+entropy decode with its default subsequence length and its smallest, and
+4:2:x of odd height is refused; the ``mjpg`` line reads every
 fixture of ``tests/data/mjpg`` on the card against the digests of cv2's
 frames written beside them (the one it refuses, refused), and a
 502-frame 256² MJPG clip whole and in chunks of 128 (every launch held,
 every frame against its cv2 digest), serves it through ``unet`` bf16
 whole, streamed and by the command line with the waveform equal to the
-same frames from host memory, and times the kernels, the read from disk
-to the card (host syncs, the host parse's share) and unet after it, in
-turns with the same frames as a BI_RGB 24-bit and as a Y800 AVI.  Prints
+same frames from host memory, and times the kernels at 64 and 502 frames
+in turns with PR 13's (``tools/jpeg_pr13.cu``), the read from disk to the
+card (host syncs, the host parse's share) and unet after it, in turns with
+the same frames as a BI_RGB 24-bit and as a Y800 AVI.  Prints
 the registers and spills ptxas reports for every kernel, the thread blocks
 per SM each blob entry point's launch gets, and the device kernels (by
 ``torch.profiler``) of each served path and of each scan wrapper's call.
@@ -819,6 +825,121 @@ def pr10_qconv_library():
     lib.og_qconv.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.og_qconv.restype = ctypes.c_int
     return lib, ptxas_summary(log)
+
+
+def pr13_jpeg_library():
+    """tools/jpeg_pr13.cu (PR 13's two JPEG kernels, their C interface)
+    built like the package's sources, loaded beside csrc/jpeg.cu's ->
+    (library, ptxas summary)."""
+    from openglottal_tpu_torch.ops import _build
+
+    lib, log = _build.build_others(
+        {"jpeg_pr13": Path("openglottal_tpu_torch/tools/jpeg_pr13.cu")},
+        ("-Xptxas", "-v"))["jpeg_pr13"]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.og_jpeg_entropy.argtypes = [p, p, i] + [p] * 6 + [i] * 7 + [p]
+    lib.og_jpeg_idct_bgr.argtypes = [p, p, p] + [i] * 10 + [p]
+    lib.og_jpeg_entropy.restype = lib.og_jpeg_idct_bgr.restype = ctypes.c_int
+    return lib, ptxas_summary(log)
+
+
+def pr13_entropy(lib, dp):
+    """PR 13's og_jpeg_entropy on a packed chunk on the card (the wrapper's
+    outputs: coefficients, error flags)."""
+    import torch
+
+    from openglottal_tpu_torch.ops import _build, jpeg_cuda
+
+    geo = dp.geo
+    coef = torch.empty((dp.t, geo.nblk, 64), dtype=torch.int16,
+                       device=dp.device)
+    err = torch.zeros((dp.t,), dtype=torch.int32, device=dp.device)
+    ncomp, mcux, mcuy, hs0, vs0 = jpeg_cuda._layout(geo)
+    _build.check(lib.og_jpeg_entropy(
+        dp.data.data_ptr(), dp.segs.data_ptr(), dp.segs.shape[0],
+        dp.tables.data_ptr(), dp.slots.data_ptr(), dp.comp.data_ptr(),
+        dp.quant.data_ptr(), coef.data_ptr(), err.data_ptr(), ncomp, mcux,
+        mcux * mcuy, hs0, vs0, geo.nblk, dp.slots.shape[1],
+        torch.cuda.current_stream().cuda_stream), "jpeg_entropy (PR 13)")
+    return coef, err
+
+
+def pr13_idct(lib, coef, dp):
+    """PR 13's og_jpeg_idct_bgr (the wrapper's output)."""
+    import torch
+
+    from openglottal_tpu_torch.data import jpeg
+    from openglottal_tpu_torch.ops import _build, jpeg_cuda
+
+    geo = dp.geo
+    form = jpeg.colour_form(geo)
+    out = torch.empty((dp.t, geo.h, geo.w) + (() if form == jpeg.FORM_GRAY
+                                              else (3,)),
+                      dtype=torch.uint8, device=dp.device)
+    ncomp, mcux, mcuy, hs0, vs0 = jpeg_cuda._layout(geo)
+    _build.check(lib.og_jpeg_idct_bgr(
+        coef.data_ptr(), dp.quant.data_ptr(), out.data_ptr(), dp.t, geo.h,
+        geo.w, ncomp, mcux, mcuy, hs0, vs0, geo.nblk, form,
+        torch.cuda.current_stream().cuda_stream), "jpeg_idct_bgr (PR 13)")
+    return out
+
+
+def mjpg_bounds(p, coef) -> dict:
+    """{kernel: (bound ms, "bytes" | "operations")} of a packed chunk and
+    its coefficients (on the card).  Bytes: the packed chunk, the
+    coefficients, the flags and the pixels, each once.  Operations: ~8 a
+    symbol (a non-zero coefficient, and an EOB a block: lookup, shift,
+    extend); the IDCT's 16 passes of 8 points a block (~64 multiply-adds
+    each) and ~12 a pixel for the colour."""
+    geo = p.geo
+    coef_bytes = coef.numel() * 2
+    out_bytes = p.t * geo.h * geo.w * (1 if geo.ncomp == 1 else 3)
+    symbols = int((coef != 0).sum()) + geo.nblk * p.t
+    work = {"jpeg_entropy": (p.nbytes + coef_bytes + 4 * p.t, 8 * symbols),
+            "jpeg_idct_bgr": (coef_bytes + p.quant.nbytes + out_bytes,
+                              p.t * geo.nblk * 16 * 64 * 2
+                              + 12 * out_bytes // 3 * 2)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def mjpg_turns(dev, hold, chunks, pr13) -> dict:
+    """Both JPEG kernels and PR 13's (tools/jpeg_pr13.cu) on the same packed
+    chunks, in turns in one process (PR 13's, this one's, this one's, PR
+    13's; each a time_cuda of 20 queued launches, TIMING), their outputs
+    held equal first; per chunk and kernel the ms of both forms, the bound
+    and both ratios."""
+    from openglottal_tpu_torch.ops import jpeg_cuda
+
+    lib, _ = pr13
+    out = {}
+    for p in chunks:
+        dp = jpeg_cuda.upload(p, dev)
+        coef, err = jpeg_cuda.entropy_decode(dp)
+        old_coef, old_err = pr13_entropy(lib, dp)
+        hold("jpeg_entropy", err.cpu(), old_err.cpu())
+        hold("jpeg_entropy", coef.cpu(), old_coef.cpu())
+        hold("jpeg_idct_bgr", jpeg_cuda.idct_bgr(coef, dp).cpu(),
+             pr13_idct(lib, coef, dp).cpu())
+        bounds = mjpg_bounds(p, coef)
+        forms = {"jpeg_entropy": (lambda: pr13_entropy(lib, dp),
+                                  lambda: jpeg_cuda.entropy_decode(dp)),
+                 "jpeg_idct_bgr": (lambda: pr13_idct(lib, coef, dp),
+                                   lambda: jpeg_cuda.idct_bgr(coef, dp))}
+        for name, (old, new) in forms.items():
+            ms = {"pr13": [], "this": []}
+            for who in ("pr13", "this", "this", "pr13"):
+                ms[who].append(time_cuda(old if who == "pr13" else new, 20))
+            bound, by = bounds[name]
+            out[f"{name} T={p.t}"] = {
+                "ms": min(ms["this"]), "pr13_ms": min(ms["pr13"]),
+                "bound_ms": bound, "bound_by": by,
+                "ratio": min(ms["this"]) / bound,
+                "pr13_ratio": min(ms["pr13"]) / bound, "ms_in_turns": ms}
+    return out
 
 
 def qconv_tiling(n, h, w, srcs, cout, k, stride, pad) -> dict:
@@ -2013,11 +2134,14 @@ def mjpg_parse(frames, first: int = 0):
                       for i, f in enumerate(frames)], first)
 
 
-def mjpg_hold(dev, hold, p, unaligned_by: int = 0):
+def mjpg_hold(dev, hold, p, unaligned_by: int = 0, sub_bits=None):
     """Both kernels on one packed chunk against their plain versions (the
     entropy decode's coefficients and error flags, the IDCT of the plain
     coefficients and of the kernel's); the packed bytes ``unaligned_by``
-    bytes (a multiple of 4) past a fresh allocation."""
+    bytes (a multiple of 4) past a fresh allocation; the entropy decode with
+    subsequences of ``sub_bits`` bits (None: the wrapper's default).  Of a
+    chunk with a flagged frame, the flags and the other frames'
+    coefficients; returns the flagged frames' count."""
     import torch
 
     from openglottal_tpu_torch.data import jpeg
@@ -2028,10 +2152,14 @@ def mjpg_hold(dev, hold, p, unaligned_by: int = 0):
         buf = torch.empty(dp.data.numel() + unaligned_by, dtype=torch.uint8,
                           device=dev)
         dp.data = buf[unaligned_by:].copy_(dp.data)
-    coef, err = jpeg_cuda.entropy_decode(dp)
+    coef, err = (jpeg_cuda.entropy_decode(dp) if sub_bits is None
+                 else jpeg_cuda.launch_entropy(dp, sub_bits))
     want_coef, want_err = jpeg.entropy_decode_plain(p)
     hold("jpeg_entropy", err.cpu(), torch.from_numpy(want_err))
     if want_err.any():
+        good = torch.from_numpy(want_err == 0)
+        hold("jpeg_entropy", coef.cpu()[good],
+             torch.from_numpy(want_coef)[good])
         return int(want_err.sum())
     hold("jpeg_entropy", coef.cpu(), torch.from_numpy(want_coef))
     want = torch.from_numpy(jpeg.idct_bgr_plain(want_coef, p))
@@ -2042,16 +2170,34 @@ def mjpg_hold(dev, hold, p, unaligned_by: int = 0):
 
 
 def mjpg_stress(dev, hold) -> dict:
-    """The stress streams, each at two byte offsets, and two broken streams
-    (cut short; all-ones codes) whose error flags must equal the plain
-    version's and whose read must raise naming the frame."""
+    """The stress streams, each at two byte offsets with the wrapper's
+    subsequence length and once with the kernel's smallest; the
+    synchronisation stress streams (tools/jpeg_stress.sync_stress_cases) at
+    both lengths, the frame one block short flagged and the junk never; and
+    two broken streams (cut short; all-ones codes), at both lengths, whose
+    error flags must equal the plain version's and whose read must raise
+    naming the frame."""
     from openglottal_tpu_torch.ops import jpeg_cuda
+    from openglottal_tpu_torch.tools.jpeg_stress import sync_stress_cases
 
+    s_min = jpeg_cuda._lib().og_jpeg_entropy_min_sub_bits()
+    lengths = (jpeg_cuda.SUB_BITS, s_min)
     cases = mjpg_stress_cases()
     for k, (_, frames) in enumerate(cases):
         p = mjpg_parse(frames)
         mjpg_hold(dev, hold, p)
         mjpg_hold(dev, hold, p, 4 * (1 + k % 3))
+        mjpg_hold(dev, hold, p, sub_bits=s_min)
+    sync_cases = sync_stress_cases()
+    sync_flagged = {}
+    for label, frames in sync_cases:
+        p = mjpg_parse(frames)
+        for sub_bits in lengths:
+            n = mjpg_hold(dev, hold, p, 4, sub_bits)
+            if n != (1 if label.startswith("one block short") else 0):
+                raise AssertionError(f"jpeg: {label}: {n} frames flagged at "
+                                     f"S = {sub_bits}")
+        sync_flagged[label] = n
     good = next(f for c, f in cases if c.startswith("noise 4:2:0 38x53"))
     body = good[1].index(b"\xff\xda")
     short = good[1][:body + 40]
@@ -2060,7 +2206,7 @@ def mjpg_stress(dev, hold) -> dict:
     for name, frame in (("short", short), ("all-ones codes", ones)):
         p = mjpg_parse([good[0], frame, good[2]])
         broken[name] = mjpg_hold(dev, hold, p)
-        if broken[name] != 1:
+        if broken[name] != 1 or mjpg_hold(dev, hold, p, 0, s_min) != 1:
             raise AssertionError(f"jpeg: the {name} frame was not flagged")
         try:
             jpeg_cuda.decode(p, dev)
@@ -2082,11 +2228,13 @@ def mjpg_stress(dev, hold) -> dict:
                                  f"decoded")
     return {"cases": len(cases), "frames": sum(len(f) for _, f in cases),
             "labels": [c for c, _ in cases], "broken_streams_flagged": broken,
+            "sub_bits_held": list(lengths),
+            "sync_cases_flagged": sync_flagged,
             "odd_height_4_2_x_refused": True}
 
 
-def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
-               stress=None) -> tuple:
+def mjpg_phase(dev, pipe, hold, counted, host_syncs, device_kernels, smi,
+               logs, stress=None) -> tuple:
     """The MJPG read path on the card.  The stress streams and every
     fixture of tests/data/mjpg (cv2- and PIL-written) through both kernels
     against their plain versions, the card's frames against the digests of
@@ -2096,11 +2244,13 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
     128), every launch held against the plain version of its frames, every
     frame against its cv2 digest, served through ``unet`` (bf16, whole and
     streamed, and through the command line both ways) with its waveform
-    equal to the same frames served from host memory; the kernels' times,
-    bounds, registers, the plain versions' times, host syncs per clip, the
-    read from disk to the card (the host parse's share measured) and unet's
-    time, in turns with the same frames as a BI_RGB 24-bit AVI and as a
-    Y800 AVI.  Returns (the phase's line, the kernels' entries)."""
+    equal to the same frames served from host memory; the kernels' times at
+    64 and 502 frames in turns with PR 13's (``mjpg_turns``), bounds,
+    registers, the entropy decode at three subsequence lengths, the plain
+    versions' times, host syncs per clip, the device work of one decode,
+    the read from disk to the card (the host parse's share measured) and
+    unet's time, in turns with the same frames as a BI_RGB 24-bit AVI and
+    as a Y800 AVI.  Returns (the phase's line, the kernels' entries)."""
     import hashlib
     import tempfile
 
@@ -2224,6 +2374,7 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
     if not torch.equal(torch.cat(chunks), frames):
         raise AssertionError("clip: iter_frames differs from read_frames")
     p = mjpg_parse([real[i % len(real)] for i in range(T_FRAMES)])
+    p128 = mjpg_parse([real[i % len(real)] for i in range(128)])
     line["clip"] = {
         "frames": T_FRAMES, "avi_bytes": clip.stat().st_size,
         "packed_bytes_crossing": p.nbytes,
@@ -2232,7 +2383,9 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
         "frames_equal_to_cv2_digests": T_FRAMES,
         "host_syncs_read_frames": host_syncs(lambda: read_frames(clip, dev)),
         "host_syncs_iter_frames_128": host_syncs(
-            lambda: list(iter_frames(clip, chunk=128, device=dev)))}
+            lambda: list(iter_frames(clip, chunk=128, device=dev))),
+        "device_work_one_decode_128_frames": device_kernels(
+            lambda: jpeg_cuda.decode(p128, dev))}
     line["launches_held_equal_to_plain"] = held
 
     # served through unet (bf16): whole and streamed, against host frames
@@ -2277,36 +2430,22 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
                                                      f_dev["_area"])),
         "f0": f_dev["f0"], "cli_features": outs}
 
-    # times: the kernels at the served chunk (CUDA events), their bounds and
-    # the plain versions on the host at MJPG_PLAIN_FRAMES frames
-    dp = jpeg_cuda.upload(p, dev)
-    coef, _ = jpeg_cuda.entropy_decode(dp)
+    # times: the kernels at the served chunk and at MJPG_PLAIN_FRAMES frames
+    # in turns with PR 13's (CUDA events), their bounds, and the plain
+    # versions on the host at MJPG_PLAIN_FRAMES frames
+    pr13 = pr13_jpeg_library()
+    turns = mjpg_turns(dev, hold, (p64, p), pr13)
     sub = jpeg_cuda.upload(p64, dev)
     coef_sub, _ = jpeg_cuda.entropy_decode(sub)
     geo = p.geo
-    coef_bytes = coef.numel() * 2
-    out_bytes = frames.numel()
-    n_coef = coef.numel()
-    ent_bytes = p.nbytes + coef_bytes + 4 * p.t
-    idct_bytes = coef_bytes + p.quant.nbytes + out_bytes
-    # operations: a symbol decode per non-zero coefficient and an EOB a
-    # block (lookup, shift, extend: ~8); the IDCT's 16 passes of 8 points a
-    # block (~64 multiply-adds each) and ~12 a pixel for the colour
-    symbols = int((coef != 0).sum()) + geo.nblk * p.t
-    ent_ops = 8 * symbols
-    idct_ops = p.t * geo.nblk * 16 * 64 * 2 + 12 * out_bytes // 3 * 2
     entries = []
     ptx = ptxas_summary(logs.get("jpeg", ""))
-    for name, kfn, pfn, nbytes, ops in (
-            ("jpeg_entropy", lambda: jpeg_cuda.entropy_decode(dp),
-             lambda: jpeg.entropy_decode_plain(p64), ent_bytes, ent_ops),
-            ("jpeg_idct_bgr", lambda: jpeg_cuda.idct_bgr(coef, dp),
-             lambda: jpeg.idct_bgr_plain(coef_sub.cpu().numpy(), p64),
-             idct_bytes, idct_ops)):
-        sub_fn = ((lambda: jpeg_cuda.entropy_decode(sub))
-                  if name == "jpeg_entropy"
-                  else (lambda: jpeg_cuda.idct_bgr(coef_sub, sub)))
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    for name, pfn in (
+            ("jpeg_entropy", lambda: jpeg.entropy_decode_plain(p64)),
+            ("jpeg_idct_bgr",
+             lambda: jpeg.idct_bgr_plain(coef_sub.cpu().numpy(), p64))):
+        whole, part = turns[f"{name} T={p.t}"], turns[f"{name} T={p64.t}"]
+        stem = name.split("_", 1)[1]
         entries.append({
             "name": name, "route": "cuda",
             "source": "openglottal_tpu_torch/csrc/jpeg.cu",
@@ -2314,21 +2453,34 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, smi, logs,
             "replaces": "openglottal_tpu/data/video.py:32",
             "path": "mjpg", "launches": launches[name],
             "launches_stream_128": slaunches[name],
+            "device_launches_per_call": 1,
+            **({"sub_bits": jpeg_cuda.SUB_BITS}
+               if name == "jpeg_entropy" else {}),
             "max_abs_err": 0,
-            "ms": time_cuda(kfn, 20),
-            "ms_at_plain_frames": time_cuda(sub_fn, 20),
+            "ms": whole["ms"], "ms_at_plain_frames": part["ms"],
+            "pr13_ms": whole["pr13_ms"],
+            "pr13_ms_at_plain_frames": part["pr13_ms"],
             "plain_ms": time_host(pfn, 1), "plain_frames": MJPG_PLAIN_FRAMES,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+            "bound_ms_at_plain_frames": part["bound_ms"],
             "library_ms": None,
             "library": "n/a: no PyTorch call decodes JPEG (torchvision is "
                        "absent)",
             "shapes": [[p.t, geo.nblk, 64]],
-            "ptxas": {k: v for k, v in ptx.items()
-                      if k.startswith(name.split("_", 1)[1])}})
+            "ptxas": {k: v for k, v in ptx.items() if k.startswith(stem)},
+            "pr13_ptxas": {k: v for k, v in pr13[1].items()
+                           if k.startswith(stem)}})
     line["kernel_times"] = {e["name"]: {k: e[k] for k in (
-        "ms", "ms_at_plain_frames", "plain_ms", "bound_ms", "bound_by")}
-        for e in entries}
+        "ms", "ms_at_plain_frames", "pr13_ms", "pr13_ms_at_plain_frames",
+        "plain_ms", "bound_ms", "bound_ms_at_plain_frames", "bound_by",
+        "ptxas", "pr13_ptxas")} for e in entries}
+    line["kernel_turns_with_pr13"] = turns
+    # og_jpeg_entropy's subsequence length (the wrapper's SUB_BITS) against
+    # shorter and longer ones, at the served chunk
+    dp = jpeg_cuda.upload(p, dev)
+    line["jpeg_entropy_ms_by_sub_bits"] = {
+        s_: time_cuda(lambda s_=s_: jpeg_cuda.launch_entropy(dp, s_), 10)
+        for s_ in (1024, 1536, 2048)}
 
     # the read from disk to a device tensor, and what it costs end to end:
     # the MJPG clip against the same decoded frames as a BI_RGB 24-bit AVI
@@ -2567,7 +2719,7 @@ def main() -> int:
         # the MJPG read path alone: its stress streams, fixtures and clip
         mjpg_line, mjpg_entries = mjpg_phase(
             dev, GlottalPipelines(dtype=torch.bfloat16, **MJPG_WEIGHTS), hold,
-            counted, host_syncs, smi, logs)
+            counted, host_syncs, device_kernels, smi, logs)
         say("mjpg", compared="exact equality with the plain version, every "
             "stress stream and every recorded launch", **mjpg_line)
         print(json.dumps({"kernels": mjpg_entries, "timing": TIMING}),
@@ -3720,8 +3872,8 @@ def main() -> int:
 
     # ── MJPG: the clip read on the card, served through unet ────────────
     mjpg_line, mjpg_entries = mjpg_phase(dev, pipes["bf16"], hold, counted,
-                                         host_syncs, smi, logs,
-                                         mjpg_stress_line)
+                                         host_syncs, device_kernels, smi,
+                                         logs, mjpg_stress_line)
     reset_counts()
     held["mjpg"] = mjpg_line["launches_held_equal_to_plain"]
     say("mjpg", compared="exact equality with the plain version, every "

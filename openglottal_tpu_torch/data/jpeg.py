@@ -406,8 +406,8 @@ class Packed:
 
     data    (N,) uint8    segments' bytes, each at a 4-byte boundary, 8
                           zero bytes after the last
-    segs    (S, 5) int32  per segment: byte offset, byte count, frame,
-                          first MCU, MCU count
+    segs    (S, 5) int32  per segment, in frame order: byte offset, byte
+                          count, frame, first MCU, MCU count
     tables  (NT, TABLE_WORDS) int32  the chunk's distinct Huffman tables
     slots   (T, NS) int32 per frame, the rows of ``tables`` it reads (-1
                           past its last)

@@ -6,12 +6,14 @@ Replace the host decode of ``openglottal_tpu/data/video.py:32-74``
 (``cv2.VideoCapture``); the plain versions are ``data/jpeg.py``'s
 ``entropy_decode_plain`` and ``idct_bgr_plain``.
 
-Each wrapper checks its inputs, allocates its outputs with ``torch.empty`` /
-``torch.zeros``, launches on the current stream without synchronising and
-counts its launches in ``LAUNCHES``.  A CUDA tensor goes to the kernel or
-the call raises; a CPU tensor goes to the plain version.  :func:`decode` is
-the read path: upload, entropy decode, the error check (one host sync: a
-corrupt or short frame raises ``ValueError`` naming it), IDCT and colour.
+Each wrapper checks its inputs, allocates its outputs (and the entropy
+decode's scratch, a record a subsequence of ``SUB_BITS`` bits) with
+``torch.empty`` / ``torch.zeros``, launches on the current stream without
+synchronising and counts its launches in ``LAUNCHES``.  A CUDA tensor goes
+to the kernel or the call raises; a CPU tensor goes to the plain version.
+:func:`decode` is the read path: upload, entropy decode, the error check
+(one host sync: a corrupt or short frame raises ``ValueError`` naming it),
+IDCT and colour.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ from openglottal_tpu_torch.data.prefetch import PinnedUploader
 from openglottal_tpu_torch.ops import _build
 
 LAUNCHES = {"jpeg_entropy": 0, "jpeg_idct_bgr": 0}
+
+# og_jpeg_entropy's subsequence length in bits (``csrc/jpeg.cu``: a thread
+# synchronises and decodes one subsequence of a segment)
+SUB_BITS = 1536
 
 # Measurement hook, as in ``blobs_cuda``: a list here receives
 # (wrapper name, inputs, outputs) of every launch.
@@ -45,10 +51,14 @@ def _lib() -> ctypes.CDLL:
     global _configured
     lib = _build.load("jpeg")
     if not _configured:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.og_jpeg_entropy.argtypes = [p, p, i] + [p] * 6 + [i] * 7 + [p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.og_jpeg_entropy.argtypes = ([p, p, i] + [p] * 6 + [i] * 9
+                                        + [p, ll, ll, p])
+        lib.og_jpeg_entropy_scratch_bytes.argtypes = [i, ll, i]
         lib.og_jpeg_idct_bgr.argtypes = [p, p, p] + [i] * 10 + [p]
         lib.og_jpeg_entropy.restype = ctypes.c_int
+        lib.og_jpeg_entropy_scratch_bytes.restype = ll
+        lib.og_jpeg_entropy_min_sub_bits.restype = ctypes.c_int
         lib.og_jpeg_idct_bgr.restype = ctypes.c_int
         _configured = True
     return lib
@@ -82,8 +92,10 @@ class DevicePacked:
 
 def _validate(p: jpeg.Packed) -> None:
     """The packed arrays' bounds, on the host, before a kernel trusts them:
-    every segment's words inside ``data``, its frame and MCUs inside the
-    chunk, every table slot and component slot inside its table."""
+    every segment's words (at least one) inside ``data``, its frame and MCUs
+    inside the chunk, the segments in frame order (the entropy kernel finds
+    a frame's segments by bisection), every table slot and component slot
+    inside its table."""
     geo, t = p.geo, p.slots.shape[0]
     segs = np.asarray(p.segs, np.int64).reshape(-1, jpeg.SEG_WORDS)
     off, nb, f, m0, nm = segs.T
@@ -94,8 +106,9 @@ def _validate(p: jpeg.Packed) -> None:
             or len(p.data) % 4 or p.quant.shape != (t, 3, 64)
             or comp.shape[0] != t or not 1 <= ns <= 6
             or (off % 4).any() or (off < 0).any() or (nb < 0).any()
-            or (off + (nb + 3) // 4 * 4 > len(p.data)).any()
-            or (f < 0).any() or (f >= t).any() or (m0 < 0).any()
+            or (off + np.maximum(4, (nb + 3) // 4 * 4) > len(p.data)).any()
+            or (f < 0).any() or (f >= t).any() or (np.diff(f) < 0).any()
+            or (m0 < 0).any()
             or (nm < 1).any() or (m0 + nm > mcus).any()
             or (p.slots < -1).any() or (p.slots >= len(p.tables)).any()
             or (comp < 0).any() or (comp >= ns).any()
@@ -157,23 +170,39 @@ def entropy_decode(dp: DevicePacked):
     tensors one launch of ``og_jpeg_entropy``; on CPU tensors the plain
     version."""
     _check(dp)
-    geo = dp.geo
     if not dp.data.is_cuda:
         coef, err = jpeg.entropy_decode_plain(dp.host())
         return (torch.from_numpy(coef).to(dp.device),
                 torch.from_numpy(err).to(dp.device))
+    return launch_entropy(dp, SUB_BITS)
+
+
+def launch_entropy(dp: DevicePacked, sub_bits: int):
+    """``og_jpeg_entropy`` on a chunk on the card with subsequences of
+    ``sub_bits`` bits (the kernel's smallest is
+    ``og_jpeg_entropy_min_sub_bits()``; :func:`entropy_decode` passes
+    ``SUB_BITS``); its scratch from ``torch.empty``.  Counts one launch."""
+    geo = dp.geo
     t, nslots = dp.t, dp.slots.shape[1]
     data = dp.data if dp.data.data_ptr() % 4 == 0 else dp.data.clone()
+    lib = _lib()
+    nseg = dp.segs.shape[0]
+    nbytes = lib.og_jpeg_entropy_scratch_bytes(nseg, data.numel(), sub_bits)
+    if nbytes < 0:
+        raise ValueError(f"jpeg_entropy: subsequences of {sub_bits} bits are "
+                         f"not supported")
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dp.device)
     coef = torch.empty((t, geo.nblk, 64), dtype=torch.int16,
                        device=dp.device)
     err = torch.zeros((t,), dtype=torch.int32, device=dp.device)
     ncomp, mcux, mcuy, hs0, vs0 = _layout(geo)
     with torch.cuda.device(dp.device):
-        rc = _lib().og_jpeg_entropy(
-            data.data_ptr(), dp.segs.data_ptr(), dp.segs.shape[0],
+        rc = lib.og_jpeg_entropy(
+            data.data_ptr(), dp.segs.data_ptr(), nseg,
             dp.tables.data_ptr(), dp.slots.data_ptr(), dp.comp.data_ptr(),
-            dp.quant.data_ptr(), coef.data_ptr(), err.data_ptr(), ncomp,
-            mcux, mcux * mcuy, hs0, vs0, geo.nblk, nslots,
+            dp.quant.data_ptr(), coef.data_ptr(), err.data_ptr(), t, ncomp,
+            mcux, mcux * mcuy, hs0, vs0, geo.nblk, nslots, sub_bits,
+            scratch.data_ptr(), nbytes, data.numel(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "jpeg_entropy")
     LAUNCHES["jpeg_entropy"] += 1

@@ -68,7 +68,8 @@ def _magnitude(v: int):
 
 
 def encode(blocks, h: int, w: int, sampling: str, quant, restart: int = 0,
-           dht: bool = True, tables=None) -> bytes:
+           dht: bool = True, tables=None, cut_blocks: int = 0,
+           junk: bytes = b"") -> bytes:
     """A baseline JPEG of quantised coefficients.
 
     ``blocks``: per component a (bh, bw, 64) int array in natural order,
@@ -78,7 +79,9 @@ def encode(blocks, h: int, w: int, sampling: str, quant, restart: int = 0,
     written as 16-bit where any value exceeds 255.  ``restart``: the restart
     interval in MCUs (0: none).  ``dht=False`` leaves the tables out (a
     decoder takes Annex K's); ``tables``: {(class, id): (bits, values)},
-    Annex K's by default."""
+    Annex K's by default.  ``cut_blocks``: the last blocks' bits left out (a
+    short stream); ``junk``: bytes (no 0xFF) written after the last block's
+    fill bits, which a decoder never reads."""
     tables = ANNEX_K if tables is None else tables
     ncomp = 1 if sampling == "gray" else 3
     hs, vs = _SAMPLING[sampling]
@@ -122,12 +125,16 @@ def encode(blocks, h: int, w: int, sampling: str, quant, restart: int = 0,
                 order.append(mcu + [(1, my, mx), (2, my, mx)])
     bits = _Bits()
     pred = [0] * ncomp
+    left = sum(len(mcu) for mcu in order) - cut_blocks
     for i, mcu in enumerate(order):
         if restart and i and i % restart == 0:
             bits.pad()
             bits.out += bytes([0xFF, 0xD0 + (i // restart - 1) % 8])
             pred = [0] * ncomp
         for c, r, q in mcu:
+            left -= 1
+            if left < 0:
+                break
             zz = np.asarray(blocks[c][r, q])[ZIGZAG]
             s, v = _magnitude(int(zz[0]) - pred[c])
             pred[c] = int(zz[0])
@@ -149,7 +156,9 @@ def encode(blocks, h: int, w: int, sampling: str, quant, restart: int = 0,
             if run:
                 bits.put(*ac[c][0x00])
     bits.pad()
-    return bytes(out + bits.out + b"\xff\xd9")
+    if b"\xff" in junk:
+        raise ValueError("encode: junk must not hold 0xFF")
+    return bytes(out + bits.out + junk + b"\xff\xd9")
 
 
 def grids(h: int, w: int, sampling: str) -> list:
@@ -168,7 +177,9 @@ def stress_blocks(kind: str, grid, rng) -> np.ndarray:
     AC position at +-1023 or 0, every run length; ``dense``: all 63 AC
     positions non-zero (no EOB); ``sparse``: a DC term and at most one AC
     level, at position 63 in every third block (runs of 62, ZRL chains);
-    ``noise``: small random levels, the shape of real data."""
+    ``noise``: small random levels, the shape of real data; ``dc16``: DC
+    alternating -20000 / +20000 (DC sizes of 16: a code and its extra bits
+    of 32 bits with :data:`DC16_TABLES`) and small AC levels."""
     bh, bw = grid
     n = bh * bw
     b = np.zeros((n, 64), np.int64)
@@ -190,23 +201,79 @@ def stress_blocks(kind: str, grid, rng) -> np.ndarray:
         b[:, 0] = rng.integers(-60, 60, n)
         b[:, 1:] = np.round(rng.laplace(0, 1.5, (n, 63)) * np.exp(
             -np.arange(1, 64) / 12.0)).astype(np.int64)
+        if kind == "dc16":
+            b[:, 0] = np.where(np.arange(n) % 2, 20000, -20000)
     return b.reshape(bh, bw, 64)
 
 
 def stress_frames(kind: str, h: int, w: int, sampling: str, t: int = 2,
                   seed: int = 0, restart: int = 0, quant_max: int = 1,
-                  dht: bool = True) -> list:
+                  dht: bool = True, **encode_kw) -> list:
     """``t`` JPEG frames of :func:`stress_blocks` coefficients; the
     quantisation tables drawn in 1..quant_max (above 255: 16-bit tables,
-    whose products wrap int16 in the decoder)."""
+    whose products wrap int16 in the decoder); ``encode_kw`` to
+    :func:`encode` (tables, cut_blocks, junk)."""
     rng = np.random.default_rng(seed)
     ncomp = 1 if sampling == "gray" else 3
     out = []
     for _ in range(t):
         blocks = [stress_blocks(kind, g, rng) for g in grids(h, w, sampling)]
         quant = [rng.integers(1, quant_max + 1, 64) for _ in range(ncomp)]
-        out.append(encode(blocks, h, w, sampling, quant, restart, dht))
+        out.append(encode(blocks, h, w, sampling, quant, restart, dht,
+                          **encode_kw))
     return out
+
+
+# Tables whose codes all have one length (DC sizes 0-11 in 4 bits, the 162
+# AC symbols of Annex K in 8): a decode started off a symbol boundary keeps
+# its offset, so subsequences rarely synchronise by themselves.
+_AC_SYMBOLS = tuple(sorted(set(ANNEX_K[(1, 0)][1])))
+EQUAL_TABLES = {
+    (0, 0): ((0, 0, 0, 12) + (0,) * 12, bytes(range(12))),
+    (0, 1): ((0, 0, 0, 12) + (0,) * 12, bytes(range(12))),
+    (1, 0): ((0,) * 7 + (162,) + (0,) * 8, bytes(_AC_SYMBOLS)),
+    (1, 1): ((0,) * 7 + (162,) + (0,) * 8, bytes(_AC_SYMBOLS))}
+# Annex K's DC tables with DC sizes 12-16 added as 16-bit codes (Annex K
+# stops at 11): a size-16 DC symbol is 32 bits with its extra bits.
+DC16_TABLES = dict(ANNEX_K)
+DC16_TABLES[(0, 0)] = (ANNEX_K[(0, 0)][0][:15] + (5,), bytes(range(17)))
+DC16_TABLES[(0, 1)] = (ANNEX_K[(0, 1)][0][:15] + (5,), bytes(range(17)))
+
+
+def sync_stress_cases() -> list:
+    """(label, JPEG frames) that stress the split-and-synchronise entropy
+    decode (``csrc/jpeg.cu``): tables of equal code lengths, restart
+    intervals of one MCU, segments shorter than one subsequence, 32-bit DC
+    symbols (a whole subsequence at its smallest length), junk that decodes
+    as valid symbols after the last block (never flagged), and a frame cut
+    one block short between two good ones (flagged)."""
+    cases = []
+    for sampling in ("gray", "4:2:0"):
+        cases += [
+            (f"equal code lengths noise {sampling} 64x64",
+             stress_frames("noise", 64, 64, sampling, t=2, seed=1,
+                           tables=EQUAL_TABLES)),
+            (f"equal code lengths extreme {sampling} 32x48",
+             stress_frames("extreme", 32, 48, sampling, t=2, seed=2,
+                           tables=EQUAL_TABLES)),
+            (f"restart 1 noise {sampling} 48x64",
+             stress_frames("noise", 48, 64, sampling, t=2, seed=3,
+                           restart=1)),
+            (f"shorter than a subsequence sparse {sampling} 16x16",
+             stress_frames("sparse", 16, 16, sampling, t=3, seed=4)),
+            (f"32-bit DC symbols {sampling} 32x32",
+             stress_frames("dc16", 32, 32, sampling, t=2, seed=5,
+                           tables=DC16_TABLES)),
+            (f"junk after the last block {sampling} 32x48",
+             stress_frames("noise", 32, 48, sampling, t=2, seed=6,
+                           junk=bytes(48) + bytes(range(1, 200)))),
+            (f"one block short {sampling} 32x48",
+             [*stress_frames("noise", 32, 48, sampling, t=1, seed=7),
+              *stress_frames("noise", 32, 48, sampling, t=1, seed=8,
+                             cut_blocks=1),
+              *stress_frames("noise", 32, 48, sampling, t=1, seed=9)]),
+        ]
+    return cases
 
 
 def write_mjpg_avi(path, jpeg_frames, w: int, h: int,
