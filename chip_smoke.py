@@ -6,6 +6,8 @@
     python3 chip_smoke.py --qconv         # build + og_qconv alone: its stress
         # cases, then every U-Net layer shape in turns with PR 10's kernel
         # (tools/qconv_pr10.cu), cuDNN's bf16 conv and _int_mm
+    python3 chip_smoke.py --train         # build + the training phase alone
+        # (the "train" line and the entries of csrc/train.cu's kernels)
     python3 chip_smoke.py --mjpg          # build + the MJPG read path alone
         # (the "mjpg" line and the two JPEG kernels' entries, in turns with
         # PR 13's, tools/jpeg_pr13.cu)
@@ -20,8 +22,24 @@
         # one on the served chunk
 
 The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
-``areas.cu``, ``qconv.cu``, ``eval.cu``, ``jpeg.cu``) are built with nvcc,
-one process each, all started together.
+``areas.cu``, ``qconv.cu``, ``eval.cu``, ``jpeg.cu``, ``train.cu``) are
+built with nvcc, one process each, all started together.
+
+The ``train`` line (ROADMAP A9): the three training kernels of
+``csrc/train.cu`` (``og_unet_augment``, ``og_bce_dice`` and its backward,
+``og_tal_assign``) held against their plain versions on stress inputs
+(``train_stress``) and on every launch of the fits, the f32 step and the
+command line below (masks, ``best_gt`` and ``assigned`` exact, floats
+within ``TRAIN_TOL``);
+``UNetTrainer.fit`` at full width (bf16, batch 16, 2 epochs over 64
+realistic synthetic frames, 16 for validation) and ``YoloTrainer.fit`` at
+YOLOv8n width (a mosaic epoch, a close-mosaic epoch), each loss finite and
+falling, both checkpoints read back by ``utils/io`` and served through
+``GlottalPipelines`` (``unet-only``, then ``unet`` with both trained
+models); one f32 U-Net step from ``demo_unet.npz`` on the card against the
+CPU (loss, gradient norm); ``cli train-unet`` and ``train-unet-crop --mode
+yolo`` on a PNG split written by ``data/png.py``; ms per train step in
+turns and each kernel's ms against its bound.
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality), then serves 502-frame
@@ -2538,6 +2556,473 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, device_kernels, smi,
     return line, entries
 
 
+# ── training (ROADMAP A9): the three kernels of csrc/train.cu ───────────────
+
+TRAIN_TOL = {"unet_augment": 1e-5, "bce_dice": 1e-4, "bce_dice_bwd": 1e-4,
+             "tal_assign": 1e-5}
+# (the augment image differs only through each image's mean, summed in
+# another order; the loss's sums are float32 in the kernel's blocks and
+# pairwise in torch's; relative to the value's magnitude for the loss)
+TRAIN_REPLACES = {
+    "unet_augment": "openglottal_tpu/data/augment.py:112",
+    "bce_dice": "openglottal_tpu/train/unet_trainer.py:49",
+    "bce_dice_bwd": "openglottal_tpu/train/unet_trainer.py:66",
+    "tal_assign": "openglottal_tpu/train/yolo_loss.py:98"}
+TRAIN_C_ENTRY = {"unet_augment": "og_unet_augment", "bce_dice": "og_bce_dice",
+                 "bce_dice_bwd": "og_bce_dice_bwd",
+                 "tal_assign": "og_tal_assign"}
+
+
+def train_runner(name, inputs, kw):
+    """(kernel fn, plain fn, bytes moved, operations) of one recorded
+    launch of a training kernel; both fns return a tuple of tensors whose
+    integer / bool members are held exact and float members within
+    TRAIN_TOL."""
+    from openglottal_tpu_torch.ops import train_cuda as T
+
+    if name == "unet_augment":
+        imgs, msks, params, noise = inputs
+        px = imgs.numel()
+        return (lambda: T.unet_augment(imgs, msks, params, noise),
+                lambda: T.unet_augment_plain(imgs, msks, params, noise),
+                px * (1 + 1 + 4 + 4 + 4), px * 60)
+    if name == "bce_dice":
+        logits, targets, valid = inputs
+        n = logits.numel()
+
+        def kfn():
+            sums, cnt, loss = T._bce_dice_cuda(logits, targets, valid)
+            return (loss, sums)
+
+        def pfn():
+            sums, cnt = T.bce_dice_sums_plain(logits, targets, valid)
+            return (T._loss_from_sums(sums, cnt), sums)
+        return kfn, pfn, n * 8, n * 30
+    if name == "bce_dice_bwd":
+        logits, targets, valid, sums, cnt, g = inputs
+        n = logits.numel()
+        return (lambda: (T._bce_dice_bwd_cuda(logits, targets, valid, sums,
+                                              cnt, g),),
+                lambda: (T.bce_dice_grad_plain(logits, targets, valid, sums,
+                                               cnt, g),),
+                n * 12, n * 20)
+    if name != "tal_assign":
+        raise AssertionError(f"{name}: not a training kernel")
+    cls, pred, gt, gv, pts = inputs
+    b, a = cls.shape
+    m = gt.shape[1]
+    return (lambda: T.tal_assign(cls, pred, gt, gv, pts),
+            lambda: T.tal_assign_plain(cls, pred, gt, gv, pts),
+            b * a * (4 + 16 + 4 + 1 + 4) + a * 8 + b * m * 17,
+            b * m * a * (40 + 2 * 10))
+
+
+def hold_train(name, got, want, max_err: dict) -> None:
+    """Integer and bool outputs exactly equal, float outputs within
+    TRAIN_TOL of the plain version (relative to the value for the 0-d loss
+    and its sums, absolute for images and gradients scaled by their
+    largest)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {g.shape} vs {w.shape}")
+        if not g.dtype.is_floating_point or (name == "unet_augment"
+                                             and k == 1):   # the mask
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: {g.dtype} output differs from "
+                                     f"the plain version")
+            continue
+        diff = float((g.double() - w.double()).abs().max()) if g.numel() \
+            else 0.0
+        scale = float(w.double().abs().max()) if w.numel() else 1.0
+        rel = diff / max(scale, 1e-30) if name.startswith("bce") else diff
+        max_err[name] = max(max_err.get(name, 0.0), rel)
+        if not rel <= TRAIN_TOL[name]:
+            raise AssertionError(f"{name}: kernel and plain version differ by "
+                                 f"{rel} (limit {TRAIN_TOL[name]})")
+
+
+def train_stress(dev, max_err: dict) -> list:
+    """Each training kernel against its plain version on stress inputs:
+    odd angles and every augment flag on and off, empty and full masks,
+    saturated frames; logits of ±40, masked rows; gt boxes at the frame's
+    edge, M = 1 and 4, top-k ties."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.data import augment
+    from openglottal_tpu_torch.models.yolo import anchors_for
+    from openglottal_tpu_torch.ops import train_cuda as T
+
+    labels = []
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for b in (16, 3):
+        imgs = torch.from_numpy(rng.integers(0, 256, (b, 256, 256)).astype(
+            np.uint8)).to(dev)
+        imgs[0] = 255
+        msks = torch.zeros((b, 256, 256), dtype=torch.uint8, device=dev)
+        msks[:, 90:170, 100:160] = 1
+        msks[1 % b] = 1
+        msks[2 % b] = 0
+        msks[-1, :, :1] = 1
+        for case in ("drawn", "all on", "all off", "odd angles"):
+            params, noise = augment.sample_params(b, gen, dev)
+            if case == "all on":
+                params[:, [0, 1, 5, 7]] = 1.0
+            elif case == "all off":
+                params[:, [0, 1, 5, 7]] = 0.0
+                params[:, 4] = 1.0
+            elif case == "odd angles":
+                th = torch.tensor([90.0, -30.0, 45.0, 180.0, 0.0, 30.0],
+                                  device=dev).repeat(b)[:b] * (np.pi / 180)
+                params[:, 2], params[:, 3] = torch.cos(th), torch.sin(th)
+                params[:, 4] = torch.linspace(0.85, 1.15, b, device=dev)
+            hold_train("unet_augment", T.unet_augment(imgs, msks, params,
+                                                      noise),
+                       T.unet_augment_plain(imgs, msks, params, noise),
+                       max_err)
+            labels.append(f"unet_augment b={b} {case}")
+    for shape in ((16, 1, 256, 256), (5, 1, 64, 96), (1, 1, 7, 3)):
+        x = torch.from_numpy(rng.normal(0, 4, shape).astype(np.float32)
+                             ).to(dev)
+        x.view(-1)[:4] = torch.tensor([40.0, -40.0, 0.0, 90.0], device=dev)
+        for tk in ("random", "empty", "full"):
+            t = (torch.rand(shape, generator=gen, device=dev) > 0.7).float()
+            if tk != "random":
+                t.fill_(0.0 if tk == "empty" else 1.0)
+            for valid in (None, torch.arange(shape[0], device=dev)
+                          < max(1, shape[0] - 2)):
+                r = train_runner("bce_dice", (x, t, valid), {})
+                hold_train("bce_dice", r[0](), r[1](), max_err)
+                sums, cnt, _ = T._bce_dice_cuda(x, t, valid)
+                g = torch.tensor(0.75, device=dev)
+                r = train_runner("bce_dice_bwd", (x, t, valid, sums, cnt, g),
+                                 {})
+                hold_train("bce_dice_bwd", r[0](), r[1](), max_err)
+                labels.append(f"bce_dice {shape} {tk} "
+                              f"{'masked' if valid is not None else ''}")
+    for size in (256, 64):
+        pts, _ = anchors_for(size, size, dev)
+        a = pts.shape[0]
+        for m in (1, 4):
+            b = 16
+            lo = rng.uniform(0, size * 0.7, (b, m, 2))
+            hi = np.minimum(lo + rng.uniform(4, size * 0.6, (b, m, 2)), size)
+            gt = np.concatenate([lo, hi], -1).astype(np.float32)
+            gt[0, 0] = [0, 0, size, size]             # the whole frame
+            gt[1, 0] = [size - 9, 0, size, size]      # at the frame's edge
+            gt = torch.from_numpy(gt).to(dev)
+            gv = torch.ones((b, m), dtype=torch.bool, device=dev)
+            gv[2, 0] = False
+            c = torch.from_numpy(rng.uniform(0, size, (b, a, 2)).astype(
+                np.float32)).to(dev)
+            wh = torch.from_numpy(rng.uniform(4, size * 0.6, (b, a, 2)).astype(
+                np.float32)).to(dev)
+            pred = torch.cat([c - wh / 2, c + wh / 2], -1).contiguous()
+            cls = torch.from_numpy(rng.normal(0, 2, (b, a)).astype(
+                np.float32)).to(dev)
+            cls[3] = 0.0                              # ties: equal scores,
+            pred[3] = gt[3, 0]                        # equal boxes
+            r = train_runner("tal_assign", (cls, pred, gt, gv, pts), {})
+            hold_train("tal_assign", r[0](), r[1](), max_err)
+            labels.append(f"tal_assign {size}² m={m}")
+    return labels
+
+
+def step_profile(fn, top: int = 8) -> dict:
+    """One call of fn() under torch.profiler: its wall ms, the device's
+    busy ms (the sum of its kernels' and copies' times), their count, and
+    the ``top`` device kernels by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = [(e.key[:60], self_us(e) / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and self_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_items": sum(r[2] for r in rows),
+            "top": [{"kernel": k, "ms": ms, "count": n}
+                    for k, ms, n in rows[:top]]}
+
+
+def write_png_split(root, frames_bgr, masks, names_val: int):
+    """A PNG split (images/, labels/, training.json) of BGR frames and
+    {0,1} masks, written by the port's zlib PNG writer."""
+    import json as _json
+
+    from openglottal_tpu_torch.data.png import write_png
+
+    img_dir, lbl_dir = root / "images", root / "labels"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    lbl_dir.mkdir(parents=True, exist_ok=True)
+    names = []
+    for i, (f, m) in enumerate(zip(frames_bgr, masks)):
+        name = f"{i:04d}.png"
+        write_png(img_dir / name, f[..., ::-1], filters=(i % 5,))
+        write_png(lbl_dir / name, m.astype("uint8") * 255)
+        names.append(name)
+    (root / "training.json").write_text(_json.dumps(
+        {"training": names[:-names_val], "Val": names[-names_val:]}))
+    return img_dir, lbl_dir, root / "training.json"
+
+
+def train_phase(dev, smi, counted, logs):
+    """Training on the card (ROADMAP A9): the kernels against their plain
+    versions on stress inputs and on every launch of the fits; UNetTrainer
+    and YoloTrainer at full width; card vs CPU; the command line.  Returns
+    (the "train" line, the kernels' entries)."""
+    import math as _math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch import cli
+    from openglottal_tpu_torch.data.synthetic import synthetic_video
+    from openglottal_tpu_torch.ops import train_cuda as T
+    from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.train import unet_trainer as ut
+    from openglottal_tpu_torch.train import yolo_trainer as yt
+    from openglottal_tpu_torch.utils.io import (
+        load_unet_weights,
+        load_weights_npz,
+        load_yolo_weights,
+    )
+
+    t_phase = time.perf_counter()
+    max_err: dict = {}
+    stress = train_stress(dev, max_err)
+    work = Path(tempfile.mkdtemp(prefix="og_train_", dir="."))
+    line = {"nvidia_smi": smi, "stress_cases": len(stress)}
+    try:
+        # 64 realistic synthetic frames (+ 16 for validation), 256²
+        frames, masks = synthetic_video(t=80, seed=5, realistic=True)
+        gray = np.ascontiguousarray(
+            (frames.astype(np.float32) @ np.float32([0.114, 0.587, 0.299])
+             ).round().clip(0, 255).astype(np.uint8))
+        msk = masks.astype(np.uint8)
+
+        # ── (b) UNetTrainer.fit at full width, bf16, batch 16 ─────────────
+        trainer = ut.UNetTrainer(device=dev, seed=0)
+        record: list = []
+        (state, best, hist), unet_counts = counted(lambda: trainer.fit(
+            gray[:64], msk[:64], gray[64:], msk[64:], epochs=2,
+            ckpt_dir=work / "unet", verbose=False), record)
+        losses = [h["loss/train"] for h in hist]
+        if not all(_math.isfinite(v) for v in losses) or losses[1] >= \
+                losses[0]:
+            raise AssertionError(f"UNetTrainer: train losses {losses} are not "
+                                 f"finite and falling")
+        if not all(_math.isfinite(h["loss/val"]) for h in hist):
+            raise AssertionError(f"UNetTrainer: val losses {hist}")
+        for name in ("unet_augment", "bce_dice", "bce_dice_bwd"):
+            if unet_counts[name] == 0:
+                raise AssertionError(f"{name} not launched by UNetTrainer.fit")
+        unet_tree = load_unet_weights(work / "unet" / "best.pt")
+        load_unet_weights(work / "unet" / "latest.pt")
+        pipe = GlottalPipelines(unet_variables=unet_tree, device=dev)
+        _, _, _, areas = pipe.run_pipeline_full(frames[:12], "unet-only")
+        areas = areas.float().cpu().numpy()
+        if areas.shape != (12,) or not np.isfinite(areas).all():
+            raise AssertionError("the trained U-Net did not serve unet-only")
+        line["unet_fit"] = {"history": hist, "launches": unet_counts,
+                            "served_unet_only_areas_12": areas.tolist()}
+
+        # ── (c) YoloTrainer.fit at YOLOv8n width: mosaic, close-mosaic ─────
+        boxes = yt.boxes_from_masks(msk)
+        rgb = np.ascontiguousarray(frames[..., ::-1])
+        ytr = yt.YoloTrainer(device=dev, seed=0)
+        (ystate, ybest, yhist), yolo_counts = counted(lambda: ytr.fit(
+            rgb[:64], boxes[:64], rgb[64:], boxes[64:], epochs=2,
+            close_mosaic=1, ckpt_dir=work / "yolo", verbose=False), record)
+        step_losses = [v for h in yhist for v in h.pop("loss/steps")]
+        if [h["mosaic"] for h in yhist] != [True, False]:
+            raise AssertionError(f"YoloTrainer: mosaic schedule {yhist}")
+        if not all(_math.isfinite(v) for v in step_losses) or \
+                step_losses[-1] >= step_losses[0]:
+            raise AssertionError(f"YoloTrainer: step losses {step_losses} "
+                                 f"are not finite and falling")
+        if yolo_counts["tal_assign"] != len(step_losses):
+            raise AssertionError(f"tal_assign launched "
+                                 f"{yolo_counts['tal_assign']} times for "
+                                 f"{len(step_losses)} steps")
+        yolo_tree = load_yolo_weights(work / "yolo" / "best.pt")
+        load_yolo_weights(work / "yolo" / "latest.pt")
+        pipe = GlottalPipelines(unet_variables=unet_tree,
+                                yolo_variables=yolo_tree, conf=0.0,
+                                device=dev)
+        _, valid, _, yareas = pipe.run_pipeline_full(frames[:12], "unet")
+        yareas = yareas.float().cpu().numpy()
+        if yareas.shape != (12,) or not np.isfinite(yareas).all():
+            raise AssertionError("the trained models did not serve unet")
+        line["yolo_fit"] = {"history": yhist, "step_losses": step_losses,
+                            "launches": yolo_counts,
+                            "served_unet_valid_12": int(valid.sum()),
+                            "served_unet_areas_12": yareas.tolist()}
+
+        # ── (d) card vs CPU: one f32 U-Net step without augmentation ───────
+        demo = load_weights_npz("weights/demo_unet.npz")
+        x_u8 = torch.from_numpy(gray[:2])
+        m_u8 = torch.from_numpy(msk[:2])
+        out = {}
+
+        def f32_step(where):
+            st = ut.UNetTrainer(device=where, dtype=torch.float32
+                                ).init_state(demo)
+            loss = ut.unet_step(st, x_u8.to(where).float() * T.INV255.to(
+                where), m_u8.to(where).float(), torch.float32)
+            gn = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                for p in st.model.parameters()
+                                if p.grad is not None))
+            return float(loss), float(gn)
+
+        out["cpu"] = f32_step("cpu")
+        out["cuda"], f32_counts = counted(lambda: f32_step("cuda"), record)
+        rel_loss = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        rel_gn = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+        if rel_loss > 1e-4 or rel_gn > 1e-3:
+            raise AssertionError(f"card vs CPU U-Net step: loss rel "
+                                 f"{rel_loss}, grad norm rel {rel_gn}")
+        line["card_vs_cpu_f32_step"] = {"loss": out, "loss_rel": rel_loss,
+                                        "grad_norm_rel": rel_gn,
+                                        "launches": f32_counts}
+
+        # ── (e) the command line on a PNG split written here ──────────────
+        img_dir, lbl_dir, tj = write_png_split(work / "png", frames[:24],
+                                               masks[:24], 8)
+        common = ["--images-dir", str(img_dir), "--labels-dir", str(lbl_dir),
+                  "--training-json", str(tj), "--epochs", "1", "--batch",
+                  "8", "--cache-dir", str(work / "cache")]
+        t0 = time.perf_counter()
+        (cli_unet, cli_crop), cli_counts = counted(lambda: (
+            cli.main(["train-unet", *common, "--output-dir",
+                      str(work / "cli_unet")]),
+            cli.main(["train-unet-crop", *common, "--mode", "yolo",
+                      "--yolo-weights", "weights/demo_yolo.npz",
+                      "--output-dir", str(work / "cli_crop")])), record)
+        for name in ("unet_augment", "bce_dice", "bce_dice_bwd"):
+            if cli_counts[name] == 0:
+                raise AssertionError(f"{name} not launched by the cli")
+        if not _math.isfinite(cli_unet["best_val_loss"]):
+            raise AssertionError(f"cli train-unet: {cli_unet}")
+        load_unet_weights(work / "cli_unet" / "best.pt")
+        load_unet_weights(work / "cli_crop" / "latest.pt")
+        line["cli"] = {"train_unet": cli_unet, "train_unet_crop_yolo":
+                       cli_crop, "launches": cli_counts,
+                       "wall_s": time.perf_counter() - t0}
+
+        # ── (a) every launch of (b)-(e) held against its plain version ────
+        per: dict = {}
+        held = 0
+        for name, inputs, kw in record:
+            kfn, pfn, nbytes, ops = train_runner(name, inputs, kw)
+            hold_train(name, kfn(), pfn(), max_err)
+            held += 1
+            e = per.setdefault(name, {"bytes": nbytes, "ops": ops,
+                                      "inputs": (inputs, kw),
+                                      "shape": list(inputs[0].shape)})
+            if nbytes > e["bytes"]:
+                per[name] = {"bytes": nbytes, "ops": ops,
+                             "inputs": (inputs, kw),
+                             "shape": list(inputs[0].shape)}
+        line["launches_held_equal_to_plain"] = held
+        if held != len(record):
+            raise AssertionError("not every training launch was held")
+
+        # ── kernel ms at the served (largest) shapes, plain ms, bounds ─────
+        entries = []
+        for name in ("unet_augment", "bce_dice", "bce_dice_bwd",
+                     "tal_assign"):
+            e = per[name]
+            kfn, pfn, nbytes, ops = train_runner(name, *e["inputs"])
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / FP32_OPS_PER_S * 1e3
+            path = "yolo-train" if name == "tal_assign" else "unet-train"
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "openglottal_tpu_torch/csrc/train.cu",
+                "c_entry": TRAIN_C_ENTRY[name],
+                "replaces": TRAIN_REPLACES[name], "path": path,
+                "launches": (yolo_counts if name == "tal_assign"
+                             else unet_counts)[name],
+                "max_abs_err": max_err.get(name, 0.0),
+                "tolerance": TRAIN_TOL[name],
+                "ms": time_cuda(kfn, 20), "plain_ms": time_cuda(pfn, 3),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "shape": e["shape"]})
+        if "tal_assign" in per:       # the serial floor: M = 1 against M = 4
+            cls, pred, gt, gv, pts = per["tal_assign"]["inputs"][0]
+            g4 = gt[:, :1].repeat(1, 4, 1).contiguous()
+            v4 = gv[:, :1].repeat(1, 4).contiguous()
+            line["tal_assign_ms_m1_m4"] = [
+                time_cuda(lambda: T.tal_assign(cls, pred, gt[:, :1]
+                                               .contiguous(),
+                                               gv[:, :1].contiguous(), pts),
+                          20),
+                time_cuda(lambda: T.tal_assign(cls, pred, g4, v4, pts), 20)]
+        del record, per
+
+        # ── (f) ms per train step, in turns ───────────────────────────────
+        dev_imgs = torch.from_numpy(gray[:16]).to(dev)
+        dev_msks = torch.from_numpy(msk[:16]).to(dev)
+        im4 = torch.from_numpy(rgb[np.arange(64).reshape(16, 4)]).to(dev)
+        bx4 = torch.from_numpy(np.where(boxes[:64] >= 0, boxes[:64], 0)
+                               .reshape(16, 4, 4).astype(np.float32)).to(dev)
+        vd4 = torch.from_numpy(boxes[:64, 0].reshape(16, 4) >= 0).to(dev)
+        steps = {
+            "unet_bf16_b16": lambda: ut.unet_train_step(
+                state, dev_imgs, dev_msks, trainer.gen, torch.bfloat16),
+            "unet_f32_b16": lambda: ut.unet_train_step(
+                state, dev_imgs, dev_msks, trainer.gen, torch.float32),
+            "yolo_mosaic_bf16_b16": lambda: yt.yolo_train_step(
+                ystate, im4, bx4, vd4, ytr.gen, True, torch.bfloat16),
+            "yolo_close_mosaic_bf16_b16": lambda: yt.yolo_train_step(
+                ystate, im4[:, 0].contiguous(), bx4[:, 0].contiguous(),
+                vd4[:, 0].contiguous(), ytr.gen, False, torch.bfloat16)}
+        step_ms = {k: [] for k in steps}
+        for k, fn in steps.items():
+            fn()
+        for turn in range(2):
+            for k, fn in (steps.items() if turn == 0
+                          else reversed(list(steps.items()))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                step_ms[k].append((time.perf_counter() - t0) * 1e3 / 5)
+        line["train_step_ms_in_turns"] = step_ms
+        line["train_step_profile"] = {k: step_profile(fn)
+                                      for k, fn in steps.items()}
+
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line["ptxas"] = ptxas_summary(logs.get("train", ""))
+    line["max_err"] = max_err
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    return line, entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2563,6 +3048,7 @@ def main() -> int:
         jpeg_cuda,
         qconv_cuda,
         scan_cuda,
+        train_cuda,
     )
     from openglottal_tpu_torch.ops.blur import gaussian_blur
     from openglottal_tpu_torch.pipelines import GlottalPipelines
@@ -2640,7 +3126,8 @@ def main() -> int:
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
                 **areas_cuda.LAUNCHES, **qconv_cuda.LAUNCHES,
-                **eval_cuda.LAUNCHES, **jpeg_cuda.LAUNCHES}
+                **eval_cuda.LAUNCHES, **jpeg_cuda.LAUNCHES,
+                **train_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         blobs_cuda.reset_launch_counts()
@@ -2649,6 +3136,7 @@ def main() -> int:
         qconv_cuda.reset_launch_counts()
         eval_cuda.reset_launch_counts()
         jpeg_cuda.reset_launch_counts()
+        train_cuda.reset_launch_counts()
 
     # ── kernels vs plain versions on stress inputs (exact) ──────────────
     max_err = {k: 0 for k in counts()}
@@ -2673,6 +3161,7 @@ def main() -> int:
         after; launches are also recorded into ``record`` when given."""
         blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = record
         qconv_cuda.RECORD = eval_cuda.RECORD = jpeg_cuda.RECORD = record
+        train_cuda.RECORD = record
         reset_counts()
         try:
             out = fn()
@@ -2680,6 +3169,7 @@ def main() -> int:
         finally:
             blobs_cuda.RECORD = scan_cuda.RECORD = areas_cuda.RECORD = None
             qconv_cuda.RECORD = eval_cuda.RECORD = jpeg_cuda.RECORD = None
+            train_cuda.RECORD = None
 
     def host_syncs(fn):
         """(count, sites) of the host synchronisations one call of fn()
@@ -2714,6 +3204,19 @@ def main() -> int:
                 out[e.key[:72]] = out.get(e.key[:72], 0) + e.count
         return out
 
+
+    if "--train" in args:
+        # the training phase alone: its kernels, both trainers, the CLI
+        train_line, train_entries = train_phase(dev, smi, counted, logs)
+        say("train", compared="masks, best_gt and assigned exact; floats "
+            "within TRAIN_TOL of the plain version", **train_line)
+        print(json.dumps({"kernels": train_entries, "timing": TIMING}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     if "--mjpg" in args:
         # the MJPG read path alone: its stress streams, fixtures and clip
@@ -3878,6 +4381,13 @@ def main() -> int:
     held["mjpg"] = mjpg_line["launches_held_equal_to_plain"]
     say("mjpg", compared="exact equality with the plain version, every "
         "stress stream and every recorded launch", **mjpg_line)
+
+    # ── training: the kernels of csrc/train.cu, both trainers, the CLI ──
+    train_line, train_entries = train_phase(dev, smi, counted, logs)
+    reset_counts()
+    held["train"] = train_line["launches_held_equal_to_plain"]
+    say("train", compared="masks, best_gt and assigned exact; floats "
+        "within TRAIN_TOL of the plain version", **train_line)
     say("path_launches_vs_plain", compared="exact equality with the plain "
         "version, every recorded launch of every path", launches_held=held)
 
@@ -4225,7 +4735,7 @@ def main() -> int:
         })
     for e in mjpg_entries:
         e["max_abs_err"] = max_err[e["name"]]
-    kernels += mjpg_entries
+    kernels += mjpg_entries + train_entries
     print(json.dumps({"kernels": kernels, "timing": TIMING}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,22 @@ do).  ``--qparams NPZ``: a calibration file loaded if it exists, else
 written after calibrating (on ``--calib VIDEO``'s first 64 frames if given,
 else on the input video's); its layout is the JAX package's, so either
 package reads the other's.  ``--calib`` / ``--qparams`` without ``--quant``
-is an error.  The other commands of the JAX package's command line (dataset
-building, training, evaluation, scripts) are not ported yet.
+is an error.
+
+Training and dataset building, as the JAX package's command line has them
+(``openglottal_tpu/cli.py:74-104``):
+
+    python -m openglottal_tpu_torch.cli train-unet ...
+    python -m openglottal_tpu_torch.cli train-unet-crop ... --mode gt|yolo
+    python -m openglottal_tpu_torch.cli train-yolo ...
+    python -m openglottal_tpu_torch.cli build-dataset --images-dir D \
+        --labels-dir D --training-json J [--output-dir yolo_data] [--force]
+
+The three ``train-*`` commands hand their arguments to the port's modules
+``openglottal_tpu_torch/scripts/{train_unet,train_unet_crop,train_yolo}.py``
+(each with its own ``--help``); they train on the card unless ``--device
+cpu`` is given.  The JAX package's evaluation and analysis scripts are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +51,10 @@ import os
 import sys
 
 PIPELINE_CHOICES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
+# training commands -> the port's script modules (``scripts/``)
+SCRIPT_COMMANDS = {"train-unet": "train_unet",
+                   "train-unet-crop": "train_unet_crop",
+                   "train-yolo": "train_yolo"}
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
@@ -81,14 +99,48 @@ def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
     run_p.add_argument("--device", default=None,
                        help="Torch device (default: the CUDA device; 'cpu' "
                             "runs on the CPU).")
+
+    bd_p = sub.add_parser("build-dataset",
+                          help="Build a YOLO detection dataset from masks.")
+    bd_p.add_argument("--images-dir", required=True)
+    bd_p.add_argument("--labels-dir", required=True)
+    bd_p.add_argument("--training-json", required=True)
+    bd_p.add_argument("--output-dir", default="yolo_data")
+    bd_p.add_argument("--force", action="store_true")
+    bd_p.add_argument("--mask-suffix", default="")
+    for name, module in SCRIPT_COMMANDS.items():
+        sub.add_parser(name, add_help=False,
+                       help=f"openglottal_tpu_torch/scripts/{module}.py "
+                            f"(its own --help).")
     return parser, run_p
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None):
     parser, run_p = build_parser()
-    args = parser.parse_args(argv)
+    args, extra = parser.parse_known_args(argv)
+    if args.command in SCRIPT_COMMANDS:
+        import importlib
+
+        module = importlib.import_module(
+            f"openglottal_tpu_torch.scripts.{SCRIPT_COMMANDS[args.command]}")
+        return module.main(extra)
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command == "run":
         _cmd_run(run_p, args)
+    elif args.command == "build-dataset":
+        _cmd_build_dataset(args)
+    return None
+
+
+def _cmd_build_dataset(args) -> None:
+    from openglottal_tpu_torch.data.yolo_dataset import build_yolo_dataset
+
+    yaml_path = build_yolo_dataset(
+        images_dir=args.images_dir, labels_dir=args.labels_dir,
+        training_json=args.training_json, output_dir=args.output_dir,
+        force=args.force, mask_suffix=args.mask_suffix)
+    print(f"YAML config written to {yaml_path}")
 
 
 def _cmd_run(parser: argparse.ArgumentParser, args) -> None:

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from openglottal_tpu_torch.models.yolo import BatchNorm
 
 UNET_BN_EPS = 1e-5
+UNET_BN_MOMENTUM = 0.9
 
 
 class DoubleConv(nn.Module):
@@ -50,7 +51,8 @@ class DoubleConv(nn.Module):
 
         def norm():
             return (nn.Identity() if fuse_bn
-                    else BatchNorm(out_ch, UNET_BN_EPS, tracked=True))
+                    else BatchNorm(out_ch, UNET_BN_EPS, tracked=True,
+                                   momentum=UNET_BN_MOMENTUM))
 
         self.net = nn.Sequential(
             nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=fuse_bn), norm(),

@@ -26,18 +26,32 @@ import torch.nn.functional as F
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 YOLO_BN_EPS = 1e-3
+YOLO_BN_MOMENTUM = 0.97
 DETECT_LAYER = 22
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW with running statistics, computed in
-    float32 as the reference does.  State: weight, bias, running_mean,
-    running_var (+ num_batches_tracked when ``tracked``, for layouts that
-    carry it)."""
+    """BatchNorm over NCHW with flax's semantics, computed in float32 as the
+    reference does.  State: weight, bias, running_mean, running_var (+
+    num_batches_tracked when ``tracked``, for layouts that carry it).
 
-    def __init__(self, ch: int, eps: float, tracked: bool = False):
+    In eval mode it normalises by the running statistics and returns the
+    input's dtype.  In training mode (``module.train()``) it normalises by
+    the batch mean and the *biased* batch variance in one fused pass (the
+    call ``F.batch_norm`` makes, which takes cuDNN's kernels on the card,
+    given no running statistics), returns
+    float32 (flax's ``dtype=float32``) and updates the running statistics
+    as flax does, ``ra = m·ra + (1−m)·batch``, from the mean and inverse
+    std that pass returns (the biased variance is invstd⁻² − eps; flax takes
+    it as E[x²] − E[x]², the same value up to rounding).  ``F.batch_norm``
+    handed the running statistics would update them with the unbiased
+    variance and weight the batch by ``momentum`` rather than 1 − m."""
+
+    def __init__(self, ch: int, eps: float, tracked: bool = False,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -47,10 +61,56 @@ class BatchNorm(nn.Module):
                                  torch.zeros((), dtype=torch.long))
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean.float(),
-                         self.running_var.float(), self.weight.float(),
-                         self.bias.float(), False, 0.0, self.eps)
-        return y.to(x.dtype)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean.float(),
+                             self.running_var.float(), self.weight.float(),
+                             self.bias.float(), False, 0.0, self.eps)
+            return y.to(x.dtype)
+        # one fused pass (and its fused backward) normalises by the batch's
+        # biased variance; no running statistics are handed to it.  This is
+        # F.batch_norm's own call, which also returns the batch mean and
+        # inverse std it computed (cuDNN's or the native kernel's)
+        y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+            x.float(), self.weight.float(), self.bias.float(), None, None,
+            True, 0.0, self.eps, torch.backends.cudnn.enabled)
+        with torch.no_grad():
+            var = invstd.pow(-2).sub_(self.eps).clamp_min_(0.0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        return y
+
+
+@torch.no_grad()
+def init_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``model`` as flax initialises the JAX package's networks
+    (not to its bits: to its distributions): every conv and transposed-conv
+    kernel from ``lecun_normal`` (a normal truncated at ±2 std, std =
+    sqrt(1 / fan_in) / 0.8796..., fan_in = kh·kw·C_in), biases 0, BatchNorm
+    scale 1 and shift 0, running mean 0 and variance 1.  The fixed DFL
+    projection is left alone.  Draws come from ``generator``, in module
+    order."""
+    for mod in model.modules():
+        if isinstance(mod, _DFL):
+            continue
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            if mod.weight.requires_grad is False:
+                continue
+            w = mod.weight
+            c_in = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) \
+                else w.shape[1]
+            std = (1.0 / (c_in * w.shape[2] * w.shape[3])) ** 0.5 \
+                / .87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    return model
 
 
 class ConvBNSiLU(nn.Module):
@@ -63,7 +123,8 @@ class ConvBNSiLU(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride,
                               padding=kernel // 2, bias=fuse_bn)
         if not fuse_bn:
-            self.bn = BatchNorm(out_ch, YOLO_BN_EPS)
+            self.bn = BatchNorm(out_ch, YOLO_BN_EPS,
+                                momentum=YOLO_BN_MOMENTUM)
         self.fuse_bn = fuse_bn
 
     def forward(self, x):

@@ -21,7 +21,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("blobs", "scan", "areas", "qconv", "eval", "jpeg")
+SOURCES = ("blobs", "scan", "areas", "qconv", "eval", "jpeg", "train")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
