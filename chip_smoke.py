@@ -11,6 +11,9 @@
     python3 chip_smoke.py --mjpg          # build + the MJPG read path alone
         # (the "mjpg" line and the two JPEG kernels' entries, in turns with
         # PR 13's, tools/jpeg_pr13.cu)
+    python3 chip_smoke.py --selftest      # build + the self-tests and the
+        # evaluation commands alone (the "selftest", "eval_cli" and
+        # "selftest_plain" lines)
     python3 chip_smoke.py --against DIR [DIR ...]
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
@@ -24,6 +27,31 @@
 The kernels of ``openglottal_tpu_torch/csrc`` (``blobs.cu``, ``scan.cu``,
 ``areas.cu``, ``qconv.cu``, ``eval.cu``, ``jpeg.cu``, ``train.cu``) are
 built with nvcc, one process each, all started together.
+
+The ``selftest`` line (ROADMAP A11a): the port's end-to-end self-test
+(``openglottal_tpu_torch/scripts/selftest_e2e.py``) with ``--realistic``
+at its default epochs (U-Net 60 with patience 15, crop U-Net 40, YOLOv8n
+20) in a temporary directory: every gate's value and pass / fail beside
+the JAX package's committed artifact's value
+(``results/selftest_eval_realistic_r5.json``), the stage seconds, the
+epochs run, the launches of every kernel (the trainers', the evaluation's
+counts, the gate, og_qconv, og_box_count must each launch), each launch
+held against its plain version (of each training kernel's, one in
+``TRAIN_HOLD_EVERY``), and where the int8-full and full-frame waveforms
+differ from bf16's; a failed gate fails the run.  The ``eval_cli`` line:
+``eval-girafe``, ``eval-bagls``, ``sweep-bagls`` and ``analyze-gaw``
+through the port's command line on the self-test's ``best.pt``
+checkpoints, on a tree written here (the self-test's test frames as
+GIRAFE's four test patients, PNGs by ``data/png.write_png``, the split by
+the port's ``prepare_girafe_splits``; BAGLS-shaped pairs of four sizes;
+six Raw_Data patients, each AVI its own cut of
+``tests/data/mjpg/real_256_64.avi``), each command's Dice rows, launches
+and wall, every launch held against its plain version, the GIRAFE frames'
+U-Net-only Dice held within ``EVAL_CARD_VS_CPU_TOL`` of the self-test's
+own evaluation of them, and each ``analyze-gaw`` record equal to its
+patient's clip served alone, with a finite p for every feature whose
+values are not all tied.  The ``selftest_plain`` line: the self-test without
+``--realistic``, beside ``results/selftest_eval_girafe.json``.
 
 The ``train`` line (ROADMAP A9): the three training kernels of
 ``csrc/train.cu`` (``og_unet_augment``, ``og_bce_dice`` and its backward,
@@ -3023,6 +3051,388 @@ def train_phase(dev, smi, counted, logs):
     return line, entries
 
 
+# the self-test's training launches held against their plain versions: one
+# in TRAIN_HOLD_EVERY of each training kernel's (its first, then every
+# TRAIN_HOLD_EVERY-th); every launch of the other kernels
+TRAIN_HOLD_EVERY = 25
+
+
+class SampledRecord(list):
+    """A launch record (``*_cuda.RECORD``) that keeps every launch but the
+    training kernels', of which it keeps one in ``every``; the others are
+    dropped before their inputs are held, so that a long fit does not keep
+    every batch on the card."""
+
+    def __init__(self, every: int):
+        super().__init__()
+        self.every, self.seen = every, {}
+
+    def append(self, launch):
+        name = launch[0]
+        if name in TRAIN_C_ENTRY:
+            k = self.seen.get(name, 0)
+            self.seen[name] = k + 1
+            if k % self.every:
+                return
+        super().append(launch)
+
+
+def hold_jpeg_launch(launch, hold) -> None:
+    """One recorded MJPG launch against the plain decode of its own packed
+    chunk: the entropy decode's coefficients and error flags, or the IDCT
+    of the coefficients it was given."""
+    import torch
+
+    from openglottal_tpu_torch.data import jpeg
+
+    name, a, b = launch
+    if name == "jpeg_entropy":
+        coef, err = b
+        want_coef, want_err = jpeg.entropy_decode_plain(a.host())
+        hold(name, err.cpu(), torch.from_numpy(want_err))
+        hold(name, coef.cpu(), torch.from_numpy(want_coef))
+        return
+    (coef, dp), out = a, b
+    hold(name, out.cpu(), torch.from_numpy(
+        jpeg.idct_bgr_plain(coef.cpu().numpy(), dp.host())))
+
+
+SELFTEST_JAX = {True: "results/selftest_eval_realistic_r5.json",
+                False: "results/selftest_eval_girafe.json"}
+# kernels the self-test's path must launch: the trainers', the evaluation's
+# counts, the gate, the int8 convolution and the in-box count
+SELFTEST_KERNELS = ("unet_augment", "bce_dice", "bce_dice_bwd", "tal_assign",
+                    "frame_counts", "otsu_counts", "gate_scan", "qconv",
+                    "box_count")
+
+
+def jax_selftest_values(realistic: bool) -> dict:
+    """gate -> the value the JAX package's committed self-test artifact
+    gives it (None where that artifact lacks the key: the plain form's
+    holds only the evaluation table)."""
+    from openglottal_tpu_torch.scripts.selftest_e2e import GATES, gate_value
+
+    art = json.loads((Path(__file__).resolve().parent
+                      / SELFTEST_JAX[realistic]).read_text())
+    art = {**art.get("aggregate", {}), **art}
+    out = {}
+    for name in GATES:
+        try:
+            out[name] = gate_value(art, name)
+        except (KeyError, TypeError):
+            out[name] = None
+    return out
+
+
+def waveform_diff(out, pipe) -> dict:
+    """Where the self-test's int8-full and windowed waveforms differ from
+    bf16's on its first test video: frames, largest difference, and the
+    bf16 detector's confidence on those frames (``pipe``: the trained
+    models in bf16)."""
+    import numpy as np
+
+    from openglottal_tpu_torch.scripts.selftest_e2e import make_dataset
+
+    w = out["waveforms"]
+    frames = make_dataset(1, len(w["bf16"]), seed0=990,
+                          realistic=out["realistic"])[0]
+    conf = pipe.detect_video(frames)[2].float().cpu().numpy()
+    diff = {}
+    for route in ("int8full", "fullframe"):
+        d = np.abs(np.asarray(w[route]) - np.asarray(w["bf16"]))
+        at = np.nonzero(d)[0]
+        diff[route] = {"frames_differing": int(len(at)),
+                       "max_abs_px": float(d.max()) if len(d) else 0.0,
+                       "frames": at.tolist()[:16],
+                       "bf16_conf_there": conf[at].tolist()[:16]}
+    diff["bf16_conf_min"] = float(conf.min())
+    diff["frames_conf_below_0.5"] = int((conf < 0.5).sum())
+    return diff
+
+
+def selftest_phase(dev, smi, counted, hold_any, realistic: bool, work):
+    """The port's end-to-end self-test (scripts/selftest_e2e.py) at its
+    default epochs on the card, in ``work`` -> (its line, its result); its
+    launches held against their plain versions by ``hold_any`` (the
+    training kernels' sampled, SampledRecord); a failed gate, a launch that
+    differs or a kernel of its path never launched raises."""
+    from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.scripts import selftest_e2e as st
+    from openglottal_tpu_torch.utils.io import (
+        load_unet_weights,
+        load_yolo_weights,
+    )
+
+    argv = ["--output-dir", str(work)] + (["--realistic"] if realistic else [])
+    args = st.build_parser().parse_args(argv + ["--device", str(dev)])
+    # (the epochs' log lines stay in the checkpoints' metrics.jsonl)
+    record = SampledRecord(TRAIN_HOLD_EVERY)
+    out, launches = counted(lambda: st.run_args(args, verbose=False), record)
+    key = "selftest" if realistic else "selftest_plain"
+    n_held = hold_any(key, record)
+    del record
+    out["realistic"] = realistic
+    jax_vals = jax_selftest_values(realistic)
+    gates = {name: {"value": st.gate_value(out["report"], name),
+                    "pass": passed, "jax_artifact": jax_vals[name]}
+             for name, passed in out["gates"].items()}
+    pipe = GlottalPipelines(
+        unet_variables=load_unet_weights(work / "unet" / "best.pt"),
+        yolo_variables=load_yolo_weights(work / "yolo" / "best.pt"),
+        device=dev)
+    line = {"nvidia_smi": smi, "realistic": realistic, "argv": argv,
+            "ok": out["ok"], "gates": gates,
+            "jax_artifact": SELFTEST_JAX[realistic],
+            "stage_seconds": out["stage_seconds"],
+            "epochs_run": out["epochs_run"], "seconds": out["seconds"],
+            "report": out["report"], "launches": launches,
+            "launches_held_equal_to_plain": n_held,
+            "held": (f"every launch but the training kernels', of which one "
+                     f"in {TRAIN_HOLD_EVERY} (within TRAIN_TOL)"),
+            "waveform_diff": waveform_diff(out, pipe)}
+    say(key, **line)
+    missing = [k for k in SELFTEST_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"self-test: {missing} never launched")
+    if not out["ok"]:
+        raise AssertionError("self-test gates failed: " + ", ".join(
+            f"{k}={v['value']}" for k, v in gates.items() if not v["pass"]))
+    return line, out
+
+
+# the tree the command-line phase writes: GIRAFE's four test patients (the
+# self-test's test frames, 20 a patient) and one training patient, BAGLS-
+# shaped pairs of mixed sizes, and Raw_Data patients whose AVIs are cuts of
+# the MJPG fixture's 64 frames, each its own (first frame, frame count)
+CLI_GIRAFE = ("patient57A3", "patient61", "patient63", "patient64")
+CLI_BAGLS_SIZES = ((256, 256), (200, 256), (160, 256), (256, 224))
+CLI_RAW = (("patient01", "Healthy", 0, 40), ("patient02", "Healthy", 5, 44),
+           ("patient03", "Healthy", 10, 48), ("patient04", "Paresis", 15, 39),
+           ("patient05", "Polyps", 20, 36), ("patient06", "Nodules", 25, 32))
+
+
+def write_cli_tree(root, frames, masks, train_frames, train_masks):
+    """GIRAFE/{Training/imagesTr,labelsTr,Raw_Data} and BAGLS/test under
+    ``root``, PNGs by ``data/png.write_png``; the split by the port's
+    ``prepare_girafe_splits``.  Returns the paths."""
+    from openglottal_tpu_torch.data.png import write_png
+    from openglottal_tpu_torch.scripts import prepare_girafe_splits
+    from openglottal_tpu_torch.tools.jpeg_stress import (
+        jpeg_frames_of,
+        write_mjpg_avi,
+    )
+
+    img_dir = root / "GIRAFE" / "Training" / "imagesTr"
+    lbl_dir = root / "GIRAFE" / "Training" / "labelsTr"
+    raw = root / "GIRAFE" / "Raw_Data"
+    bagls = root / "BAGLS" / "test"
+    for d in (img_dir, lbl_dir, raw, bagls):
+        d.mkdir(parents=True, exist_ok=True)
+    per = len(frames) // len(CLI_GIRAFE)
+    named = [(f"{p}_{k:03d}.png", frames[i * per + k], masks[i * per + k])
+             for i, p in enumerate(CLI_GIRAFE) for k in range(per)]
+    named += [(f"patient01_{k:03d}.png", f, m)
+              for k, (f, m) in enumerate(zip(train_frames, train_masks))]
+    for name, f, m in named:
+        write_png(img_dir / name, f[..., ::-1])
+        write_png(lbl_dir / name, m.astype("uint8") * 255)
+    split = root / "training.json"
+    prepare_girafe_splits.main(["--images-dir", str(img_dir),
+                                "--output", str(split)])
+    real = jpeg_frames_of(MJPG_DIR / MJPG_REAL)
+    for name, status, first, count in CLI_RAW:
+        (raw / name).mkdir()
+        write_mjpg_avi(raw / name / f"{name}.avi", real[first:first + count],
+                       256, 256)
+        (raw / name / "metadata.json").write_text(
+            json.dumps({"disorder status": status}))
+    for i, (f, m) in enumerate(zip(frames[::5], masks[::5])):
+        h, w = CLI_BAGLS_SIZES[i % len(CLI_BAGLS_SIZES)]
+        write_png(bagls / f"{i}.png", f[:h, :w, ::-1])
+        write_png(bagls / f"{i}_seg.png", m[:h, :w].astype("uint8") * 255)
+    return img_dir, lbl_dir, raw, bagls, split
+
+
+def eval_cli_phase(dev, smi, counted, hold_any, work, st_out) -> dict:
+    """eval-girafe, eval-bagls, sweep-bagls and analyze-gaw through the
+    port's command line on the card with the self-test's ``best.pt``
+    checkpoints (in ``work``), on a tree written here -> the line.  Every
+    launch is held against its plain version (``hold_any``); the U-Net-only
+    Dice of each GIRAFE frame within EVAL_CARD_VS_CPU_TOL of the self-test's
+    own evaluation of it; each analyze-gaw record equal to its patient's
+    clip served alone, and each Mann-Whitney p finite where the feature's
+    values are not all tied."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch import cli
+    from openglottal_tpu_torch.scripts.selftest_e2e import make_dataset
+
+    frames, masks, _ = make_dataset(2, 40, seed0=990, realistic=True)
+    tr_f, tr_m, _ = make_dataset(1, 4, seed0=900, realistic=True)
+    img_dir, lbl_dir, raw, bagls, split = write_cli_tree(
+        work / "tree", frames, masks, tr_f, tr_m)
+    w = {k: str(work / sub / "best.pt") for k, sub in (
+        ("unet", "unet"), ("crop", "unet_crop"), ("yolo", "yolo"))}
+    weights = ["--unet-weights", w["unet"], "--yolo-weights", w["yolo"]]
+    runs = {
+        "eval-girafe": ["--images-dir", str(img_dir), "--labels-dir",
+                        str(lbl_dir), "--training-json", str(split),
+                        "--raw-data-dir", str(raw), "--crop-weights",
+                        w["crop"], "--output-json",
+                        str(work / "out" / "girafe.json")],
+        "eval-bagls": ["--test-dir", str(bagls), "--crop-weights", w["crop"],
+                       "--crop-pad", "8", "--output-json",
+                       str(work / "out" / "bagls.json")],
+        "sweep-bagls": ["--test-dir", str(bagls), "--crop-weights",
+                        w["crop"], "--output-json",
+                        str(work / "out" / "sweep.json")],
+        "analyze-gaw": ["--raw-data-dir", str(raw), "--output-dir",
+                        str(work / "out" / "gaw")],
+    }
+    line = {"nvidia_smi": smi, "tree": {
+        "girafe_test_frames": len(frames), "bagls_test_pairs": len(
+            list(bagls.glob("*_seg.png"))), "raw_data_patients": len(CLI_RAW),
+        "raw_avi": f"tests/data/mjpg/{MJPG_REAL}"}}
+    results = {}
+    record: list = []
+    for cmd, argv in runs.items():
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: cli.main([cmd, *argv, *weights]),
+                                record)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[cmd] = out
+        if cmd == "eval-girafe":
+            rows = {p: {k: r[k] for k in ("dice", "iou", "dice50",
+                                          "det_recall", "n_frames")}
+                    for p, r in out["aggregate"].items()}
+        elif cmd == "eval-bagls":
+            rows = {p: {"dice": float(np.mean(r["dice"])),
+                        "iou": float(np.mean(r["iou"])), "n_frames": len(
+                            r["dice"])}
+                    for p, r in out.items() if p != "det_stats"}
+            rows["det_stats"] = out["det_stats"]
+        elif cmd == "sweep-bagls":
+            rows = {str(r["tau"]): {"det_recall": r["det_recall"],
+                                    "crop_dice": r["crop"]["dice"],
+                                    "full_dice": r["full"]["dice"]}
+                    for r in out["sweep"]}
+        else:
+            rows = {r["patient"]: {k: r[k] for k in ("status", "area_mean",
+                                                    "f0", "periodicity")}
+                    for r in out["records"]}
+            rows["stats"] = out["stats"]
+            rows["boxplot_written"] = (work / "out" / "gaw" /
+                                       "gaw_boxplots.png").exists()
+        line[cmd] = {"rows": rows, "wall_s": wall, "launches": {
+            k: v for k, v in launches.items() if v}}
+
+    # checks: every Dice finite in [0, 1], the row counts, and the GIRAFE
+    # frames' U-Net-only Dice against the self-test's evaluation
+    g = results["eval-girafe"]["aggregate"]
+    if g["unet-only"]["n_frames"] != len(frames):
+        raise AssertionError(f"eval-girafe: {g['unet-only']['n_frames']} "
+                             f"frames, not {len(frames)}")
+    for cmd in ("eval-girafe", "eval-bagls"):
+        vals = ([d for r in g.values() for d in r["dices"]]
+                if cmd == "eval-girafe" else
+                [d for p, r in results[cmd].items() if p != "det_stats"
+                 for d in r["dice"]])
+        if not all(0.0 <= d <= 1.0 for d in vals):
+            raise AssertionError(f"{cmd}: a Dice outside [0, 1]")
+    mine = np.asarray(g["unet-only"]["dices"])
+    ref = np.concatenate([st_out["per_patient"][f"synth{k}"]["unet-only"]
+                          ["dice"] for k in range(2)])
+    line["eval-girafe"]["unet_only_vs_selftest_max_abs"] = float(
+        np.abs(mine - ref).max())
+    if np.abs(mine - ref).max() > EVAL_CARD_VS_CPU_TOL:
+        raise AssertionError("eval-girafe U-Net-only Dice differs from the "
+                             "self-test's evaluation of the same frames")
+    line["launches_held_equal_to_plain"] = hold_any("eval_cli", record)
+    del record
+    line["analyze-gaw"]["checks"] = gaw_checks(dev, results["analyze-gaw"],
+                                               raw, w)
+    if len(results["sweep-bagls"]["sweep"]) != 8:
+        raise AssertionError("sweep-bagls: not every tau swept")
+    say("eval_cli", **line)
+    return line
+
+
+def gaw_checks(dev, gaw, raw, w) -> dict:
+    """analyze-gaw's records against each patient's clip served alone (the
+    port's reader and ``yolo_unet_areas``, no prefetch, no deferred read):
+    equal features, one record a patient, the records all different (each
+    clip is its own cut); and each Mann-Whitney p finite unless every value
+    of its feature is tied (a feature with fewer than 3 values in a group
+    is not tested, as in the JAX script; area_mean always is).  Raises on a
+    miss; returns what it checked."""
+    import math as _math
+
+    from openglottal_tpu_torch.data.video import read_frames
+    from openglottal_tpu_torch.features import kinematic_features
+    from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.scripts.analyze_gaw import (
+        CAPTURE_FPS,
+        FEATURES,
+    )
+    from openglottal_tpu_torch.utils.io import (
+        load_unet_weights,
+        load_yolo_weights,
+    )
+
+    recs = {r["patient"]: r for r in gaw["records"]}
+    if sorted(recs) != sorted(n for n, *_ in CLI_RAW):
+        raise AssertionError(f"analyze-gaw: records for {sorted(recs)}")
+    pipe = GlottalPipelines(unet_variables=load_unet_weights(w["unet"]),
+                            yolo_variables=load_yolo_weights(w["yolo"]),
+                            device=dev)
+    for name, status, _, count in CLI_RAW:
+        frames = read_frames(raw / name / f"{name}.avi", device=dev)
+        if len(frames) != count:
+            raise AssertionError(f"{name}: {len(frames)} frames read")
+        feats = kinematic_features(pipe.yolo_unet_areas(frames))
+        if feats["f0"] is not None:
+            feats["f0"] = feats["f0"] * CAPTURE_FPS
+        alone = {k: feats[k] for k in FEATURES}
+        got = {k: recs[name][k] for k in FEATURES}
+        if got != alone or recs[name]["status"] != status:
+            raise AssertionError(f"analyze-gaw {name}: {got} / "
+                                 f"{recs[name]['status']}, served alone "
+                                 f"{alone} / {status}")
+    rows = [tuple(r[k] for k in FEATURES) for r in recs.values()]
+    if len(set(rows)) != len(rows):
+        raise AssertionError("analyze-gaw: two patients' records are equal")
+    tied = [f for f in FEATURES if len({r[f] for r in recs.values()}) == 1]
+    for feat, st_ in gaw["stats"].items():
+        if feat not in tied and not _math.isfinite(st_["p"]):
+            raise AssertionError(f"analyze-gaw: p of {feat} is {st_['p']}")
+    if "area_mean" not in gaw["stats"]:
+        raise AssertionError("analyze-gaw: no test of area_mean")
+    return {"records_equal_to_each_clip_alone": len(recs),
+            "records_distinct": True, "features_tied": tied,
+            "p": {k: v["p"] for k, v in gaw["stats"].items()}}
+
+
+def selftests(dev, smi, counted, hold_any) -> None:
+    """The self-test with --realistic, the evaluation commands on its
+    checkpoints, then the plain self-test; each in a temporary directory
+    outside the checkout, removed after."""
+    import shutil
+    import tempfile
+
+    for realistic in (True, False):
+        work = Path(tempfile.mkdtemp(prefix="og_selftest_"))
+        try:
+            _, out = selftest_phase(dev, smi, counted, hold_any, realistic,
+                                    work)
+            if realistic:
+                eval_cli_phase(dev, smi, counted, hold_any, work, out)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3205,6 +3615,172 @@ def main() -> int:
         return out
 
 
+    def links(code):
+        """Neighbour links this input makes the union-find test and join:
+        pairs of equal non-zero code (left, up; both diagonals for code 1),
+        plus one root chase per active pixel."""
+        c = code
+        n = int(((c[:, :, 1:] == c[:, :, :-1]) & (c[:, :, 1:] != 0)).sum())
+        n += int(((c[:, 1:] == c[:, :-1]) & (c[:, 1:] != 0)).sum())
+        n += int(((c[:, 1:, 1:] == c[:, :-1, :-1]) & (c[:, 1:, 1:] == 1)).sum())
+        n += int(((c[:, 1:, :-1] == c[:, :-1, 1:]) & (c[:, 1:, :-1] == 1)).sum())
+        return n + int((c != 0).sum())
+
+    def region_code(region, conn):
+        return region.to(torch.uint8) * (1 if conn == 8 else 2)
+
+    def runners(name, inputs, kw):
+        """(kernel fn, plain fn, bytes moved, operations) for one launch."""
+        if name == "qconv":
+            return qconv_runner(inputs, kw)
+        if name in eval_cuda.LAUNCHES:
+            return eval_runner(name, inputs, kw)
+        if name == "dual_cc_batch":
+            (code,) = inputs
+            px = code.numel()
+            return (lambda: blobs_cuda.dual_cc_batch(code),
+                    lambda: blobs_cuda.dual_cc_plain(code), px * 5, links(code))
+        if name == "dual_min_prop_batch":
+            code, init = inputs
+            px = code.numel()
+            return (lambda: blobs_cuda.dual_min_prop_batch(code, init),
+                    lambda: blobs_cuda.dual_min_prop_plain(code, init),
+                    px * 9, links(code) + px)
+        if name == "min_prop_batch":
+            region, init = inputs
+            conn = kw["connectivity"]
+            px = region.numel()
+            return (lambda: blobs_cuda.min_prop_batch(region, init, conn),
+                    lambda: blobs_cuda.min_prop_plain(region, init, conn),
+                    px * 9, links(region_code(region, conn)) + px)
+        if name == "cc_batch":
+            (region,) = inputs
+            conn = kw["connectivity"]
+            return (lambda: blobs_cuda.cc_batch(region, conn),
+                    lambda: blobs_cuda.cc_plain(region, conn),
+                    region.numel() * 5, links(region_code(region, conn)))
+        if name == "cc":
+            (region,) = inputs
+            conn = kw["connectivity"]
+            return (lambda: blobs_cuda.cc(region, conn),
+                    lambda: blobs_cuda.cc_plain(region[None], conn)[0],
+                    region.numel() * 5,
+                    links(region_code(region[None], conn)))
+        if name == "gate_scan":
+            has, raw = inputs
+            n = has.numel()
+            args = (kw["frame_h"], kw["frame_w"], kw["params"])
+            nbytes, ops = n * (1 + 16 + 1 + 16), n * 40
+            if not bool(kw["state"].any()):         # from the initial state
+                return (lambda: gate_mod.gate_scan(has, raw, *args),
+                        lambda: gate_mod.gate_scan(has, raw, *args,
+                                                   use_plain=True),
+                        nbytes, ops)
+            # from the carry the launch started from (a chunk of unet's
+            # carried gate starts where the one before ended)
+            st = gate_mod.state_from_buffer(kw["state"])
+            return (lambda: gate_mod.gate_scan_carry(st, has, raw, *args)[1],
+                    lambda: gate_mod.gate_scan_carry(st, has, raw, *args,
+                                                     use_plain=True)[1],
+                    nbytes, ops)
+        if name == "box_count":
+            # a table of chunks (one on the per-video routes); bytes: the
+            # in-box elements of every x (all the count must read), valid,
+            # boxes and the output; one compare and one add each
+            chunks = tuple(c._replace(out=None) for c in inputs)
+            thr = kw["thr"]
+            inbox = sum(int(areas_cuda.box_count_plain(
+                c.x, float("-inf"), c.valid, c.boxes, c.oy, c.ox).sum())
+                for c in chunks)
+            n = sum(c.x.shape[0] for c in chunks)
+            return (lambda: tuple(areas_cuda.box_count_table(chunks, thr)),
+                    lambda: tuple(areas_cuda.box_count_table(
+                        chunks, thr, use_plain=True)),
+                    inbox * chunks[0].x.element_size() + n * (1 + 16 + 4),
+                    2 * inbox)
+        if name == "gate_scan_batch":
+            has, raw = inputs
+            off = kw["offsets"]
+            args = (kw["frame_h"], kw["frame_w"], kw["params"])
+            st = kw["state"]
+            n, k_ = has.numel(), len(off) - 1
+            nbytes, ops = n * (1 + 16 + 1 + 16) + k_ * 48, n * 40
+            if not bool(st.any()):                  # from the initial states
+                return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args),
+                        lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                         use_plain=True),
+                        nbytes, ops)
+            return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                     state=st.clone()),
+                    lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
+                                                     state=st.clone(),
+                                                     use_plain=True),
+                    nbytes, ops)
+        if name == "thresh_chain_batch":
+            th0, cur, npx, act = inputs
+            off, beta = kw["offsets"], kw["beta"]
+            n = cur.numel()
+            return (lambda: tracker_mod.thresh_chain_batch(th0, cur, npx, act,
+                                                           off, beta),
+                    lambda: tracker_mod.thresh_chain_batch(
+                        th0, cur, npx, act, off, beta, use_plain=True),
+                    n * (4 + 4 + 1 + 4) + 4 * (len(off) - 1), n * 4)
+        if name == "motion_map":
+            p0, fr, l0, act = inputs
+            args = (p0, fr, l0, act, kw["alpha"], kw["ksize"])
+            # per pixel-step: the subtract, 2K products and 2K - 2 sums of
+            # the blur, alpha*d and the fma (2); the frames read once, the
+            # maps written once, prev0 and lmap0 read once
+            return (lambda: tracker_mod.motion_map(*args),
+                    lambda: tracker_mod.motion_map(*args, use_plain=True),
+                    fr.numel() * 8 + p0.numel() * 8 + act.numel(),
+                    fr.numel() * (4 * kw["ksize"] + 2))
+        th0, cur, npx, act = inputs
+        n = cur.numel()
+        return (lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"]),
+                lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"],
+                                                  use_plain=True),
+                n * (4 + 4 + 1 + 4) + 4, n * 4)
+
+    held = {}          # path -> launches held against their plain versions
+
+    def hold_record(key, record):
+        """Every launch of a recorded run held equal to its plain version
+        on the run's own inputs."""
+        for name, inputs, kw in record:
+            kfn, pfn, _, _ = runners(name, inputs, kw)
+            got, want = kfn(), pfn()
+            if isinstance(got, tuple):
+                for g, w_ in zip(got, want):
+                    hold(name, g, w_)
+            elif got.dtype.is_floating_point:
+                hold(name, got.view(torch.int32), want.view(torch.int32))
+            else:
+                hold(name, got, want)
+            held[key] = held.get(key, 0) + 1
+        if held.get(key, 0) != len(record):
+            raise AssertionError(f"{key}: not every launch was held")
+
+    train_err: dict = {}     # the self-test's training launches: worst gap
+
+    def hold_any(key, record) -> int:
+        """:func:`hold_record` of a record that also holds training launches
+        (within TRAIN_TOL, ``hold_train``) and MJPG launches (exact, on the
+        plain decode of their chunk) -> the launches held under ``key``."""
+        train = [r for r in record if r[0] in TRAIN_C_ENTRY]
+        mjpg = [r for r in record if r[0].startswith("jpeg_")]
+        hold_record(key, [r for r in record if r[0] not in TRAIN_C_ENTRY
+                          and not r[0].startswith("jpeg_")])
+        for name, inputs, kw in train:
+            kfn, pfn, _, _ = train_runner(name, inputs, kw)
+            hold_train(name, kfn(), pfn(), train_err)
+        for launch in mjpg:
+            hold_jpeg_launch(launch, hold)
+        held[key] = held.get(key, 0) + len(train) + len(mjpg)
+        if held[key] != len(record):
+            raise AssertionError(f"{key}: not every launch was held")
+        return held[key]
+
     if "--train" in args:
         # the training phase alone: its kernels, both trainers, the CLI
         train_line, train_entries = train_phase(dev, smi, counted, logs)
@@ -3212,6 +3788,17 @@ def main() -> int:
             "within TRAIN_TOL of the plain version", **train_line)
         print(json.dumps({"kernels": train_entries, "timing": TIMING}),
               flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if "--selftest" in args:
+        # the self-test (realistic, then plain) and the commands alone
+        selftests(dev, smi, counted, hold_any)
+        say("selftest_holds", launches_held=held,
+            selftest_training_max_err=train_err)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4111,136 +4698,8 @@ def main() -> int:
                "qconv": "og_qconv", "frame_counts": "og_frame_counts",
                "otsu_counts": "og_otsu_counts"}
 
-    def links(code):
-        """Neighbour links this input makes the union-find test and join:
-        pairs of equal non-zero code (left, up; both diagonals for code 1),
-        plus one root chase per active pixel."""
-        c = code
-        n = int(((c[:, :, 1:] == c[:, :, :-1]) & (c[:, :, 1:] != 0)).sum())
-        n += int(((c[:, 1:] == c[:, :-1]) & (c[:, 1:] != 0)).sum())
-        n += int(((c[:, 1:, 1:] == c[:, :-1, :-1]) & (c[:, 1:, 1:] == 1)).sum())
-        n += int(((c[:, 1:, :-1] == c[:, :-1, 1:]) & (c[:, 1:, :-1] == 1)).sum())
-        return n + int((c != 0).sum())
-
-    def region_code(region, conn):
-        return region.to(torch.uint8) * (1 if conn == 8 else 2)
-
-    def runners(name, inputs, kw):
-        """(kernel fn, plain fn, bytes moved, operations) for one launch."""
-        if name == "qconv":
-            return qconv_runner(inputs, kw)
-        if name in eval_cuda.LAUNCHES:
-            return eval_runner(name, inputs, kw)
-        if name == "dual_cc_batch":
-            (code,) = inputs
-            px = code.numel()
-            return (lambda: blobs_cuda.dual_cc_batch(code),
-                    lambda: blobs_cuda.dual_cc_plain(code), px * 5, links(code))
-        if name == "dual_min_prop_batch":
-            code, init = inputs
-            px = code.numel()
-            return (lambda: blobs_cuda.dual_min_prop_batch(code, init),
-                    lambda: blobs_cuda.dual_min_prop_plain(code, init),
-                    px * 9, links(code) + px)
-        if name == "min_prop_batch":
-            region, init = inputs
-            conn = kw["connectivity"]
-            px = region.numel()
-            return (lambda: blobs_cuda.min_prop_batch(region, init, conn),
-                    lambda: blobs_cuda.min_prop_plain(region, init, conn),
-                    px * 9, links(region_code(region, conn)) + px)
-        if name == "cc_batch":
-            (region,) = inputs
-            conn = kw["connectivity"]
-            return (lambda: blobs_cuda.cc_batch(region, conn),
-                    lambda: blobs_cuda.cc_plain(region, conn),
-                    region.numel() * 5, links(region_code(region, conn)))
-        if name == "cc":
-            (region,) = inputs
-            conn = kw["connectivity"]
-            return (lambda: blobs_cuda.cc(region, conn),
-                    lambda: blobs_cuda.cc_plain(region[None], conn)[0],
-                    region.numel() * 5,
-                    links(region_code(region[None], conn)))
-        if name == "gate_scan":
-            has, raw = inputs
-            n = has.numel()
-            args = (kw["frame_h"], kw["frame_w"], kw["params"])
-            nbytes, ops = n * (1 + 16 + 1 + 16), n * 40
-            if not bool(kw["state"].any()):         # from the initial state
-                return (lambda: gate_mod.gate_scan(has, raw, *args),
-                        lambda: gate_mod.gate_scan(has, raw, *args,
-                                                   use_plain=True),
-                        nbytes, ops)
-            # from the carry the launch started from (a chunk of unet's
-            # carried gate starts where the one before ended)
-            st = gate_mod.state_from_buffer(kw["state"])
-            return (lambda: gate_mod.gate_scan_carry(st, has, raw, *args)[1],
-                    lambda: gate_mod.gate_scan_carry(st, has, raw, *args,
-                                                     use_plain=True)[1],
-                    nbytes, ops)
-        if name == "box_count":
-            # a table of chunks (one on the per-video routes); bytes: the
-            # in-box elements of every x (all the count must read), valid,
-            # boxes and the output; one compare and one add each
-            chunks = tuple(c._replace(out=None) for c in inputs)
-            thr = kw["thr"]
-            inbox = sum(int(areas_cuda.box_count_plain(
-                c.x, float("-inf"), c.valid, c.boxes, c.oy, c.ox).sum())
-                for c in chunks)
-            n = sum(c.x.shape[0] for c in chunks)
-            return (lambda: tuple(areas_cuda.box_count_table(chunks, thr)),
-                    lambda: tuple(areas_cuda.box_count_table(
-                        chunks, thr, use_plain=True)),
-                    inbox * chunks[0].x.element_size() + n * (1 + 16 + 4),
-                    2 * inbox)
-        if name == "gate_scan_batch":
-            has, raw = inputs
-            off = kw["offsets"]
-            args = (kw["frame_h"], kw["frame_w"], kw["params"])
-            st = kw["state"]
-            n, k_ = has.numel(), len(off) - 1
-            nbytes, ops = n * (1 + 16 + 1 + 16) + k_ * 48, n * 40
-            if not bool(st.any()):                  # from the initial states
-                return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args),
-                        lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
-                                                         use_plain=True),
-                        nbytes, ops)
-            return (lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
-                                                     state=st.clone()),
-                    lambda: gate_mod.gate_scan_batch(has, raw, off, *args,
-                                                     state=st.clone(),
-                                                     use_plain=True),
-                    nbytes, ops)
-        if name == "thresh_chain_batch":
-            th0, cur, npx, act = inputs
-            off, beta = kw["offsets"], kw["beta"]
-            n = cur.numel()
-            return (lambda: tracker_mod.thresh_chain_batch(th0, cur, npx, act,
-                                                           off, beta),
-                    lambda: tracker_mod.thresh_chain_batch(
-                        th0, cur, npx, act, off, beta, use_plain=True),
-                    n * (4 + 4 + 1 + 4) + 4 * (len(off) - 1), n * 4)
-        if name == "motion_map":
-            p0, fr, l0, act = inputs
-            args = (p0, fr, l0, act, kw["alpha"], kw["ksize"])
-            # per pixel-step: the subtract, 2K products and 2K - 2 sums of
-            # the blur, alpha*d and the fma (2); the frames read once, the
-            # maps written once, prev0 and lmap0 read once
-            return (lambda: tracker_mod.motion_map(*args),
-                    lambda: tracker_mod.motion_map(*args, use_plain=True),
-                    fr.numel() * 8 + p0.numel() * 8 + act.numel(),
-                    fr.numel() * (4 * kw["ksize"] + 2))
-        th0, cur, npx, act = inputs
-        n = cur.numel()
-        return (lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"]),
-                lambda: tracker_mod._thresh_chain(th0, cur, npx, act, kw["beta"],
-                                                  use_plain=True),
-                n * (4 + 4 + 1 + 4) + 4, n * 4)
-
     per_kernel = {}
     elsewhere = {}     # kernel -> path -> ms of each launch on another path
-    held = {}          # path -> launches held against their plain versions
 
     def measure(path, record):
         """Every launch of a path's record held equal to its plain version
@@ -4286,23 +4745,6 @@ def main() -> int:
         if held.get(path, 0) != len(record) or not record:
             raise AssertionError(f"{path}: {held.get(path, 0)} of "
                                  f"{len(record)} launches were held")
-
-    def hold_record(key, record):
-        """Every launch of a recorded run held equal to its plain version
-        on the run's own inputs."""
-        for name, inputs, kw in record:
-            kfn, pfn, _, _ = runners(name, inputs, kw)
-            got, want = kfn(), pfn()
-            if isinstance(got, tuple):
-                for g, w_ in zip(got, want):
-                    hold(name, g, w_)
-            elif got.dtype.is_floating_point:
-                hold(name, got.view(torch.int32), want.view(torch.int32))
-            else:
-                hold(name, got, want)
-            held[key] = held.get(key, 0) + 1
-        if held.get(key, 0) != len(record):
-            raise AssertionError(f"{key}: not every launch was held")
 
     # and every launch of the sequential trackers (one motion map per frame)
     for pipeline, record in seq_recorded.items():
@@ -4388,8 +4830,16 @@ def main() -> int:
     held["train"] = train_line["launches_held_equal_to_plain"]
     say("train", compared="masks, best_gt and assigned exact; floats "
         "within TRAIN_TOL of the plain version", **train_line)
-    say("path_launches_vs_plain", compared="exact equality with the plain "
-        "version, every recorded launch of every path", launches_held=held)
+    # ── the self-test with trained weights; the evaluation commands ─────
+    t_st = time.perf_counter()
+    selftests(dev, smi, counted, hold_any)
+    reset_counts()
+    say("selftests", phase_seconds=time.perf_counter() - t_st)
+    say("path_launches_vs_plain", compared="every recorded launch of every "
+        "path against its plain version: exact, but the training kernels' "
+        "floats within TRAIN_TOL; of the self-tests' training launches one "
+        f"in {TRAIN_HOLD_EVERY} of each kernel's", launches_held=held,
+        selftest_training_max_err=train_err)
 
     # ── the two scans at the served inputs: bare, wrapper, T = 1 ────────
     def time_enqueue(fn, reps: int) -> float:

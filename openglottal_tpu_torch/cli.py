@@ -17,7 +17,8 @@ device by default; ``cpu`` on purpose).  Videos are read by the port's own
 AVI reader (``data/video.py``: uncompressed gray and BI_RGB, and MJPG,
 which crosses to the device compressed and is decoded there) straight onto
 the pipelines' device (``read_frames`` / ``iter_frames``).  Weights are
-``.npz`` files.
+``.npz`` files or torch ``.pt`` / ``.pth`` checkpoints (``utils/io.py``),
+such as the trainers' ``best.pt``.
 
 ``--quant int8`` serves the U-Net in int8 (``int8-full``: the detector too;
 ``models/quant.py``) on the routes the JAX package quantizes (``unet`` and
@@ -37,11 +38,23 @@ Training and dataset building, as the JAX package's command line has them
     python -m openglottal_tpu_torch.cli build-dataset --images-dir D \
         --labels-dir D --training-json J [--output-dir yolo_data] [--force]
 
-The three ``train-*`` commands hand their arguments to the port's modules
-``openglottal_tpu_torch/scripts/{train_unet,train_unet_crop,train_yolo}.py``
-(each with its own ``--help``); they train on the card unless ``--device
-cpu`` is given.  The JAX package's evaluation and analysis scripts are not
-ported yet.
+Evaluation and analysis, as the JAX package's command line delegates them
+(``openglottal_tpu/cli.py:84-90``):
+
+    python -m openglottal_tpu_torch.cli eval-girafe ...   # GIRAFE Table 3
+    python -m openglottal_tpu_torch.cli eval-bagls ...    # BAGLS test set
+    python -m openglottal_tpu_torch.cli sweep-bagls ...   # YOLO conf sweep
+    python -m openglottal_tpu_torch.cli analyze-gaw ...   # cohort GAW study
+    python -m openglottal_tpu_torch.cli plot-gaw ...      # GAW plots
+
+The ``train-*`` and these five commands hand their arguments to the port's
+modules ``openglottal_tpu_torch/scripts/`` (``train_unet``,
+``train_unet_crop``, ``train_yolo``, ``eval_girafe``, ``eval_bagls``,
+``sweep_bagls_conf``, ``analyze_gaw``, ``plot_gaw``; each with its own
+``--help``); they run on the card unless ``--device cpu`` is given.
+``plot-gaw`` needs ``matplotlib``, as ``analyze-gaw``'s boxplot does (it is
+skipped without it).  ``infer`` and ``benchmark`` are not ported yet;
+``download-datasets`` needs a network and is not ported.
 """
 
 from __future__ import annotations
@@ -51,10 +64,14 @@ import os
 import sys
 
 PIPELINE_CHOICES = ("vft", "guided-vft", "unet", "unet-only", "crop-unet")
-# training commands -> the port's script modules (``scripts/``)
+# training, evaluation and analysis commands -> the port's script modules
+# (``scripts/``)
 SCRIPT_COMMANDS = {"train-unet": "train_unet",
                    "train-unet-crop": "train_unet_crop",
-                   "train-yolo": "train_yolo"}
+                   "train-yolo": "train_yolo", "eval-girafe": "eval_girafe",
+                   "eval-bagls": "eval_bagls",
+                   "sweep-bagls": "sweep_bagls_conf",
+                   "analyze-gaw": "analyze_gaw", "plot-gaw": "plot_gaw"}
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:

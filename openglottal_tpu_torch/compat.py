@@ -10,15 +10,27 @@ and steps the gate's state machine (``models/gate.gate_step``) on the host.
 The batched pipelines (``GlottalPipelines``) are the fast path; these
 classes are for code written against the reference's per-frame loops.
 Each takes ``device`` (the CUDA device by default, ``"cpu"`` on purpose).
-The datasets of the JAX module (``GlottisDataset``, ``GlottisDatasetHDF5``)
-wait for the training slice.
+
+The reference's indexable datasets, ``GlottisDataset`` (PNG frames and
+masks) and ``GlottisDatasetHDF5`` (a reference-format HDF5 cache), return
+items as torch float tensors of shape (1, 256, 256) on the host, for
+``DataLoader`` loops; the batched trainers (``train/``) are the fast path.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from openglottal_tpu_torch.data.augment import augment_batch
+from openglottal_tpu_torch.data.dataset import (
+    label_name,
+    letterbox_pair,
+    load_glottis_hdf5,
+)
+from openglottal_tpu_torch.data.png import imread_gray
 from openglottal_tpu_torch.data.video import read_frames
 from openglottal_tpu_torch.features import kinematic_features  # noqa: F401
 from openglottal_tpu_torch.models.gate import GateParams, gate_init, gate_step
@@ -223,3 +235,79 @@ def extract_features_unet(avi_path, detector: TemporalDetector | None,
                                      "unet-only")
     pipe = detector._pipelines(unet_variables=model_variables)
     return pipe.extract_features(read_frames(avi_path, pipe.device), "unet")
+
+
+class GlottisDataset:
+    """Drop-in indexable dataset matching the reference class
+    (openglottal/models/unet.py:91-192): grayscale PNG frames and binary
+    masks letterboxed to 256² (``data/png.imread_gray``,
+    ``data/dataset.letterbox_pair``), optional train-time augmentation.
+
+    Items are (image, mask) float32 tensors of shape (1, 256, 256), the
+    image in [0, 1] and the mask in {0, 1}.  ``augment=True`` runs the
+    port's augmentation (``data/augment.augment_batch``, on the host) with a
+    ``torch.Generator`` seeded from ``seed``, so a dataset's draws repeat
+    from run to run (the reference's ``random`` is unseeded).  The mask of
+    ``fname`` is ``fname`` itself in ``lbl_dir``, or
+    ``<stem><label_suffix>.png`` when ``label_suffix`` is given ("_seg" for
+    BAGLS).
+    """
+
+    SIZE = 256
+
+    def __init__(self, fnames, img_dir, lbl_dir, augment: bool = False,
+                 label_suffix: str = "", seed: int = 0):
+        self.fnames = list(fnames)
+        self.img_dir = Path(img_dir)
+        self.lbl_dir = Path(lbl_dir)
+        self.augment = augment
+        self.label_suffix = label_suffix
+        self._gen = torch.Generator().manual_seed(seed)
+
+    def __len__(self) -> int:
+        return len(self.fnames)
+
+    def __getitem__(self, idx: int):
+        fname = self.fnames[idx]
+        lbl = label_name(fname, self.label_suffix)
+        img = imread_gray(self.img_dir / fname)
+        msk = imread_gray(self.lbl_dir / lbl)
+        if img is None or msk is None:
+            raise FileNotFoundError(f"missing image or mask: {fname} / {lbl}")
+        return _item(*letterbox_pair(img, msk), self.augment, self._gen)
+
+
+class GlottisDatasetHDF5:
+    """Drop-in indexable dataset over a reference-format HDF5 cache
+    (openglottal/data.py:262-329): pre-letterboxed uint8 ``images`` /
+    ``masks``, loaded once into host memory (``data/dataset.
+    load_glottis_hdf5``, which imports ``h5py``: the card's machine has
+    none), with the same items and augmentation as :class:`GlottisDataset`.
+    """
+
+    SIZE = 256
+
+    def __init__(self, h5_path, augment: bool = False, seed: int = 0):
+        self.h5_path = str(h5_path)
+        self.images, self.masks = load_glottis_hdf5(h5_path)
+        self.augment = augment
+        self._gen = torch.Generator().manual_seed(seed)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, idx: int):
+        return _item(self.images[idx], self.masks[idx], self.augment,
+                     self._gen)
+
+
+def _item(img: np.ndarray, msk: np.ndarray, augment: bool, gen):
+    """(image, mask) float32 tensors (1, 256, 256) of a letterboxed uint8
+    pair: the image / 255 and the mask > 0, or both augmented jointly."""
+    if augment:
+        return augment_batch(
+            torch.from_numpy(np.ascontiguousarray(img))[None],
+            torch.from_numpy((msk > 0).astype(np.uint8))[None], gen)
+    x = img.astype(np.float32) / 255.0
+    y = (msk > 0).astype(np.float32)
+    return torch.from_numpy(x).unsqueeze(0), torch.from_numpy(y).unsqueeze(0)

@@ -382,17 +382,45 @@ def _imports_of(path):
     return found
 
 
+# optional packages the card's machine lacks: imported only inside the
+# functions that need them (plots, HDF5), never when a module is imported
+_LAZY_ONLY = ("matplotlib", "h5py")
+
+
+def _module_level_imports(path):
+    """(line, module) of the imports of a source that run when it is
+    imported: those outside every function body."""
+    import ast
+
+    tree = ast.parse(path.read_text(), str(path))
+    inside = {id(n) for f in ast.walk(tree)
+              if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for n in ast.walk(f)}
+    found = []
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.lineno, node.module or ""))
+    return found
+
+
 def test_port_imports_no_jax_no_reference_package_no_cv2():
     """Importing every module of the port and chip_smoke.py loads none of
-    the banned packages; and no source of the port, nor chip_smoke.py,
-    imports one anywhere, a lazy import inside a function included."""
+    the banned packages, nor matplotlib or h5py; no source of the port, nor
+    chip_smoke.py, imports a banned package anywhere, a lazy import inside
+    a function included; and matplotlib and h5py are imported only inside
+    functions (the scripts of ``scripts/`` among the sources scanned)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import openglottal_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {_BANNED!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{_BANNED + _LAZY_ONLY!r}]\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -402,10 +430,21 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
     sources = sorted((root / "openglottal_tpu_torch").rglob("*.py"))
     sources.append(root / "chip_smoke.py")
     assert len(sources) > 20
+    scripts = {p.stem for p in sources if p.parent.name == "scripts"}
+    assert {"selftest_e2e", "prepare_girafe_splits", "prepare_bagls_splits",
+            "eval_girafe", "eval_bagls", "sweep_bagls_conf", "analyze_gaw",
+            "plot_gaw"} <= scripts
     bad = [f"{p.relative_to(root)}:{line} imports {mod}"
            for p in sources for line, mod in _imports_of(p)
            if mod.split(".")[0] in _BANNED]
     assert not bad, bad
+    eager = [f"{p.relative_to(root)}:{line} imports {mod} at module level"
+             for p in sources for line, mod in _module_level_imports(p)
+             if mod.split(".")[0] in _LAZY_ONLY]
+    assert not eager, eager
+    lazy = {p.stem for p in sources for _, mod in _imports_of(p)
+            if mod.split(".")[0] == "matplotlib"}
+    assert lazy == {"analyze_gaw", "plot_gaw"}
 
 
 def _repo_root():
