@@ -14,6 +14,11 @@
     python3 chip_smoke.py --selftest      # build + the self-tests and the
         # evaluation commands alone (the "selftest", "eval_cli" and
         # "selftest_plain" lines)
+    python3 chip_smoke.py --blobs         # build + the union-find alone: the
+        # occupancy line, the union-find stress (the "blob_stress" line) and
+        # every launch guided-vft and vft make, held equal to the plain
+        # versions; with --against DIR, those launches in turns beside both
+        # pipelines' walls (the "against" line)
     python3 chip_smoke.py --against DIR [DIR ...]
         # everything, then the kernels (csrc/blobs.cu and csrc/scan.cu) of
         # this checkout and of each DIR (the root of another checkout, e.g. a
@@ -70,7 +75,11 @@ yolo`` on a PNG split written by ``data/png.py``; ms per train step in
 turns and each kernel's ms against its bound.
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version (exact equality), then serves 502-frame
+each against its plain PyTorch version (exact equality) -- the union-find's
+labelling entry points also on ``tools/blob_stress.py``'s families at the
+served shapes, every width edge of its bit planes, T = 1 to 2757, single
+rows and columns, 216x215 / 217x215 / 256x256 and unaligned buffers (the
+``blob_stress`` line; ``occupancy`` gives each stack's form) -- then serves 502-frame
 256x256 synthetic videos through ``GlottalPipelines.extract_features`` with
 the demo weights — ``guided-vft``, ``unet`` and ``vft``, bfloat16 and float32
 — and checks that the kernels were launched on those paths, that every
@@ -1896,6 +1905,136 @@ def stream_phase(pipes, weights, videos, counted, hold_record, host_syncs,
 
 # ── evaluation: the count kernels of csrc/eval.cu and evaluate_patient ──────
 
+# the union-find's labelling entry points (og_dual_cc, og_cc_batch, og_cc)
+# on tools/blob_stress.py's families: pools of every family at the served
+# shapes (guided-vft's 128x128 windows, vft's 48x40 crops) cycled into
+# stacks of T frames (a frame as the plain version alone; the wave edges
+# of both forms and the cohort), every width edge of the 32-bit bit planes
+# at 37 and 128 rows, single-row and single-column frames, the largest frame
+# of the labelling form (216x215), the first of the device-memory form
+# (217x215) and 256x256, and buffers that start off a 16-byte boundary
+BLOB_STRESS_T = (1, 263, 264, 265, 500, 502, 2757)
+BLOB_STRESS_WIDTHS = (1, 31, 32, 33, 40, 63, 64, 65, 127, 128, 129)
+BLOB_SERVED = ((128, 128), (48, 40))
+BLOB_BIG = ((216, 215), (217, 215), (256, 256))
+BLOB_LINES = ((1, 128), (128, 1), (1, 40), (48, 1))
+
+
+def blob_stress_shapes() -> list:
+    """(T, H, W) of every stack blob_stress launches."""
+    from openglottal_tpu_torch.tools.blob_stress import FAMILIES
+
+    pool = 4 * (len(FAMILIES) - 2)
+    return ([(pool, h, w) for h, w in BLOB_SERVED]
+            + [(t, h, w) for h, w in BLOB_SERVED for t in BLOB_STRESS_T]
+            + [(len(FAMILIES) - 1, h, w) for h in (37, 128)
+               for w in BLOB_STRESS_WIDTHS]
+            + [(4, h, w) for h, w in BLOB_LINES]
+            + [(len(FAMILIES) - 2, h, w) for h, w in BLOB_BIG])
+
+
+def blob_stress(dev, hold, unaligned) -> dict:
+    """og_dual_cc on the families' dual codes, og_cc_batch (8- and
+    4-connected) and og_cc (each pool frame alone) on their masks, each held
+    exactly equal to its plain version on every stack of
+    ``blob_stress_shapes``; the min-prop entry points on the served pools.
+    A stack of T frames cycles its pool, so its plain labels are the pool's
+    cycled (labels are frame-local).  Raises on a difference."""
+    import numpy as np
+    import torch
+
+    from openglottal_tpu_torch.ops import blobs_cuda
+    from openglottal_tpu_torch.tools.blob_stress import (
+        FAMILIES,
+        stress_codes,
+        stress_masks,
+    )
+
+    planes = [f for f in FAMILIES if f not in ("row", "column")]
+    launches = {"dual_cc_batch": 0, "cc_batch": 0, "cc": 0,
+                "min_prop_batch": 0, "dual_min_prop_batch": 0}
+    stacks = []
+
+    def held(masks, codes, masks_want=None, codes_want=None):
+        """The three labelling launches on one stack against their plain
+        versions (or the given plain labels)."""
+        want = (codes_want if codes_want is not None
+                else blobs_cuda.dual_cc_plain(codes))
+        hold("dual_cc_batch", blobs_cuda.dual_cc_batch(codes), want)
+        launches["dual_cc_batch"] += 1
+        for conn in (8, 4):
+            want = (masks_want[conn] if masks_want is not None
+                    else blobs_cuda.cc_plain(masks, conn))
+            hold("cc_batch", blobs_cuda.cc_batch(masks, conn), want)
+            launches["cc_batch"] += 1
+        stacks.append(list(masks.shape))
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # the served shapes: a pool of every family, then stacks of T frames
+    for h, w in BLOB_SERVED:
+        masks = on_dev(np.concatenate([stress_masks(f, h, w, 4, seed=i)
+                                       for i, f in enumerate(planes)]))
+        codes = on_dev(np.concatenate([stress_codes(f, h, w, 4, seed=i)
+                                       for i, f in enumerate(planes)]))
+        n = len(masks)
+        dual = blobs_cuda.dual_cc_plain(codes)
+        lab = {conn: blobs_cuda.cc_plain(masks, conn) for conn in (8, 4)}
+        held(masks, codes, lab, dual)
+        for conn in (8, 4):
+            for i in range(n):
+                hold("cc", blobs_cuda.cc(masks[i], conn), lab[conn][i])
+                launches["cc"] += 1
+        # the init forms (the fixpoint body) on the same pool
+        init = torch.from_numpy(np.random.default_rng(h).integers(
+            0, h * w + 1, (n, h, w)).astype(np.int32)).to(dev)
+        hold("dual_min_prop_batch", blobs_cuda.dual_min_prop_batch(codes, init),
+             blobs_cuda.dual_min_prop_plain(codes, init))
+        launches["dual_min_prop_batch"] += 1
+        for conn in (8, 4):
+            hold("min_prop_batch", blobs_cuda.min_prop_batch(masks, init, conn),
+                 blobs_cuda.min_prop_plain(masks, init, conn))
+            launches["min_prop_batch"] += 1
+        for t in BLOB_STRESS_T:
+            idx = torch.arange(t, device=dev) % n
+            held(masks[idx].contiguous(), codes[idx].contiguous(),
+                 {conn: lab[conn][idx] for conn in (8, 4)}, dual[idx])
+        # from buffers that start 1, 3 and 8 bytes past a 16-byte boundary
+        for by in (1, 3, 8):
+            held(unaligned(masks, by), unaligned(codes, by), lab, dual)
+    # every width edge of the bit planes, at 37 rows (frames off 16-byte
+    # boundaries, a height between powers of two for the rounds) and 128
+    for h in (37, 128):
+        for w in BLOB_STRESS_WIDTHS:
+            masks = on_dev(np.concatenate(
+                [stress_masks(f, h, w, 1, seed=w) for f in planes]
+                + [np.random.default_rng(w).random((1, h, w)) < 0.5]))
+            codes = on_dev(np.concatenate(
+                [stress_codes(f, h, w, 1, seed=w) for f in planes]
+                + [np.random.default_rng(w).integers(0, 3, (1, h, w))
+                   .astype(np.uint8)]))
+            held(masks, codes)
+            for conn in (8, 4):
+                hold("cc", blobs_cuda.cc(masks[-1], conn),
+                     blobs_cuda.cc_plain(masks[-1:], conn)[0])
+                launches["cc"] += 1
+    # single rows and single columns
+    for h, w in BLOB_LINES:
+        fam = "row" if h == 1 else "column"
+        held(on_dev(stress_masks(fam, h, w, 4, seed=w)),
+             on_dev(stress_codes(fam, h, w, 4, seed=w)))
+    # the largest labelling frame, the first fixpoint one, and 256x256
+    for h, w in BLOB_BIG:
+        held(on_dev(np.concatenate([stress_masks(f, h, w, 1, seed=3)
+                                    for f in planes])),
+             on_dev(np.concatenate([stress_codes(f, h, w, 1, seed=3)
+                                    for f in planes])))
+    return {"families": list(FAMILIES), "stacks": len(stacks),
+            "shapes": sorted({tuple(x) for x in stacks}),
+            "launches_held": launches}
+
+
 # (frames, h, w) of the count kernels' stress inputs: the served 256², odd
 # sizes whose frames do not start on 16-byte boundaries, a wide ragged
 # frame, 1x1 frames
@@ -3465,6 +3604,7 @@ def main() -> int:
 
     args = sys.argv[1:]
     kernels_only = "--kernels-only" in args
+    blobs_only = "--blobs" in args
     against = args[args.index("--against") + 1:] if "--against" in args else []
     if "--against" in args and not against:
         print("chip_smoke: --against needs at least one directory",
@@ -3503,35 +3643,51 @@ def main() -> int:
                 for k in ("ms", "pr10_ms", "bound_ms", "cudnn_bf16_ms")})
         return 0
 
-    # where the union-find keeps its grids, and how many of its blocks share
-    # an SM, at each frame size a launch below takes (one rule in blobs.cu
-    # decides the layout of every entry point)
+    # the form the union-find takes (labelling or fixpoint), where it keeps
+    # its grids, and how many of its blocks share an SM, at each shape a
+    # launch below takes (one rule in blobs.cu decides the form of every
+    # entry point; og_layout reads it)
     lib = _build.load("blobs")
-    lib.og_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.og_smem_bytes.restype = ctypes.c_longlong
-    lib.og_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.og_blocks_per_sm.restype = ctypes.c_int
+    lib.og_layout.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.og_layout.restype = ctypes.c_int
 
-    def layout_of(h, w):
-        n = lib.og_blocks_per_sm(h, w)
-        if n <= 0:
-            raise AssertionError(f"og_blocks_per_sm({h}, {w}) = {n}")
-        return {"smem_bytes": lib.og_smem_bytes(h, w), "blocks_per_sm": n}
+    def layout_of(h, w, t=1 << 30, init=False):
+        """og_layout of a launch of t frames of h x w (with or without an
+        init grid); raises on a CUDA error."""
+        out = (ctypes.c_longlong * 7)()
+        err = lib.og_layout(t, h, w, int(init), out)
+        if err != 0 or out[6] <= 0:
+            raise AssertionError(f"og_layout({t}, {h}, {w}, {init}): error "
+                                 f"{err}, blocks per SM {out[6]}")
+        return {"form": "labelling" if out[2] else "fixpoint",
+                "smem_bytes": out[0], "scratch_bytes": out[1],
+                "frames_per_block": out[2], "warps_per_frame": out[3],
+                "threads_per_block": out[4], "blocks": out[5],
+                "blocks_per_sm": out[6]}
 
     # the widest frame of 215 columns whose grids fit shared memory, and one
     # row more (the first that takes the device-memory layout)
     w_edge = 215
-    h_fit = max(h for h in range(1, 1024) if lib.og_smem_bytes(h, w_edge) > 0)
-    path_shapes = {"dual_cc_batch": [(128, 128)],
-                   "dual_min_prop_batch": [(128, 128)],
-                   "min_prop_batch": [(128, 128), (48, 40)],
-                   "cc_batch": [(48, 40)], "cc": [(48, 40)]}
+    h_fit = max(h for h in range(1, 1024)
+                if layout_of(h, w_edge)["smem_bytes"] > 0)
+    # (entry point, T, H, W, init) of every launch the served paths make
+    path_shapes = (("dual_cc_batch", 500, 128, 128, False),
+                   ("dual_cc_batch cohort", 2757, 128, 128, False),
+                   ("dual_min_prop_batch", 500, 128, 128, True),
+                   ("min_prop_batch", 500, 128, 128, True),
+                   ("min_prop_batch", 502, 48, 40, True),
+                   ("cc_batch", 502, 48, 40, False), ("cc", 1, 48, 40, False))
     stress_shapes = [(128, 128), (256, 256), (100, 140), (h_fit, w_edge),
                      (h_fit + 1, w_edge)]
     say("occupancy",
-        path_shapes={k: {f"{h}x{w}": layout_of(h, w) for h, w in v}
-                     for k, v in path_shapes.items()},
-        stress_shapes={f"{h}x{w}": layout_of(h, w) for h, w in stress_shapes})
+        path_shapes={f"{k} {t}x{h}x{w}": layout_of(h, w, t, init)
+                     for k, t, h, w, init in path_shapes},
+        stress_shapes={f"{t}x{h}x{w}{' init' if init else ''}":
+                       layout_of(h, w, t, init)
+                       for h, w in stress_shapes for t in (1, 8)
+                       for init in (False, True)},
+        blob_stress_shapes={f"{t}x{h}x{w}": layout_of(h, w, t)
+                            for t, h, w in blob_stress_shapes()})
 
     def counts() -> dict:
         return {**blobs_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
@@ -4180,6 +4336,12 @@ def main() -> int:
         del m, code, init
     torch.cuda.empty_cache()
 
+    # the labelling entry points on tools/blob_stress.py's families
+    t_bs = time.perf_counter()
+    blob_stress_line = blob_stress(dev, hold, unaligned)
+    say("blob_stress", compared="exact equality with the plain version",
+        seconds=time.perf_counter() - t_bs, **blob_stress_line)
+
     # kernel and plain times on one stress batch per shape (the 256x256 rows
     # are the only timing of the device-memory path: served videos whose gate
     # boxes fit the 128x128 window never take it)
@@ -4302,7 +4464,8 @@ def main() -> int:
         say("against", order=order, timing=TIMING,
             compared="exact equality with the plain version, every library",
             ptxas={d: {src: ptxas_summary(built[f"{src}_against{i}"][1])
-                       for src in _build.SOURCES}
+                       for src in _build.SOURCES
+                       if f"{src}_against{i}" in built}
                    for i, d in enumerate(against)},
             ms={k: {t: sum(v) / len(v) for t, v in g.items()}
                 for k, g in groups.items()},
@@ -4410,6 +4573,51 @@ def main() -> int:
             (torch.from_numpy(h_np).to(dev), torch.from_numpy(b_np).to(dev),
              256, 256, gate_mod.GateParams()),
             (*(torch.from_numpy(np.asarray(x)).to(dev) for x in th), 0.7))
+
+    if blobs_only:
+        # the union-find alone: every launch guided-vft and vft make on a
+        # served video (demo weights, bf16) held equal to its plain version,
+        # and with --against timed in turns with the other checkouts'
+        # kernels, beside both pipelines' walls
+        vids = [np.ascontiguousarray(synthetic_video(
+            t=T_FRAMES, size=256, seed=s_, realistic=False)[0][..., 0])
+            for s_ in range(3)]
+        pipe = GlottalPipelines(dtype=torch.bfloat16,
+                                unet_variables="weights/demo_unet.npz",
+                                yolo_variables="weights/demo_yolo.npz",
+                                conf=0.25)
+        items, walls = [], {}
+        for pipeline in ("guided-vft", "vft"):
+            pipe.extract_features(vids[1], pipeline)        # warm-up
+            record = []
+            counted(lambda: pipe.extract_features(vids[0], pipeline), record)
+            hold_record(pipeline, record)
+            for k, (name, inputs, kw) in enumerate(record):
+                if name in blobs_cuda.LAUNCHES:
+                    kfn, pfn, _, _ = runners(name, inputs, kw)
+                    shape = max(inputs, key=torch.numel).shape
+                    items.append((f"{name} {pipeline} "
+                                  f"{'x'.join(map(str, shape))} #{k}",
+                                  kfn, pfn()))
+
+            def wall(pipeline=pipeline):
+                ms = []
+                for v in vids[1:]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pipe.extract_features(v, pipeline)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                return ms
+            walls[f"{pipeline}/bf16"] = wall
+        say("blob_paths", compared="every recorded launch exactly equal to "
+            "its plain version", launches_held=held)
+        if against:
+            in_turns(items + stress_items(), walls)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # og_qconv on every int8 layer shape, each epilogue and the edge cases
     # (qconv_stress_cases): int8 outputs and float32 bits exactly equal
@@ -5140,7 +5348,8 @@ def main() -> int:
                  # og_motion_map, which an older library may lack: its stage
                  # is compared on its own above)
                  {"guided-vft/bf16": lambda: serve(pipes["bf16"],
-                                                   "guided-vft")})
+                                                   "guided-vft"),
+                  "vft/bf16": lambda: serve(pipes["bf16"], "vft")})
 
     for name in ("gate_scan_batch", "thresh_chain_batch"):
         t_ = max(sh[0] for sh in per_kernel[name]["shapes"])

@@ -28,8 +28,58 @@
 // nothing changes, because wide vector rolls are what that machine is good
 // at.  On Hopper that would cost sweeps x H*W x log(W) shared-memory traffic
 // per frame with a block-wide barrier in every sweep.  The fixpoint is unique
-// (min over the component), so this kernel reaches it directly with a
-// min-root union-find instead:
+// (min over the component), so both kernels below reach it directly with a
+// min-root union-find instead.
+//
+// THE LABELLING FORM (label_kernel: og_dual_cc, og_cc_batch, og_cc, and
+// og_min_prop without init) -- frames of up to 46,484 pixels, as before.
+// What it is built against: the per-pass clock64() cycles of the fixpoint
+// body below on the served inputs (tools/blob_cycles.py, NVIDIA H100 80GB
+// HBM3, 700 W, 1980 MHz, medians a block): guided-vft's 128x128 windows
+// 4,444 staging, 16,680 runs, 70,395 unions, 40,930 finds, 15,117 output
+// (146,718 in all, two blocks an SM, 500 windows in two waves); vft's 48x40
+// crops 2,176 / 3,663 / 11,951 / 5,018 / 3,611.  Unions and finds are three
+// quarters: 32 warps unite rows all over the frame at once, so the runs of a
+// frame-spanning component chain row under row and every find walks that
+// chain (a frame that is one component costs 89,000 cycles).  Measured beside
+// it: routing its loads and atomics through shared-window instructions
+// changes nothing, and joining its rows in rounds alone makes it slower.  The
+// passes are bound by instruction throughput, and lanes of a warp that
+// take different paths through a join run one after another.  So this form
+// spends few instructions a pixel and keeps the lanes of a warp on one path:
+//
+//   a. a group of 1-8 warps a frame (a warp for each >= 4 rows) and as many
+//      frames in a block of <= 256 threads as keep every SM busy, each group
+//      with its own named barrier (bar.sync id, n; one warp: __syncwarp);
+//   b. the codes staged with 16-byte loads, then two bit planes (code 1:
+//      8-connected, code 2: 4-connected; a bit a pixel) by two ballots per
+//      32 pixels, and 16-bit parents (a frame of the form has at most 46,484
+//      pixels), kept only at run starts and set to themselves;
+//   c. a thread a 32-pixel word finds, by shifts and masks of the planes,
+//      the word's run starts, its active pixels and the joins of its row to
+//      the row above: once per overlap of equal code, at the overlap's
+//      leftmost column, and, for code 1, across a diagonal where the pixel
+//      above has another code;
+//   d. the rows joined in log2(H) rounds, a thread a row: in round j the
+//      rows 2^j (2i + 1) join the block of 2^j rows above them to the block
+//      from them on, blocks that no other thread of the round touches, so
+//      joins are plain loads and stores without atomics (finds halve their
+//      paths), and a tree spans one block of 2^(j+1) rows after round j;
+//      the lanes of a warp join in lock-step (one join, one chain step a
+//      lane), so a warp pays for its longest chain, not for every lane's;
+//   e. every run start's slot set to its root (read-only finds, lock-step);
+//   f. each active pixel reads its run start's slot: one shared load a
+//      pixel, int32 labels written a row at a time, coalesced.
+//
+// A root is always the minimum flat index of its tree (a join hangs the
+// larger root under the smaller), so the labels are the fixpoint's.  Not
+// taken: the init forms, which keep the fixpoint body (its init gather had
+// been redesigned before), and frames whose planes, parents and work space
+// do not fit shared memory, which keep the fixpoint body in its shared or
+// device memory layout.
+//
+// THE FIXPOINT FORM (min_root_fixpoint_kernel: og_dual_min_prop, og_min_prop
+// with init, and frames too large for the labelling form):
 //
 //   0. one thread block per frame (grid = T, frames run in parallel on the
 //      132 SMs, nothing carries over between blocks); the frame's codes are
@@ -69,9 +119,11 @@
 // larger one (256x256) runs the same code with the forest in device memory
 // (L2-resident): in the output buffer without `init`, in a scratch buffer the
 // wrapper allocates with it.  `layout` below is the one place that decides
-// this, for the launch and for the wrapper's scratch.  og_cc is one frame,
-// hence ONE block on one of the card's 132 SMs: its time is a block's
-// latency, not bytes over bandwidth.
+// the form (labelling or fixpoint, frames a block, warps a frame, shared or
+// device memory), for the launch, for the wrapper's scratch and for the
+// queries (og_layout).  og_cc is one frame, hence one group of warps on one
+// of the card's 132 SMs: its time is a group's latency, not bytes over
+// bandwidth.
 //
 // Plain C interface: raw pointers, sizes, stream.  Nothing is allocated
 // here and nothing synchronises.  Each launch function returns
@@ -92,20 +144,65 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-// Where a launch keeps its grids: `smem` bytes of dynamic shared memory for
-// parents and codes (0: the frame does not fit, parents in device memory),
-// and `scratch` bytes of device memory the wrapper must provide.
+// The labelling form: blocks of at most 256 threads, a group of 1-8 warps a
+// frame (a warp for each >= 8 rows), as many frames a block as keep every
+// SM busy.
+constexpr int kLabelThreads = 256;
+constexpr int kLabelWarps = kLabelThreads / 32;
+constexpr int kLabelBlocksPerSm = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr unsigned kAll = 0xffffffffu;
+
+// Streaming multiprocessors of the current device (132 on an H100 SXM).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+__host__ __device__ inline int plane_words(int w) { return (w + 31) >> 5; }
+
+// Shared memory of one frame in the labelling form: the two bit planes, the
+// 16-bit parents, and a work space that first holds the frame's codes as
+// staged (at the alignment of its own bytes), then five words for each word
+// of the planes (struct Words).
+__host__ __device__ inline size_t label_frame_bytes(int h, int w) {
+  const size_t hw = static_cast<size_t>(h) * w;
+  const size_t n_words = static_cast<size_t>(h) * plane_words(w);
+  const size_t work = hw + 15 > 20 * n_words ? hw + 15 : 20 * n_words;
+  return align16(8 * n_words) + align16(2 * hw) + align16(work);
+}
+
+// Where a launch keeps its grids: `smem` bytes of dynamic shared memory a
+// block (0: the frame does not fit, parents in device memory), `scratch`
+// bytes of device memory the wrapper must provide, and the labelling form's
+// `frames` a block and `warps` a frame (frames == 0: the fixpoint form).
 struct Layout {
   size_t smem;
   size_t scratch;
+  int frames;
+  int warps;
 };
 
 Layout layout(int t, int h, int w, bool with_init) {
   const size_t hw = static_cast<size_t>(h) * w;
   // parents, then the codes at the alignment of the frame's own bytes
   const size_t smem = align16(align16(hw * 4) + 16 + hw);
-  if (smem <= kMaxDynamicSmem) return {smem, 0};
-  return {0, with_init ? hw * 4 * t : 0};
+  if (smem > kMaxDynamicSmem) return {0, with_init ? hw * 4 * t : 0, 0, 0};
+  const size_t frame = label_frame_bytes(h, w);
+  if (with_init || frame > kMaxDynamicSmem) return {smem, 0, 0, 0};
+  int warps = 1;
+  while (warps < kLabelWarps && 2 * warps * kRowsPerWarp <= h) warps *= 2;
+  int frames = kLabelWarps / warps;
+  if (frames > t / sm_count()) frames = t / sm_count() > 0 ? t / sm_count() : 1;
+  while (frames > 1 && frames * frame > kMaxDynamicSmem) --frames;
+  return {frames * frame, 0, frames, warps};
 }
 
 __device__ __forceinline__ int ld(const int* p) {
@@ -365,10 +462,303 @@ min_root_fixpoint_kernel(const uint8_t* __restrict__ code_g,
     }
 }
 
+// ── the labelling form ──────────────────────────────────────────────────
+
+// The forest's loads and stores, by shared-window address (LDS / STS), kept
+// in program order (volatile) where threads of a frame read slots that
+// another thread may be writing.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ int lds16(unsigned a) {
+  unsigned v;
+  asm volatile("ld.volatile.shared.u16 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return static_cast<int>(v);
+}
+__device__ __forceinline__ void sts16(unsigned a, int v) {
+  asm volatile("st.volatile.shared.u16 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+// A frame's forest: 16-bit parents, two to a 32-bit word of shared memory,
+// slot i at shared address base + 2i.
+struct Forest16 {
+  unsigned base;
+
+  __device__ __forceinline__ int get(int i) const { return lds16(base + 2 * i); }
+  __device__ __forceinline__ void set(int i, int v) const {
+    sts16(base + 2 * i, v);
+  }
+};
+
+// Roots of a and b (-1: none) for every lane of a warp, the lanes stepping
+// up their chains in lock-step: the loop runs as often as the longest chain
+// of the warp needs, with no divergence of code.  kHalve: each step also
+// re-points the slot it leaves at its grandparent (path halving; only for a
+// thread that alone changes these trees), else the walk only reads.
+template <bool kHalve>
+__device__ __forceinline__ void roots2(const Forest16& f, int& a, int& b) {
+  bool more = a >= 0;
+  while (__any_sync(kAll, more)) {
+    if (more) {
+      const int pa = f.get(a), pb = f.get(b);
+      more = pa != a || pb != b;
+      if (kHalve) {
+        const int ga = f.get(pa), gb = f.get(pb);
+        f.set(a, ga);
+        f.set(b, gb);
+        a = ga;
+        b = gb;
+      } else {
+        a = pa;
+        b = pb;
+      }
+    }
+  }
+}
+
+// Barrier of one frame's group: named barrier `id` for `threads` threads,
+// or the warp's own when the group is one warp.
+__device__ __forceinline__ void pass_barrier(int id, int threads) {
+  if (threads == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+  }
+}
+
+// Run starts of a 32-pixel word: where a pixel of code 1 (plane a) or code 2
+// (plane b) follows another code; ca / cb: bit 31 of the word to the left.
+__device__ __forceinline__ unsigned run_starts(unsigned a, unsigned b,
+                                               unsigned ca, unsigned cb) {
+  return (a & ~((a << 1) | ca)) | (b & ~((b << 1) | cb));
+}
+
+// Column of the highest set bit of m (a mask of word k), or `carry` (the
+// last run start to the left) when m is empty.
+__device__ __forceinline__ int last_start(unsigned m, int k, int carry) {
+  return m ? (k << 5) + 31 - __clz(m) : carry;
+}
+
+// The words a frame keeps for each 32-pixel word (r, k) of the labelling
+// form, after its bit planes: run starts, active pixels, and the joins of
+// row r to row r - 1 there (vertical, left and right diagonal).
+struct Words {
+  unsigned* s;
+  unsigned* act;
+  unsigned* vert;
+  unsigned* dl;
+  unsigned* dr;
+};
+
+// Join row r to row r - 1 (valid: r names a row), by ONE thread of a warp
+// whose lanes all call this at once, each for its own row: every run of row r
+// to the runs of row r - 1 it touches, once per overlap of equal code at the
+// overlap's leftmost column (a run start of one of the two rows), and, for
+// code 1, across a diagonal where the pixel above has another code (the
+// diagonal neighbour then starts or ends a run above).  No other thread
+// changes the trees of the two blocks of rows meanwhile, so plain stores do.
+// The lanes make their joins in lock-step, one a step.
+__device__ __forceinline__ void merge_row(const Forest16& f, const Words& m,
+                                          int r, int w, int words,
+                                          bool valid) {
+  const int i0 = r * words;
+  const int row = r * w, up = row - w;
+  int rs = 0, rsu = 0;                           // last run start left
+  for (int k = 0; k < words; ++k) {
+    unsigned s = 0, su = 0, v = 0, vl = 0, d = 0;
+    if (valid) {
+      s = m.s[i0 + k];
+      su = m.s[i0 - words + k];
+      v = m.vert[i0 + k];
+      vl = v | m.dl[i0 + k];
+      d = m.dr[i0 + k];
+    }
+    while (__any_sync(kAll, (vl | d) != 0)) {
+      // this lane's next join: with the pixel above (vertical) or up-left
+      // of it (diagonal), else up-right of it (diagonal)
+      int a = -1, b = -1;
+      if (vl | d) {
+        const bool first = vl != 0;
+        const int i = __ffs(first ? vl : d) - 1;
+        const unsigned le = kAll >> (31 - i);    // bits 0..i
+        a = row + last_start(s & le, k, rs);
+        b = first ? up + last_start(su & (v >> i & 1u ? le : le >> 1), k, rsu)
+                  : up + (k << 5) + i + 1;
+        if (first) vl &= vl - 1;
+        else d &= d - 1;
+      }
+      const int a0 = a, b0 = b;
+      roots2<true>(f, a, b);
+      if (a0 >= 0) {                   // the joined starts point at the root
+        const int root = min(a, b);
+        f.set(max(a, b), root);
+        f.set(a0, root);
+        f.set(b0, root);
+      }
+    }
+    rs = last_start(s, k, rs);
+    rsu = last_start(su, k, rsu);
+  }
+}
+
+// frames frames a block, `warps` warps a frame (see `layout`); the grids in
+// dynamic shared memory, label_frame_bytes(h, w) a frame.
+__global__ void __launch_bounds__(kLabelThreads, kLabelBlocksPerSm)
+label_kernel(const uint8_t* __restrict__ code_g, int* __restrict__ out_g,
+             int t, int h, int w, int conn_code, int frames, int warps) {
+  extern __shared__ __align__(16) unsigned lsm[];
+  const int lane = threadIdx.x & 31;
+  const int slot = (threadIdx.x >> 5) / warps;      // frame slot in the block
+  const int g = (threadIdx.x >> 5) - slot * warps;  // warp in the frame
+  const int frame = blockIdx.x * frames + slot;
+  if (frame >= t) return;
+  const int hw = h * w;
+  const int words = plane_words(w);
+  const int n_words = h * words;
+  const int tid = g * 32 + lane;                    // thread in the frame
+  const int bar_id = 1 + slot;
+  const int bar_n = warps * 32;
+  const uint8_t* code_in = code_g + static_cast<size_t>(frame) * hw;
+  int* out = out_g + static_cast<size_t>(frame) * hw;
+  unsigned* pa = lsm + slot * (label_frame_bytes(h, w) / 4);  // code 1 plane
+  unsigned* pb = pa + n_words;                                // code 2 plane
+  unsigned* parents = pa + align16(static_cast<size_t>(8) * n_words) / 4;
+  unsigned* work = parents + align16(2 * static_cast<size_t>(hw)) / 4;
+  const Forest16 f{shared_addr(parents)};
+  const Words m{work, work + n_words, work + 2 * n_words, work + 3 * n_words,
+                work + 4 * n_words};
+
+  // 1. the frame's codes staged in the work space with 16-byte loads, at
+  // the alignment of the frame's own bytes
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(code_in) & 15);
+  uint8_t* stage = reinterpret_cast<uint8_t*>(work) + mis;
+  {
+    const int a0 = min(hw, (16 - mis) & 15);       // first 16-B aligned byte
+    const int n16 = (hw - a0) >> 4;
+    const uint4* src = reinterpret_cast<const uint4*>(code_in + a0);
+    uint4* dst = reinterpret_cast<uint4*>(stage + a0);
+#pragma unroll 4
+    for (int i = tid; i < n16; i += bar_n) dst[i] = __ldg(src + i);
+    for (int i = tid; i < a0; i += bar_n) stage[i] = code_in[i];
+    for (int i = a0 + (n16 << 4) + tid; i < hw; i += bar_n)
+      stage[i] = code_in[i];
+  }
+  pass_barrier(bar_id, bar_n);
+
+  // 2. a warp a row: the two bit planes by two ballots per 32 pixels, and
+  // parent := self at every run start
+  for (int r = g; r < h; r += warps) {
+    unsigned ca = 0, cb = 0;
+    for (int k = 0; k < words; ++k) {
+      const int x = (k << 5) + lane;
+      const int c = x < w ? region_code(stage[r * w + x], conn_code) : 0;
+      const unsigned a = __ballot_sync(kAll, c == 1);
+      const unsigned b = __ballot_sync(kAll, c == 2);
+      if (lane == 0) {
+        pa[r * words + k] = a;
+        pb[r * words + k] = b;
+      }
+      if (run_starts(a, b, ca, cb) >> lane & 1u) f.set(r * w + x, r * w + x);
+      ca = a >> 31;
+      cb = b >> 31;
+    }
+  }
+  pass_barrier(bar_id, bar_n);
+
+  // 3. a thread a word (r, k), all words at once: its run starts, active
+  // pixels and joins to row r - 1, by shifts and masks of the planes (into
+  // the work space: the staged codes are no longer read)
+  for (int i = tid; i < n_words; i += bar_n) {
+    const int r = i / words, k = i - r * words;
+    const unsigned a = pa[i], b = pb[i];
+    const unsigned ca = k ? pa[i - 1] >> 31 : 0u, cb = k ? pb[i - 1] >> 31 : 0u;
+    unsigned vert = 0, dl = 0, dr = 0;
+    if (r > 0) {
+      const int u = i - words;
+      const unsigned au = pa[u], bu = pb[u];
+      const unsigned cau = k ? pa[u - 1] >> 31 : 0u;
+      const unsigned cbu = k ? pb[u - 1] >> 31 : 0u;
+      const unsigned an = k + 1 < words ? pa[u + 1] : 0u;
+      const unsigned va = a & au, vb = b & bu;
+      vert = (va & ~((va << 1) | (ca & cau))) | (vb & ~((vb << 1) | (cb & cbu)));
+      const unsigned da = a & ~au;                // code 1, other code above
+      dl = da & ((au << 1) | cau);
+      dr = da & ((au >> 1) | (an << 31));
+    }
+    m.s[i] = run_starts(a, b, ca, cb);
+    m.act[i] = a | b;
+    m.vert[i] = vert;
+    m.dl[i] = dl;
+    m.dr[i] = dr;
+  }
+  pass_barrier(bar_id, bar_n);
+
+  // 4. the rows joined in rounds, a thread a row: in round j the rows
+  // r = 2^j (2i + 1) join the 2^j rows above them to the 2^j rows from r on,
+  // two blocks no other row of the round touches; a tree spans one block of
+  // 2^(j+1) rows after round j, so a find is short
+  for (int step = 1; step < h; step *= 2) {
+    for (int r = step * (2 * tid + 1); __any_sync(kAll, r < h);
+         r += 2 * step * bar_n)
+      merge_row(f, m, r, w, words, r < h);
+    pass_barrier(bar_id, bar_n);
+  }
+
+  // 5. every run start's slot := its root (a thread a word, the lanes in
+  // lock-step; a read-only find: a slot that another thread flattens
+  // meanwhile still leads to the same root)
+  for (int i = tid; __any_sync(kAll, i < n_words); i += bar_n) {
+    const int r = i / words, k = i - r * words;
+    unsigned s = i < n_words ? m.s[i] : 0u;
+    while (__any_sync(kAll, s != 0)) {
+      int x = -1;
+      if (s) {
+        x = r * w + (k << 5) + __ffs(s) - 1;
+        s &= s - 1;
+      }
+      int rx = x, same = x;
+      roots2<false>(f, rx, same);
+      if (x >= 0) f.set(x, rx);
+    }
+  }
+  pass_barrier(bar_id, bar_n);
+
+  // 6. labels, a warp a row: each active pixel reads its run start's slot;
+  // inactive pixels read H*W
+  const uint16_t* slots = reinterpret_cast<const uint16_t*>(parents);
+  const unsigned le = kAll >> (31 - lane);
+  for (int r = g; r < h; r += warps) {
+    int rs = 0;
+#pragma unroll 4
+    for (int k = 0; k < words; ++k) {
+      const unsigned s = m.s[r * words + k], act = m.act[r * words + k];
+      const unsigned ms = s & le;
+      const int x = (k << 5) + lane;
+      if (x < w)
+        out[r * w + x] = (act >> lane & 1u)
+                             ? slots[r * w + (ms ? (k << 5) + 31 - __clz(ms) : rs)]
+                             : hw;
+      rs = last_start(s, k, rs);
+    }
+  }
+}
+
 cudaError_t allow_max_smem() {
-  return cudaFuncSetAttribute(min_root_fixpoint_kernel,
+  const cudaError_t err = cudaFuncSetAttribute(
+      min_root_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxDynamicSmem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(label_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(kMaxDynamicSmem));
+}
+
+// Thread blocks of this launch's kernel that fit one SM at once.
+cudaError_t blocks_per_sm(const Layout& lay, int* n) {
+  if (lay.frames > 0)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, label_kernel, lay.frames * lay.warps * 32, lay.smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, min_root_fixpoint_kernel, kThreads, lay.smem);
 }
 
 int launch(const void* code, const void* init, void* out, void* scratch,
@@ -379,10 +769,17 @@ int launch(const void* code, const void* init, void* out, void* scratch,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_max_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  min_root_fixpoint_kernel<<<t, kThreads, lay.smem, stream>>>(
-      static_cast<const uint8_t*>(code), static_cast<const int*>(init),
-      static_cast<int*>(out), static_cast<int*>(scratch), h, w, conn_code,
-      lay.smem != 0);
+  if (lay.frames > 0) {
+    label_kernel<<<(t + lay.frames - 1) / lay.frames,
+                   lay.frames * lay.warps * 32, lay.smem, stream>>>(
+        static_cast<const uint8_t*>(code), static_cast<int*>(out), t, h, w,
+        conn_code, lay.frames, lay.warps);
+  } else {
+    min_root_fixpoint_kernel<<<t, kThreads, lay.smem, stream>>>(
+        static_cast<const uint8_t*>(code), static_cast<const int*>(init),
+        static_cast<int*>(out), static_cast<int*>(scratch), h, w, conn_code,
+        lay.smem != 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,21 +793,24 @@ long long og_scratch_bytes(int t, int h, int w, int with_init) {
   return static_cast<long long>(layout(t, h, w, with_init != 0).scratch);
 }
 
-// Bytes of dynamic shared memory a launch at this frame size takes (0: the
-// grids are in device memory).
-long long og_smem_bytes(int h, int w) {
-  return static_cast<long long>(layout(1, h, w, false).smem);
-}
-
-// Thread blocks of a launch at this frame size that fit one SM at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
-int og_blocks_per_sm(int h, int w) {
+// The form a launch of this shape takes (`layout`), into out[7]: dynamic
+// shared memory a block, device scratch, frames a block (0: the fixpoint
+// form), warps a frame, threads a block, blocks the launch has, and blocks
+// that fit one SM at once (or minus a CUDA error).
+int og_layout(int t, int h, int w, int with_init, long long* out) {
+  if (t <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay = layout(t, h, w, with_init != 0);
   cudaError_t err = allow_max_smem();
   int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, min_root_fixpoint_kernel, kThreads, layout(1, h, w, false).smem);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
+  if (err == cudaSuccess) err = blocks_per_sm(lay, &n);
+  out[0] = static_cast<long long>(lay.smem);
+  out[1] = static_cast<long long>(lay.scratch);
+  out[2] = lay.frames;
+  out[3] = lay.warps;
+  out[4] = lay.frames > 0 ? lay.frames * lay.warps * 32 : kThreads;
+  out[5] = lay.frames > 0 ? (t + lay.frames - 1) / lay.frames : t;
+  out[6] = err == cudaSuccess ? n : -static_cast<int>(err);
+  return static_cast<int>(err);
 }
 
 // code: (T,H,W) uint8 in {0,1,2}; out: (T,H,W) int32.

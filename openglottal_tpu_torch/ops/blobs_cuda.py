@@ -15,10 +15,12 @@ frame-local flat index ``r*W + c``; pixels outside the region read ``H*W``.
 
 Bound on the card: bytes.  A launch must read 1 B/pixel of region code (plus
 4 B/pixel of ``init`` where there is one) and write 4 B/pixel of int32 output;
-the kernel keeps its parent grid and the codes in shared memory when they fit
-(a component's value lives in its root's parent slot), so device memory sees
-each input once and the output once (see the note at the top of
-``csrc/blobs.cu`` for the design).
+the kernels keep their parent grids and the codes in shared memory when they
+fit, so device memory sees each input once and the output once.  Without
+``init`` (``dual_cc_batch``, ``cc_batch``, ``cc``) a frame is labelled by a
+group of warps over bit planes of its codes and 16-bit parents; with
+``init`` a block a frame runs the fixpoint body, a component's value in its
+root's parent slot (see the note at the top of ``csrc/blobs.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its output
 with ``torch.empty``, launches on the current stream without synchronising,
