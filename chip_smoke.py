@@ -2725,11 +2725,8 @@ def mjpg_phase(dev, pipe, hold, counted, host_syncs, device_kernels, smi,
 
 # ── training (ROADMAP A9): the three kernels of csrc/train.cu ───────────────
 
-TRAIN_TOL = {"unet_augment": 1e-5, "bce_dice": 1e-4, "bce_dice_bwd": 1e-4,
-             "tal_assign": 1e-5}
-# (the augment image differs only through each image's mean, summed in
-# another order; the loss's sums are float32 in the kernel's blocks and
-# pairwise in torch's; relative to the value's magnitude for the loss)
+# (the kernels are held within tools/train_stress.py's TRAIN_TOL of their
+# plain versions)
 TRAIN_REPLACES = {
     "unet_augment": "openglottal_tpu/data/augment.py:112",
     "bce_dice": "openglottal_tpu/train/unet_trainer.py:49",
@@ -2750,20 +2747,25 @@ def train_runner(name, inputs, kw):
     if name == "unet_augment":
         imgs, msks, params, noise = inputs
         px = imgs.numel()
+        # u8 frame and mask, the parameter rows; f32 image and mask written;
+        # the f32 noise only of the samples that add it (the kernel reads
+        # no other)
+        noisy = int((params[:, 5] != 0).sum())
         return (lambda: T.unet_augment(imgs, msks, params, noise),
                 lambda: T.unet_augment_plain(imgs, msks, params, noise),
-                px * (1 + 1 + 4 + 4 + 4), px * 60)
+                px * (1 + 1 + 4 + 4) + params.numel() * 4
+                + noisy * (px // imgs.shape[0]) * 4, px * 60)
     if name == "bce_dice":
         logits, targets, valid = inputs
         n = logits.numel()
 
         def kfn():
             sums, cnt, loss = T._bce_dice_cuda(logits, targets, valid)
-            return (loss, sums)
+            return (loss, sums, cnt)
 
         def pfn():
             sums, cnt = T.bce_dice_sums_plain(logits, targets, valid)
-            return (T._loss_from_sums(sums, cnt), sums)
+            return (T._loss_from_sums(sums, cnt), sums, cnt)
         return kfn, pfn, n * 8, n * 30
     if name == "bce_dice_bwd":
         logits, targets, valid, sums, cnt, g = inputs
@@ -2791,6 +2793,8 @@ def hold_train(name, got, want, max_err: dict) -> None:
     largest)."""
     import torch
 
+    from openglottal_tpu_torch.tools.train_stress import TRAIN_TOL
+
     torch.cuda.synchronize()
     for k, (g, w) in enumerate(zip(got, want)):
         if g.shape != w.shape:
@@ -2811,66 +2815,72 @@ def hold_train(name, got, want, max_err: dict) -> None:
                                  f"{rel} (limit {TRAIN_TOL[name]})")
 
 
-def train_stress(dev, max_err: dict) -> list:
-    """Each training kernel against its plain version on stress inputs:
-    odd angles and every augment flag on and off, empty and full masks,
-    saturated frames; logits of ±40, masked rows; gt boxes at the frame's
-    edge, M = 1 and 4, top-k ties."""
+def order_model(name, inputs):
+    """The output of ``og_unet_augment`` / ``og_bce_dice`` on ``inputs`` as
+    their order models in ``tools/train_stress.py`` add it (the tuples of
+    ``train_runner``'s kernel fns), or None for the other kernels."""
+    from openglottal_tpu_torch.tools import train_stress as ts
+
+    if name == "unet_augment":
+        return ts.augment_model(*inputs)
+    if name == "bce_dice":
+        sums, cnt, loss = ts.bce_dice_model(*inputs)
+        return (loss, sums, cnt)
+    return None
+
+
+def hold_train_bits(name, got, again, inputs) -> None:
+    """A training kernel's output bit-equal to a repeat launch's and, for the
+    two with order models, to the model's."""
+    import torch
+
+    from openglottal_tpu_torch.tools.train_stress import same_bits
+
+    torch.cuda.synchronize()
+    if not same_bits(got, again):
+        raise AssertionError(f"{name}: a repeat launch differs in its bits")
+    model = order_model(name, inputs)
+    if model is not None and not same_bits(got, model):
+        raise AssertionError(f"{name}: differs in its bits from its order "
+                             f"model (tools/train_stress.py)")
+
+
+def train_stress(dev, max_err: dict) -> tuple:
+    """Each training kernel against its plain version (within TRAIN_TOL,
+    masks exact), a repeat launch (bit-equal) and, for og_unet_augment and
+    og_bce_dice, its order model (bit-equal) on ``tools/train_stress.py``'s
+    families (batches of 1, 3, 16, 17 with every flag on and off, angle,
+    scale, blur, brightness and contrast extremes, black, saturated and
+    constant frames, unaligned frames; logits of ±40 and ±88, soft
+    targets, masked and all-invalid rows, other sizes); the backward on
+    the loss's cases; gt boxes at the frame's edge, M = 1 and 4, top-k ties.
+    -> (labels, [(label, kernel name, kernel fn, plain output)])."""
     import numpy as np
     import torch
 
-    from openglottal_tpu_torch.data import augment
     from openglottal_tpu_torch.models.yolo import anchors_for
-    from openglottal_tpu_torch.ops import train_cuda as T
+    from openglottal_tpu_torch.tools.train_stress import stress_inputs
 
-    labels = []
+    labels, items = [], []
     rng = np.random.default_rng(21)
-    gen = torch.Generator(device=dev).manual_seed(21)
-    for b in (16, 3):
-        imgs = torch.from_numpy(rng.integers(0, 256, (b, 256, 256)).astype(
-            np.uint8)).to(dev)
-        imgs[0] = 255
-        msks = torch.zeros((b, 256, 256), dtype=torch.uint8, device=dev)
-        msks[:, 90:170, 100:160] = 1
-        msks[1 % b] = 1
-        msks[2 % b] = 0
-        msks[-1, :, :1] = 1
-        for case in ("drawn", "all on", "all off", "odd angles"):
-            params, noise = augment.sample_params(b, gen, dev)
-            if case == "all on":
-                params[:, [0, 1, 5, 7]] = 1.0
-            elif case == "all off":
-                params[:, [0, 1, 5, 7]] = 0.0
-                params[:, 4] = 1.0
-            elif case == "odd angles":
-                th = torch.tensor([90.0, -30.0, 45.0, 180.0, 0.0, 30.0],
-                                  device=dev).repeat(b)[:b] * (np.pi / 180)
-                params[:, 2], params[:, 3] = torch.cos(th), torch.sin(th)
-                params[:, 4] = torch.linspace(0.85, 1.15, b, device=dev)
-            hold_train("unet_augment", T.unet_augment(imgs, msks, params,
-                                                      noise),
-                       T.unet_augment_plain(imgs, msks, params, noise),
-                       max_err)
-            labels.append(f"unet_augment b={b} {case}")
-    for shape in ((16, 1, 256, 256), (5, 1, 64, 96), (1, 1, 7, 3)):
-        x = torch.from_numpy(rng.normal(0, 4, shape).astype(np.float32)
-                             ).to(dev)
-        x.view(-1)[:4] = torch.tensor([40.0, -40.0, 0.0, 90.0], device=dev)
-        for tk in ("random", "empty", "full"):
-            t = (torch.rand(shape, generator=gen, device=dev) > 0.7).float()
-            if tk != "random":
-                t.fill_(0.0 if tk == "empty" else 1.0)
-            for valid in (None, torch.arange(shape[0], device=dev)
-                          < max(1, shape[0] - 2)):
-                r = train_runner("bce_dice", (x, t, valid), {})
-                hold_train("bce_dice", r[0](), r[1](), max_err)
-                sums, cnt, _ = T._bce_dice_cuda(x, t, valid)
-                g = torch.tensor(0.75, device=dev)
-                r = train_runner("bce_dice_bwd", (x, t, valid, sums, cnt, g),
-                                 {})
-                hold_train("bce_dice_bwd", r[0](), r[1](), max_err)
-                labels.append(f"bce_dice {shape} {tk} "
-                              f"{'masked' if valid is not None else ''}")
+
+    def case(label, name, inputs):
+        kfn, pfn, _, _ = train_runner(name, inputs, {})
+        got, want = kfn(), pfn()
+        hold_train(name, got, want, max_err)
+        hold_train_bits(name, got, kfn(), inputs)
+        labels.append(label)
+        items.append((label, name, kfn, want))
+        return got
+
+    g = torch.tensor(0.75, device=dev)
+    for kind, label, inputs in stress_inputs(dev):
+        if kind == "augment":
+            case(f"unet_augment stress {label}", "unet_augment", inputs)
+            continue
+        _, sums, cnt = case(f"bce_dice stress {label}", "bce_dice", inputs)
+        case(f"bce_dice_bwd stress {label}", "bce_dice_bwd",
+             (*inputs, sums, cnt, g))
     for size in (256, 64):
         pts, _ = anchors_for(size, size, dev)
         a = pts.shape[0]
@@ -2893,10 +2903,9 @@ def train_stress(dev, max_err: dict) -> list:
                 np.float32)).to(dev)
             cls[3] = 0.0                              # ties: equal scores,
             pred[3] = gt[3, 0]                        # equal boxes
-            r = train_runner("tal_assign", (cls, pred, gt, gv, pts), {})
-            hold_train("tal_assign", r[0](), r[1](), max_err)
-            labels.append(f"tal_assign {size}² m={m}")
-    return labels
+            case(f"tal_assign stress {size}² m={m}", "tal_assign",
+                 (cls, pred, gt, gv, pts))
+    return labels, items
 
 
 def step_profile(fn, top: int = 8) -> dict:
@@ -2950,10 +2959,13 @@ def write_png_split(root, frames_bgr, masks, names_val: int):
     return img_dir, lbl_dir, root / "training.json"
 
 
-def train_phase(dev, smi, counted, logs):
+def train_phase(dev, smi, counted, logs, turns=None):
     """Training on the card (ROADMAP A9): the kernels against their plain
-    versions on stress inputs and on every launch of the fits; UNetTrainer
-    and YoloTrainer at full width; card vs CPU; the command line.  Returns
+    versions, a repeat launch and their order models on stress inputs and
+    on every launch of the fits; UNetTrainer and YoloTrainer at full width;
+    card vs CPU; the command line.  ``turns`` (with ``--against``) takes
+    [(label, kernel name, kernel fn, plain output)] of the stress cases and
+    the fits' launches and returns the in-turns line's fields.  Returns
     (the "train" line, the kernels' entries)."""
     import math as _math
     import shutil
@@ -2967,6 +2979,7 @@ def train_phase(dev, smi, counted, logs):
     from openglottal_tpu_torch.data.synthetic import synthetic_video
     from openglottal_tpu_torch.ops import train_cuda as T
     from openglottal_tpu_torch.pipelines import GlottalPipelines
+    from openglottal_tpu_torch.tools.train_stress import TRAIN_TOL
     from openglottal_tpu_torch.train import unet_trainer as ut
     from openglottal_tpu_torch.train import yolo_trainer as yt
     from openglottal_tpu_torch.utils.io import (
@@ -2977,7 +2990,7 @@ def train_phase(dev, smi, counted, logs):
 
     t_phase = time.perf_counter()
     max_err: dict = {}
-    stress = train_stress(dev, max_err)
+    stress, stress_items = train_stress(dev, max_err)
     work = Path(tempfile.mkdtemp(prefix="og_train_", dir="."))
     line = {"nvidia_smi": smi, "stress_cases": len(stress)}
     try:
@@ -3097,12 +3110,18 @@ def train_phase(dev, smi, counted, logs):
                        cli_crop, "launches": cli_counts,
                        "wall_s": time.perf_counter() - t0}
 
-        # ── (a) every launch of (b)-(e) held against its plain version ────
+        # ── (a) every launch of (b)-(e) held against its plain version, a
+        # repeat launch and (og_unet_augment, og_bce_dice) its order model ─
         per: dict = {}
         held = 0
-        for name, inputs, kw in record:
+        fit_items = []
+        for k, (name, inputs, kw) in enumerate(record):
             kfn, pfn, nbytes, ops = train_runner(name, inputs, kw)
-            hold_train(name, kfn(), pfn(), max_err)
+            got, want = kfn(), pfn()
+            hold_train(name, got, want, max_err)
+            hold_train_bits(name, got, kfn(), inputs)
+            shape = "x".join(map(str, inputs[0].shape))
+            fit_items.append((f"{name} fit {shape} #{k}", name, kfn, want))
             held += 1
             e = per.setdefault(name, {"bytes": nbytes, "ops": ops,
                                       "inputs": (inputs, kw),
@@ -3112,8 +3131,15 @@ def train_phase(dev, smi, counted, logs):
                              "inputs": (inputs, kw),
                              "shape": list(inputs[0].shape)}
         line["launches_held_equal_to_plain"] = held
+        line["repeat_launches_bit_equal"] = held + len(stress)
+        line["order_models_bit_equal"] = sum(
+            1 for _, n, _, _ in stress_items + fit_items
+            if n in ("unet_augment", "bce_dice"))
         if held != len(record):
             raise AssertionError("not every training launch was held")
+        if turns is not None:
+            line["against"] = turns(stress_items + fit_items)
+        del fit_items, stress_items
 
         # ── kernel ms at the served (largest) shapes, plain ms, bounds ─────
         entries = []
@@ -3937,9 +3963,105 @@ def main() -> int:
             raise AssertionError(f"{key}: not every launch was held")
         return held[key]
 
+    # ── other checkouts' kernels through this checkout's wrappers ───────
+    @contextlib.contextmanager
+    def kernel_libraries(libs):
+        """The wrappers launch the kernels of ``libs`` ({source: library},
+        the same C interfaces) inside the block."""
+        saved = {n: _build._libs[n] for n in libs}
+        _build._libs.update(libs)
+        blobs_cuda._configured = scan_cuda._configured = False
+        areas_cuda._configured = eval_cuda._configured = False
+        train_cuda._configured = False
+        try:
+            yield
+        finally:
+            _build._libs.update(saved)
+            blobs_cuda._configured = scan_cuda._configured = False
+            areas_cuda._configured = eval_cuda._configured = False
+            train_cuda._configured = False
+
+    def identical(got, want):
+        """Exact equality of a kernel's output(s), floats by their bits."""
+        if isinstance(got, tuple):
+            return all(identical(g, w_) for g, w_ in zip(got, want))
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
+
+    built_against = {}
+
+    def against_libraries():
+        """{tag: {source: library}} of this checkout and of every --against
+        checkout (built once, all nvcc processes started together), and the
+        builds with their compiler output."""
+        # (an older checkout may lack a later source; this checkout's
+        # library then serves its wrappers)
+        if not built_against:
+            built_against["built"] = _build.build_others(
+                {f"{src}_against{i}":
+                 Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
+                 for i, d in enumerate(against) for src in _build.SOURCES
+                 if (Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
+                     ).exists()},
+                ("-Xptxas", "-v"))
+        built = built_against["built"]
+        return ({"this": {src: _build.load(src) for src in _build.SOURCES},
+                 **{d: {src: built[f"{src}_against{i}"][0]
+                        for src in _build.SOURCES
+                        if f"{src}_against{i}" in built}
+                    for i, d in enumerate(against)}}, built)
+
+    def train_against(items) -> dict:
+        """The training kernels of this checkout and of every --against
+        checkout on the same inputs, through this checkout's wrappers: each
+        checkout's output bit-identical to this checkout's and within
+        TRAIN_TOL of the plain version (masks exact), then timed in turns
+        (this, a, a, this; a checkout's ``ms`` is the mean of its turns).
+        items: (label, kernel name, kernel fn, plain output)."""
+        libs, built = against_libraries()
+        order = [*libs, *reversed(libs)]
+        first, err = {}, {}
+        each = {label: {tag: [] for tag in libs} for label, *_ in items}
+        for tag in order:
+            with kernel_libraries(libs[tag]):
+                for label, name, kfn, want in items:
+                    if not each[label][tag]:
+                        got = kfn()
+                        hold_train(name, got, want, err)
+                        if label not in first:
+                            first[label] = got
+                        elif not identical(got, first[label]):
+                            raise AssertionError(
+                                f"{tag}: {label} differs in its bits from "
+                                f"this checkout's kernel")
+                    each[label][tag].append(time_cuda(kfn, 20))
+        mean = {label: {t: sum(v) / len(v) for t, v in by.items()}
+                for label, by in each.items()}
+        groups = {}
+        for label, name, _, _ in items:
+            g = groups.setdefault(f"{name} {label.split()[1]}",
+                                  {t: [] for t in libs})
+            for tag, v in mean[label].items():
+                g[tag].append(v)
+        return {"order": order, "timing": TIMING, "items": len(items),
+                "compared": "every checkout's output bit-identical to this "
+                "checkout's; within TRAIN_TOL of the plain version, masks "
+                "exact", "max_err_vs_plain": err,
+                "ptxas": {d: ptxas_summary(built[f"train_against{i}"][1])
+                          for i, d in enumerate(against)
+                          if f"train_against{i}" in built},
+                "ms_mean_over_items": {
+                    k: {t: sum(v) / len(v) for t, v in g.items()}
+                    for k, g in groups.items()},
+                "ms_each_item": mean}
+
+    train_turns = train_against if against else None
+
     if "--train" in args:
         # the training phase alone: its kernels, both trainers, the CLI
-        train_line, train_entries = train_phase(dev, smi, counted, logs)
+        train_line, train_entries = train_phase(dev, smi, counted, logs,
+                                                train_turns)
         say("train", compared="masks, best_gt and assigned exact; floats "
             "within TRAIN_TOL of the plain version", **train_line)
         print(json.dumps({"kernels": train_entries, "timing": TIMING}),
@@ -4383,52 +4505,6 @@ def main() -> int:
                 lambda: tracker_mod.motion_map(*args, use_plain=True), 1)})
 
     # ── in turns against other checkouts' kernels (--against) ───────────
-    @contextlib.contextmanager
-    def kernel_libraries(libs):
-        """The wrappers launch the kernels of ``libs`` ({source: library},
-        the same C interfaces) inside the block."""
-        saved = {n: _build._libs[n] for n in libs}
-        _build._libs.update(libs)
-        blobs_cuda._configured = scan_cuda._configured = False
-        areas_cuda._configured = eval_cuda._configured = False
-        try:
-            yield
-        finally:
-            _build._libs.update(saved)
-            blobs_cuda._configured = scan_cuda._configured = False
-            areas_cuda._configured = eval_cuda._configured = False
-
-    def identical(got, want):
-        """Exact equality of a kernel's output(s), floats by their bits."""
-        if isinstance(got, tuple):
-            return all(identical(g, w_) for g, w_ in zip(got, want))
-        if got.dtype.is_floating_point:
-            got, want = got.view(torch.int32), want.view(torch.int32)
-        return torch.equal(got, want)
-
-    built_against = {}
-
-    def against_libraries():
-        """{tag: {source: library}} of this checkout and of every --against
-        checkout (built once, all nvcc processes started together), and the
-        builds with their compiler output."""
-        # (an older checkout may lack a later source; this checkout's
-        # library then serves its wrappers)
-        if not built_against:
-            built_against["built"] = _build.build_others(
-                {f"{src}_against{i}":
-                 Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
-                 for i, d in enumerate(against) for src in _build.SOURCES
-                 if (Path(d) / f"openglottal_tpu_torch/csrc/{src}.cu"
-                     ).exists()},
-                ("-Xptxas", "-v"))
-        built = built_against["built"]
-        return ({"this": {src: _build.load(src) for src in _build.SOURCES},
-                 **{d: {src: built[f"{src}_against{i}"][0]
-                        for src in _build.SOURCES
-                        if f"{src}_against{i}" in built}
-                    for i, d in enumerate(against)}}, built)
-
     def in_turns(items, walls=None):
         """The kernels of this checkout and of every --against checkout on
         the same inputs, through this checkout's wrappers: each held exactly
@@ -5033,7 +5109,8 @@ def main() -> int:
         "stress stream and every recorded launch", **mjpg_line)
 
     # ── training: the kernels of csrc/train.cu, both trainers, the CLI ──
-    train_line, train_entries = train_phase(dev, smi, counted, logs)
+    train_line, train_entries = train_phase(dev, smi, counted, logs,
+                                            train_turns)
     reset_counts()
     held["train"] = train_line["launches_held_equal_to_plain"]
     say("train", compared="masks, best_gt and assigned exact; floats "

@@ -10,17 +10,54 @@
 //       separable blur, brightness, then contrast against the image's mean.
 //       Bound by bytes: u8 frame and mask, f32 noise read once, f32 image
 //       and mask written once (14.7 MB at batch 16 of 256²: 4.4 us at 3.35
-//       TB/s).  A 256² f32 image (256 KB) does not fit one block's shared
-//       memory, so the pass is cut in row tiles of 16 (+2 halo rows each
-//       side, recomputed) held in shared memory for the blur; each tile
-//       writes its partial sum, and a second small launch (augment_contrast)
-//       takes each image's mean from its tiles' partials in a fixed order
-//       and applies the contrast in place.
+//       TB/s).  One launch; a sample is a cluster of 8 blocks of 512
+//       threads, a block 32 output rows, two blocks an SM (108,736 bytes of
+//       shared memory each), so that the card holds 16 clusters at once:
+//       - the sample's u8 frame is staged whole in every block's shared
+//         memory, in rows of 272 bytes with a zero border (2 rows above and
+//         below, 16 bytes left of each row).  Each block issues the TMA
+//         bulk copies of its own 32 rows and multicasts them to the
+//         cluster, so the cluster reads the frame once.  The four bilinear
+//         gathers read shared memory with no bounds test: a source
+//         coordinate is clamped into the border, whose zeros are the zero
+//         fill.  The nearest mask sample (one a pixel) is read from global
+//         memory;
+//       - (k - c) / scale for k = 0..255 is one table a block that serves
+//         both axes (no division a pixel);
+//       - the block computes its 36 rows (2 halo rows each side feed the
+//         blur) of gather and noise into shared memory, the blur's two
+//         passes in place over them, and keeps its own pixels in
+//         registers;
+//       - the image's mean: each 16-row tile sums each column over its 16
+//         rows in order, the warps' __shfl_down trees (16, 8, 4, 2, 1) add
+//         32 columns, the 8 warps of a tile are added in order; the 16 tile
+//         partials cross the cluster through distributed shared memory and
+//         are added in tile order, then divided by 65,536.  This is the
+//         association of the earlier two-launch form (a tile pass, then a
+//         contrast pass), so the bits are the same;
+//       - each block applies the contrast and stores each pixel once.
 //   og_bce_dice      <- openglottal_tpu/train/unet_trainer.py:49 (_loss_fn)
-//       and :89 (unet_eval_loss_masked): one pass over logits and targets
-//       giving sum BCE, sum sigma*t, sum sigma, sum t per block, then one
-//       block that adds the partials in a fixed order (double) and forms the
-//       loss.  Bound by bytes (8.4 MB forward at batch 16: 2.5 us).
+//       and :89 (unet_eval_loss_masked): sum BCE, sum sigma*t, sum sigma,
+//       sum t over the valid rows, then the loss.  Bound by bytes (8.4 MB
+//       forward at batch 16: 2.5 us).  One launch of `blocks` blocks of
+//       256 threads: element i goes to thread i mod (blocks*256), which
+//       adds its elements in order of i; each block adds its threads by the
+//       warps' __shfl_down trees and its 8 warps in order.  Each of those
+//       (logical) threads is two threads of a 512-thread block: of each 16
+//       of its elements, the second computes the terms of the last 8 and
+//       passes them through shared memory, the first computes the first 8
+//       and adds all 16 in order.  A thread loads its 8 elements before
+//       their arithmetic; a masked call steps the element's row with the
+//       stride (one division a thread per 16 elements, not one an
+//       element); log1p(exp(-|x|)) serves both log-sigmoids.  The last
+//       block to finish (an atomic ticket taken after a release fence) adds
+//       the blocks' partials in double in a fixed order and forms the
+//       loss.  The ticket is the word after the blocks' partials in
+//       `partial`, zero at every launch (the last block resets it).  So a
+//       launch owns its `partial` until it ends: launches that may overlap
+//       (on different streams) each take their own; launches on one stream
+//       run one after another and may share one.  The wrapper keeps one
+//       zeroed buffer for each device and stream.
 //   og_bce_dice_bwd  the loss's gradient, one elementwise pass from the
 //       saved sums (12.6 MB: 3.8 us).
 //   og_tal_assign    <- openglottal_tpu/train/yolo_loss.py:98-133: the
@@ -32,6 +69,9 @@
 // Rounding: every product and sum is written with __fmul_rn / __fadd_rn /
 // __fmaf_rn, so nvcc contracts nothing; the forms are the plain versions'
 // (ops/train_cuda.py), which are the JAX package's compiled forms.
+//
+// tools/train_cycles.py measures a copy of this file with clock64() marks
+// at the kernels' barriers; nothing of it is kept here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,8 +79,7 @@
 namespace {
 
 constexpr int S = 256;          // the augment's frame side
-constexpr int TILE = 16;        // rows of a sample a block takes
-constexpr int NTILE = S / TILE;
+constexpr int TILE = 16;        // rows of a tile of the image's mean
 constexpr int NP = 16;          // per-sample parameter row
 constexpr int THREADS = 256;
 
@@ -52,42 +91,146 @@ __device__ __forceinline__ int reflect101(int i) {
   return i < 0 ? -i : (i >= S ? 2 * S - 2 - i : i);
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float warp_tree(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) red[w] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-  __syncthreads();
-  return s;   // valid in thread 0
+  return v;   // valid in lane 0
 }
 
-// pixel value of the u8 frame at float indices, zero outside
-__device__ __forceinline__ float at_u8(const uint8_t* img, float yi, float xi,
-                                       float inv255) {
-  bool inb = yi >= 0.f && yi < (float)S && xi >= 0.f && xi < (float)S;
-  int yc = (int)fminf(fmaxf(yi, 0.f), (float)(S - 1));
-  int xc = (int)fminf(fmaxf(xi, 0.f), (float)(S - 1));
-  return inb ? __fmul_rn((float)img[yc * S + xc], inv255) : 0.f;
+// ── cluster, mbarrier and TMA helpers ───────────────────────────────────
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
-augment_tiles(const uint8_t* __restrict__ imgs,
-              const uint8_t* __restrict__ msks,
-              const float* __restrict__ params, const float* __restrict__ noise,
-              float* __restrict__ out_img, float* __restrict__ out_msk,
-              float* __restrict__ partial) {
-  __shared__ float g[TILE + 4][S];   // geometry + noise, rows r0-2 .. r0+TILE+1
-  __shared__ float r[TILE][S];       // the blur's row pass
-  __shared__ float red[THREADS / 32];
-  const int b = blockIdx.y, r0 = blockIdx.x * TILE;
+// All threads of every block of the cluster arrive (and wait); shared-memory
+// writes before the arrival are visible to every block after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The float at `p` (this block's shared memory) in block `rank`'s shared
+// memory.
+__device__ __forceinline__ float ld_rank(const float* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(r)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed; traps (the launch
+// fails) rather than spin for ever should the copies never land.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 24)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from 16-B aligned global memory to the same
+// 16-B aligned offset of the shared memory of every block in `ranks` (a mask
+// of cluster ranks), each completing the bytes on its mbarrier at `bar`.
+__device__ __forceinline__ void bulk_multicast(unsigned dst, const void* src,
+                                               unsigned bytes, unsigned bar,
+                                               unsigned short ranks) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(ranks)
+      : "memory");
+}
+
+// ── og_unet_augment ─────────────────────────────────────────────────────
+
+constexpr int AUG_RANKS = 8;                  // blocks of a sample's cluster
+constexpr int AUG_ROWS = S / AUG_RANKS;       // output rows a block
+constexpr int AUG_TILES = AUG_ROWS / TILE;    // mean tiles a block
+constexpr int AUG_THREADS = 512;
+constexpr int AUG_LANES = AUG_THREADS / S;    // threads a column
+constexpr int AUG_HALO = 2;
+constexpr int AUG_GROWS = AUG_ROWS + 2 * AUG_HALO;   // rows of gather
+constexpr int AUG_PER_LANE = AUG_ROWS / AUG_LANES;   // output pixels kept
+constexpr int AUG_HALO_PER_LANE = 2 * AUG_HALO / AUG_LANES;
+// the staged frame: 2 zero rows above and below, each row 16 zero bytes then
+// the 256 pixels (x = 256, 257 read the next row's zeros), 16 bytes of
+// zeros after the last row
+constexpr int FR_PAD = 16;
+constexpr int FR_STRIDE = FR_PAD + S;                     // 272
+constexpr int FR_BYTES = (S + 4) * FR_STRIDE + 16;        // 70,736
+constexpr int FR_ROW_WORDS = FR_STRIDE / 4;
+constexpr int FR_TOP_WORDS = 2 * FR_ROW_WORDS;            // rows 0, 1
+constexpr int FR_BOTTOM_WORD = (S + 2) * FR_ROW_WORDS;    // rows 258, 259
+constexpr int FR_BOTTOM_WORDS = FR_BYTES / 4 - FR_BOTTOM_WORD;
+constexpr int FR_PAD_WORDS = FR_PAD / 4;
+constexpr int FR_ZERO_WORDS =
+    FR_TOP_WORDS + FR_BOTTOM_WORDS + S * FR_PAD_WORDS;
+constexpr int AUG_G_OFF = FR_BYTES;                       // gather rows
+constexpr int AUG_TAB_OFF = AUG_G_OFF + AUG_GROWS * S * 4;
+constexpr int AUG_RED_OFF = AUG_TAB_OFF + S * 4;          // [tiles][8]
+constexpr int AUG_PART_OFF = AUG_RED_OFF + AUG_TILES * 8 * 4;
+constexpr int AUG_MEAN_OFF = AUG_PART_OFF + 16;
+constexpr int AUG_BAR_OFF = AUG_MEAN_OFF + 16;
+constexpr int AUG_SMEM = AUG_BAR_OFF + 16;                // 108,736 bytes
+// two blocks an SM (1 KB of each SM's shared memory is the system's a
+// block): the card holds 16 clusters at once only so
+static_assert(2 * (AUG_SMEM + 1024) <= 233472, "the augment's shared memory");
+static_assert(FR_BYTES % 16 == 0 && AUG_G_OFF % 16 == 0, "16-B alignment");
+
+__global__ void __cluster_dims__(AUG_RANKS, 1, 1)
+    __launch_bounds__(AUG_THREADS, 2)
+augment_kernel(const uint8_t* __restrict__ imgs,
+               const uint8_t* __restrict__ msks,
+               const float* __restrict__ params,
+               const float* __restrict__ noise, float* __restrict__ out_img,
+               float* __restrict__ out_msk) {
+  extern __shared__ __align__(16) unsigned char aug_smem[];
+  uint8_t* const fimg = aug_smem;
+  float* const g = reinterpret_cast<float*>(aug_smem + AUG_G_OFF);
+  float* const tab = reinterpret_cast<float*>(aug_smem + AUG_TAB_OFF);
+  float* const red = reinterpret_cast<float*>(aug_smem + AUG_RED_OFF);
+  float* const part = reinterpret_cast<float*>(aug_smem + AUG_PART_OFF);
+  float* const shmean = reinterpret_cast<float*>(aug_smem + AUG_MEAN_OFF);
+  const unsigned bar = smem_addr(aug_smem + AUG_BAR_OFF);
+
+  const int tid = threadIdx.x;
+  const int x = tid % S, lane_row = tid / S;
+  const int rank = blockIdx.x;          // the cluster spans the grid's x
+  const int b = blockIdx.y, r0 = rank * AUG_ROWS;
   const float* p = params + (size_t)b * NP;
   const bool hf = p[0] != 0.f, vf = p[1] != 0.f;
   const float ct = p[2], st = p[3], sc = p[4];
   const bool dn = p[5] != 0.f, db = p[7] != 0.f;
-  const float sig = p[6], br = p[13];
+  const float sig = p[6], br = p[13], cc = p[14];
   float k[5];
 #pragma unroll
   for (int d = 0; d < 5; ++d) k[d] = p[8 + d];
@@ -96,14 +239,95 @@ augment_tiles(const uint8_t* __restrict__ imgs,
   const float* nz = noise + (size_t)b * S * S;
   const float inv255 = 1.f / 255.f;   // f32(1/255): XLA's form of / 255
   const float c = (S - 1) / 2.f;
+  // (the same for every block of the grid: the samples are 65,536 bytes
+  // apart)
+  const bool tma = (reinterpret_cast<uintptr_t>(imgs) & 15) == 0;
 
-  for (int i = threadIdx.x; i < (TILE + 4) * S; i += blockDim.x) {
-    const int lr = i / S, x = i % S;
-    const bool in_tile = lr >= 2 && lr < TILE + 2;
-    if (!db && !in_tile) continue;    // the halo only feeds the blur
-    const int yrow = reflect101(r0 - 2 + lr);
-    const float xf = __fdiv_rn(__fsub_rn((float)x, c), sc);
-    const float yf = __fdiv_rn(__fsub_rn((float)yrow, c), sc);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  // the frame's zero border, word by word
+  unsigned* const fw = reinterpret_cast<unsigned*>(fimg);
+  for (int i = tid; i < FR_ZERO_WORDS; i += AUG_THREADS) {
+    int w = i;
+    if (i >= FR_TOP_WORDS + FR_BOTTOM_WORDS) {
+      const int q = i - FR_TOP_WORDS - FR_BOTTOM_WORDS;
+      w = (q / FR_PAD_WORDS + 2) * FR_ROW_WORDS + q % FR_PAD_WORDS;
+    } else if (i >= FR_TOP_WORDS) {
+      w = FR_BOTTOM_WORD + i - FR_TOP_WORDS;
+    }
+    fw[w] = 0u;
+  }
+  if (tid < S) tab[tid] = __fdiv_rn(__fsub_rn((float)tid, c), sc);
+  // the noise of this thread's rows, loaded ahead of the frame: its output
+  // rows (g rows 2 ..), and with the blur its halo rows (g rows 0, 1 and
+  // AUG_ROWS + 2, AUG_ROWS + 3)
+  auto halo_row = [&](int h) {
+    const int q = lane_row + h * AUG_LANES;
+    return q < AUG_HALO ? q : AUG_ROWS + q;
+  };
+  float nv[AUG_PER_LANE], nh[AUG_HALO_PER_LANE];
+#pragma unroll
+  for (int j = 0; j < AUG_PER_LANE; ++j)
+    nv[j] = dn ? nz[(r0 + lane_row + j * AUG_LANES) * S + x] : 0.f;
+#pragma unroll
+  for (int h = 0; h < AUG_HALO_PER_LANE; ++h)
+    nh[h] = (dn && db) ? nz[reflect101(r0 - AUG_HALO + halo_row(h)) * S + x]
+                       : 0.f;
+  __syncthreads();
+  // every block's mbarrier is initialised before any block's copies land
+  // (its fence releases the initialisation; nothing else to release)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  cluster_wait();
+  if (tma) {
+    if (tid == 0) mbar_expect(bar, (unsigned)(S * S));
+    // lane 0 of each warp issues its rows' copies (a warp's lanes would
+    // issue theirs one after another)
+    if ((tid & 31) == 0)
+      for (int row = r0 + (tid >> 5); row < r0 + AUG_ROWS;
+           row += AUG_THREADS / 32)
+        bulk_multicast(smem_addr(fimg + (row + 2) * FR_STRIDE + FR_PAD),
+                       img + (size_t)row * S, S, bar,
+                       (unsigned short)((1u << AUG_RANKS) - 1));
+  } else {
+    // an unaligned batch: every block reads the whole frame itself
+    for (int i = tid; i < S * S; i += AUG_THREADS)
+      fimg[(i / S + 2) * FR_STRIDE + FR_PAD + i % S] = img[i];
+  }
+
+  // ── the mask: the nearest samples of this thread's output rows from
+  // global memory, their loads in flight while the frame lands
+  const float xf = tab[x];
+  {
+    float mv[AUG_PER_LANE];
+#pragma unroll
+    for (int j = 0; j < AUG_PER_LANE; ++j) {
+      const float yf = tab[r0 + lane_row + j * AUG_LANES];
+      float sx = __fadd_rn(__fmaf_rn(ct, xf, -__fmul_rn(st, yf)), c);
+      float sy = __fadd_rn(__fmaf_rn(st, xf, __fmul_rn(ct, yf)), c);
+      if (hf) sx = __fsub_rn((float)(S - 1), sx);
+      if (vf) sy = __fsub_rn((float)(S - 1), sy);
+      // round half to even, zero outside
+      const float yi = rintf(sy), xi = rintf(sx);
+      const bool inb =
+          yi >= 0.f && yi < (float)S && xi >= 0.f && xi < (float)S;
+      const int ym = (int)fminf(fmaxf(yi, 0.f), (float)(S - 1));
+      const int xm = (int)fminf(fmaxf(xi, 0.f), (float)(S - 1));
+      mv[j] = inb ? (float)msk[ym * S + xm] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < AUG_PER_LANE; ++j)
+      out_msk[((size_t)b * S + r0 + lane_row + j * AUG_LANES) * S + x] =
+          mv[j];
+  }
+  __syncthreads();
+  if (tma) mbar_wait(bar, 0);
+
+  // ── gather and noise of g row `lr` (image row reflect101(r0 - 2 + lr))
+  auto gather = [&](int lr, float nzv) {
+    const float yf = tab[reflect101(r0 - AUG_HALO + lr)];
     float sx = __fadd_rn(__fmaf_rn(ct, xf, -__fmul_rn(st, yf)), c);
     float sy = __fadd_rn(__fmaf_rn(st, xf, __fmul_rn(ct, yf)), c);
     if (hf) sx = __fsub_rn((float)(S - 1), sx);
@@ -111,143 +335,308 @@ augment_tiles(const uint8_t* __restrict__ imgs,
     const float y0 = floorf(sy), x0 = floorf(sx);
     const float wy = __fsub_rn(sy, y0), wx = __fsub_rn(sx, x0);
     const float owy = __fsub_rn(1.f, wy), owx = __fsub_rn(1.f, wx);
-    const float v00 = at_u8(img, y0, x0, inv255);
-    const float v01 = at_u8(img, y0, __fadd_rn(x0, 1.f), inv255);
-    const float v10 = at_u8(img, __fadd_rn(y0, 1.f), x0, inv255);
-    const float v11 = at_u8(img, __fadd_rn(y0, 1.f), __fadd_rn(x0, 1.f),
-                            inv255);
+    // a source pixel outside the frame reads the zero border
+    const int yc = (int)fminf(fmaxf(y0, -2.f), (float)S);
+    const int xc = (int)fminf(fmaxf(x0, -2.f), (float)S);
+    const uint8_t* q = fimg + (yc + 2) * FR_STRIDE + FR_PAD + xc;
+    const float v00 = __fmul_rn((float)q[0], inv255);
+    const float v01 = __fmul_rn((float)q[1], inv255);
+    const float v10 = __fmul_rn((float)q[FR_STRIDE], inv255);
+    const float v11 = __fmul_rn((float)q[FR_STRIDE + 1], inv255);
     float v = __fmaf_rn(__fmul_rn(owy, owx), v00,
                         __fmul_rn(__fmul_rn(owy, wx), v01));
     v = __fmaf_rn(__fmul_rn(wy, owx), v10, v);
     v = __fmaf_rn(__fmul_rn(wy, wx), v11, v);
-    if (dn) v = clamp01(__fmaf_rn(nz[yrow * S + x], sig, v));
-    g[lr][x] = v;
-    if (in_tile) {
-      // nearest mask sample: round half to even, zero outside
-      const float yi = rintf(sy), xi = rintf(sx);
-      const bool inb = yi >= 0.f && yi < (float)S && xi >= 0.f && xi < (float)S;
-      const int yc = (int)fminf(fmaxf(yi, 0.f), (float)(S - 1));
-      const int xc = (int)fminf(fmaxf(xi, 0.f), (float)(S - 1));
-      out_msk[((size_t)b * S + r0 + lr - 2) * S + x] =
-          inb ? (float)msk[yc * S + xc] : 0.f;
-    }
+    if (dn) v = clamp01(__fmaf_rn(nzv, sig, v));
+    g[lr * S + x] = v;
+  };
+#pragma unroll
+  for (int j = 0; j < AUG_PER_LANE; ++j)
+    gather(AUG_HALO + lane_row + j * AUG_LANES, nv[j]);
+  if (db) {
+#pragma unroll
+    for (int h = 0; h < AUG_HALO_PER_LANE; ++h) gather(halo_row(h), nh[h]);
   }
   __syncthreads();
+
+  // ── the blur's row pass (across rows), in place over the gather rows
   if (db) {
-    for (int i = threadIdx.x; i < TILE * S; i += blockDim.x) {
-      const int lr = i / S, x = i % S;
-      float acc = __fmaf_rn(k[0], g[lr][x], __fmul_rn(k[1], g[lr + 1][x]));
+    float rr[AUG_PER_LANE];
 #pragma unroll
-      for (int d = 2; d < 5; ++d) acc = __fmaf_rn(k[d], g[lr + d][x], acc);
-      r[lr][x] = acc;
-    }
-    __syncthreads();
-  }
-  float sum = 0.f;
-  for (int i = threadIdx.x; i < TILE * S; i += blockDim.x) {
-    const int lr = i / S, x = i % S;
-    float v;
-    if (db) {
-      v = __fmaf_rn(k[0], r[lr][reflect101(x - 2)],
-                    __fmul_rn(k[1], r[lr][reflect101(x - 1)]));
+    for (int j = 0; j < AUG_PER_LANE; ++j) {
+      const int lr = lane_row + j * AUG_LANES;
+      float acc = __fmaf_rn(k[0], g[lr * S + x],
+                            __fmul_rn(k[1], g[(lr + 1) * S + x]));
 #pragma unroll
       for (int d = 2; d < 5; ++d)
-        v = __fmaf_rn(k[d], r[lr][reflect101(x + d - 2)], v);
-    } else {
-      v = g[lr + 2][x];
+        acc = __fmaf_rn(k[d], g[(lr + d) * S + x], acc);
+      rr[j] = acc;
     }
-    v = clamp01(__fmul_rn(v, br));
-    out_img[((size_t)b * S + r0 + lr) * S + x] = v;
-    sum += v;
-  }
-  sum = block_sum(sum, red);
-  if (threadIdx.x == 0) partial[b * NTILE + blockIdx.x] = sum;
-}
-
-__global__ void __launch_bounds__(THREADS)
-augment_contrast(const float* __restrict__ params,
-                 const float* __restrict__ partial,
-                 float* __restrict__ out_img) {
-  const int b = blockIdx.y, r0 = blockIdx.x * TILE;
-  const float cc = params[(size_t)b * NP + 14];
-  float s = 0.f;
-  for (int t = 0; t < NTILE; ++t) s += partial[b * NTILE + t];
-  const float mean = __fdiv_rn(s, (float)(S * S));
-  const float off = __fmul_rn(__fsub_rn(1.f, cc), mean);
-  float* o = out_img + ((size_t)b * S + r0) * S;
-  for (int i = threadIdx.x; i < TILE * S; i += blockDim.x)
-    o[i] = clamp01(__fmaf_rn(cc, o[i], off));
-}
-
-// ── the loss ────────────────────────────────────────────────────────────
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  // -softplus(-x), stable for any x
-  return -__fadd_rn(fmaxf(-x, 0.f), log1pf(expf(-fabsf(x))));
-}
-
-__global__ void __launch_bounds__(THREADS)
-bce_dice_partial(const float* __restrict__ x, const float* __restrict__ t,
-                 const uint8_t* __restrict__ valid, float* __restrict__ partial,
-                 int rows, int per_row) {
-  __shared__ float red[THREADS / 32];
-  const long long n = (long long)rows * per_row;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (valid && !valid[i / per_row]) continue;
-    const float xi = x[i], ti = t[i];
-    const float bce = __fsub_rn(
-        -__fmul_rn(ti, log_sigmoid(xi)),
-        __fmul_rn(__fsub_rn(1.f, ti), log_sigmoid(-xi)));
-    const float p = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-xi)));
-    s[0] += bce;
-    s[1] += __fmul_rn(p, ti);
-    s[2] += p;
-    s[3] += ti;
-  }
-  for (int j = 0; j < 4; ++j) {
-    const float v = block_sum(s[j], red);
-    if (threadIdx.x == 0) partial[blockIdx.x * 4 + j] = v;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-bce_dice_finish(const float* __restrict__ partial, int blocks,
-                const uint8_t* __restrict__ valid, int rows, int per_row,
-                float* __restrict__ out) {
-  __shared__ double red[4][THREADS];
-  __shared__ int nvalid;
-  for (int j = 0; j < 4; ++j) {
-    double a = 0.0;
-    for (int i = threadIdx.x; i < blocks; i += blockDim.x)
-      a += (double)partial[i * 4 + j];
-    red[j][threadIdx.x] = a;
-  }
-  if (threadIdx.x == 0) {
-    int nv = 0;
-    for (int i = 0; i < rows; ++i) nv += valid ? (valid[i] != 0) : 1;
-    nvalid = nv;
-  }
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if ((int)threadIdx.x < w)
-      for (int j = 0; j < 4; ++j)
-        red[j][threadIdx.x] += red[j][threadIdx.x + w];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < AUG_PER_LANE; ++j)
+      g[(lane_row + j * AUG_LANES) * S + x] = rr[j];
     __syncthreads();
   }
+  // ── its column pass and the brightness, kept in registers and, for the
+  // mean, in place over rows 0 .. 31
+  float vv[AUG_PER_LANE];
+#pragma unroll
+  for (int j = 0; j < AUG_PER_LANE; ++j) {
+    const int lr = lane_row + j * AUG_LANES;
+    float v;
+    if (db) {
+      const float* row = g + lr * S;
+      v = __fmaf_rn(k[0], row[reflect101(x - 2)],
+                    __fmul_rn(k[1], row[reflect101(x - 1)]));
+#pragma unroll
+      for (int d = 2; d < 5; ++d)
+        v = __fmaf_rn(k[d], row[reflect101(x + d - 2)], v);
+    } else {
+      v = g[(lr + AUG_HALO) * S + x];
+    }
+    vv[j] = clamp01(__fmul_rn(v, br));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < AUG_PER_LANE; ++j)
+    g[(lane_row + j * AUG_LANES) * S + x] = vv[j];
+  __syncthreads();
+
+  // ── the image's mean, in the tiles' order
+  {
+    const int t = tid / S;
+    float s = 0.f;
+    for (int i = 0; i < TILE; ++i) s += g[(t * TILE + i) * S + x];
+    s = warp_tree(s);
+    if ((tid & 31) == 0) red[t * 8 + ((tid >> 5) & 7)] = s;
+  }
+  __syncthreads();
+  if (tid < AUG_TILES) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[tid * 8 + w];
+    part[tid] = s;
+  }
+  cluster_arrive();
+  cluster_wait();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int q = 0; q < AUG_RANKS; ++q)
+      for (int t = 0; t < AUG_TILES; ++t) s += ld_rank(part + t, q);
+    shmean[0] = __fdiv_rn(s, (float)(S * S));
+  }
+  __syncthreads();
+  // no block leaves while another may still read its partials
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // ── contrast, one store a pixel
+  const float off = __fmul_rn(__fsub_rn(1.f, cc), shmean[0]);
+#pragma unroll
+  for (int j = 0; j < AUG_PER_LANE; ++j) {
+    const int lr = lane_row + j * AUG_LANES;
+    out_img[((size_t)b * S + r0 + lr) * S + x] =
+        clamp01(__fmaf_rn(cc, vv[j], off));
+  }
+  cluster_wait();
+}
+
+// ── og_bce_dice ─────────────────────────────────────────────────────────
+
+constexpr int BCE_AHEAD = 16;    // elements of a logical thread a step
+constexpr int BCE_HALF = BCE_AHEAD / 2;   // of them, computed by each of
+constexpr int BCE_THREADS = 2 * THREADS;  // its two threads
+constexpr int BCE_MAX_LAPS = 4;  // the finish's partials a thread, loaded
+                                 // together (more are added as they come)
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// log_sigmoid(x) = -softplus(-x) = -(max(-x, 0) + log1p(exp(-|x|))), and
+// log_sigmoid(-x) from the same log1p term (|-x| = |x|)
+__device__ __forceinline__ float bce_of(float xi, float ti) {
+  const float l = log1pf(expf(-fabsf(xi)));
+  const float ls_pos = -__fadd_rn(fmaxf(-xi, 0.f), l);
+  const float ls_neg = -__fadd_rn(fmaxf(xi, 0.f), l);
+  return __fsub_rn(-__fmul_rn(ti, ls_pos),
+                   __fmul_rn(__fsub_rn(1.f, ti), ls_neg));
+}
+
+__global__ void __launch_bounds__(BCE_THREADS, 2)
+bce_dice_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                const uint8_t* __restrict__ valid, float* __restrict__ partial,
+                int rows, int per_row, float* __restrict__ out) {
+  __shared__ float red[4][THREADS / 32];
+  __shared__ double dred[4][THREADS];
+  __shared__ float terms[BCE_HALF][4][THREADS];   // the second half's
+  __shared__ unsigned char used[THREADS];         // its elements that count
+  __shared__ int nvalid;
+  __shared__ bool last;
+  if (threadIdx.x == 0) nvalid = 0;
+  // logical thread `lt` of the block (element i to logical thread i mod
+  // (blocks * 256)); `half` 0 computes elements 0-7 of each 16 of it and
+  // adds all 16, `half` 1 computes elements 8-15
+  const int lt = threadIdx.x % THREADS, half = threadIdx.x / THREADS;
+  const long long n = (long long)rows * per_row;
+  const long long stride = (long long)gridDim.x * THREADS;
+  long long step_row = 0, step_col = 0;
+  if (valid != nullptr) {
+    step_row = stride / per_row;
+    step_col = stride % per_row;
+  }
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  // (the same trip count in every thread of the block)
+  for (long long base = (long long)blockIdx.x * THREADS; base < n;
+       base += BCE_AHEAD * stride) {
+    const long long i = base + lt + half * BCE_HALF * stride;
+    // the row and column of the next element, stepped by the stride's
+    long long row = 0, col = 0;
+    if (valid != nullptr && i < n) {
+      row = i / per_row;
+      col = i % per_row;
+    }
+    float xs[BCE_HALF], ts[BCE_HALF];
+    bool on[BCE_HALF];
+#pragma unroll
+    for (int j = 0; j < BCE_HALF; ++j) {
+      const long long e = i + j * stride;
+      bool use = e < n;
+      if (valid != nullptr) {
+        use = use && valid[row] != 0;
+        row += step_row;
+        col += step_col;
+        if (col >= per_row) {
+          col -= per_row;
+          ++row;
+        }
+      }
+      on[j] = use;
+      xs[j] = use ? x[e] : 0.f;
+      ts[j] = use ? t[e] : 0.f;
+    }
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < BCE_HALF; ++j) {
+      const float xi = xs[j], ti = ts[j];
+      const float bce = bce_of(xi, ti);
+      const float pr = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-xi)));
+      const float pt = __fmul_rn(pr, ti);
+      if (half == 0) {
+        if (on[j]) {
+          s0 += bce;
+          s1 += pt;
+          s2 += pr;
+          s3 += ti;
+        }
+      } else {
+        m |= (unsigned)on[j] << j;
+        terms[j][0][lt] = bce;
+        terms[j][1][lt] = pt;
+        terms[j][2][lt] = pr;
+        terms[j][3][lt] = ti;
+      }
+    }
+    if (half == 1) used[lt] = (unsigned char)m;
+    __syncthreads();
+    if (half == 0) {
+      m = used[lt];
+#pragma unroll
+      for (int j = 0; j < BCE_HALF; ++j)
+        if ((m >> j) & 1u) {
+          s0 += terms[j][0][lt];
+          s1 += terms[j][1][lt];
+          s2 += terms[j][2][lt];
+          s3 += terms[j][3][lt];
+        }
+    }
+    __syncthreads();
+  }
+  const int w = threadIdx.x >> 5;
+  // the blocks of this launch that have written their partials (the word
+  // after them; zero between launches)
+  unsigned* const ticket = reinterpret_cast<unsigned*>(partial) +
+                           (size_t)gridDim.x * 4;
+  if (half == 0) {
+    s0 = warp_tree(s0);
+    s1 = warp_tree(s1);
+    s2 = warp_tree(s2);
+    s3 = warp_tree(s3);
+    if ((threadIdx.x & 31) == 0) {
+      red[0][w] = s0;
+      red[1][w] = s1;
+      red[2][w] = s2;
+      red[3][w] = s3;
+    }
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    float s[4];
-    for (int j = 0; j < 4; ++j) s[j] = (float)red[j][0];
-    const float n = fmaxf((float)nvalid * (float)per_row, 1.f);
-    const float eps = 1e-6f;
-    const float bce = __fdiv_rn(s[0], n);
-    const float num = __fadd_rn(__fmul_rn(2.f, s[1]), eps);
-    const float den = __fadd_rn(__fadd_rn(s[2], s[3]), eps);
-    const float dl = __fsub_rn(1.f, __fdiv_rn(num, den));
-    for (int j = 0; j < 4; ++j) out[j] = s[j];
-    out[4] = n;
-    out[5] = __fadd_rn(__fmul_rn(0.5f, bce), __fmul_rn(0.5f, dl));
+    for (int j = 0; j < 4; ++j) {
+      float s = 0.f;
+      for (int v = 0; v < THREADS / 32; ++v) s += red[j][v];
+      partial[blockIdx.x * 4 + j] = s;
+    }
+    fence_acq_rel_gpu();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // ── the last block: the partials in double, in a fixed order (thread k
+  // adds partials k, k + 256, ... from 0; then halves added onto the first)
+  fence_acq_rel_gpu();
+  if (threadIdx.x == 0) *ticket = 0u;
+  if (threadIdx.x < THREADS) {
+    float pl[4][BCE_MAX_LAPS];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int l = 0; l < BCE_MAX_LAPS; ++l) {
+        const int q = threadIdx.x + l * THREADS;
+        pl[j][l] = q < (int)gridDim.x ? __ldcg(partial + q * 4 + j) : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      double a = 0.0;
+#pragma unroll
+      for (int l = 0; l < BCE_MAX_LAPS; ++l)
+        if (threadIdx.x + l * THREADS < (int)gridDim.x) a += (double)pl[j][l];
+      for (int q = threadIdx.x + BCE_MAX_LAPS * THREADS; q < (int)gridDim.x;
+           q += THREADS)
+        a += (double)__ldcg(partial + q * 4 + j);
+      dred[j][threadIdx.x] = a;
+    }
+  }
+  int nv = 0;
+  for (int v = threadIdx.x; v < rows; v += BCE_THREADS)
+    nv += valid ? (valid[v] != 0) : 1;
+  if (nv) atomicAdd(&nvalid, nv);
+  __syncthreads();
+  for (int h = THREADS / 2; h > 16; h >>= 1) {
+    if ((int)threadIdx.x < h)
+      for (int j = 0; j < 4; ++j)
+        dred[j][threadIdx.x] += dred[j][threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+    // the last five halvings within one warp: lane k adds lane k + h
+    double a[4];
+    for (int j = 0; j < 4; ++j) a[j] = dred[j][threadIdx.x];
+    for (int h = 16; h > 0; h >>= 1)
+      for (int j = 0; j < 4; ++j)
+        a[j] += __shfl_down_sync(0xffffffffu, a[j], h);
+    if (threadIdx.x == 0) {
+      float s[4];
+      for (int j = 0; j < 4; ++j) s[j] = (float)a[j];
+      const float cnt = fmaxf((float)nvalid * (float)per_row, 1.f);
+      const float eps = 1e-6f;
+      const float bce = __fdiv_rn(s[0], cnt);
+      const float num = __fadd_rn(__fmul_rn(2.f, s[1]), eps);
+      const float den = __fadd_rn(__fadd_rn(s[2], s[3]), eps);
+      const float dl = __fsub_rn(1.f, __fdiv_rn(num, den));
+      for (int j = 0; j < 4; ++j) out[j] = s[j];
+      out[4] = cnt;
+      out[5] = __fadd_rn(__fmul_rn(0.5f, bce), __fmul_rn(0.5f, dl));
+    }
   }
 }
 
@@ -383,34 +772,50 @@ tal_assign_kernel(const float* __restrict__ cls, const float* __restrict__ pred,
   }
 }
 
+int launch_augment(const uint8_t* imgs, const uint8_t* msks,
+                   const float* params, const float* noise, float* out_img,
+                   float* out_msk, int b, cudaStream_t stream) {
+  if (b <= 0) return 0;
+  if (b > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      augment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AUG_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  augment_kernel<<<dim3(AUG_RANKS, b), AUG_THREADS, AUG_SMEM, stream>>>(
+      imgs, msks, params, noise, out_img, out_msk);
+  return (int)cudaGetLastError();
+}
+
+int launch_bce(const float* x, const float* t, const uint8_t* valid,
+               float* partial, float* out, int rows, int per_row, int blocks,
+               cudaStream_t stream) {
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  bce_dice_kernel<<<blocks, BCE_THREADS, 0, stream>>>(
+      x, t, valid, partial, rows, per_row, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// `partial` is not used: the sample's tile partials stay in its cluster.
 int og_unet_augment(const uint8_t* imgs, const uint8_t* msks,
                     const float* params, const float* noise, float* out_img,
                     float* out_msk, float* partial, int b,
                     cudaStream_t stream) {
-  if (b <= 0) return 0;
-  dim3 grid(NTILE, b);
-  augment_tiles<<<grid, THREADS, 0, stream>>>(imgs, msks, params, noise,
-                                              out_img, out_msk, partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  augment_contrast<<<grid, THREADS, 0, stream>>>(params, partial, out_img);
-  return (int)cudaGetLastError();
+  (void)partial;
+  return launch_augment(imgs, msks, params, noise, out_img, out_msk, b,
+                        stream);
 }
 
+// `partial`: blocks * 4 + 1 words, the blocks' four sums for the last
+// block's finish, then the ticket, which must be zero at the launch (the
+// launch leaves it zero).
 int og_bce_dice(const float* x, const float* t, const uint8_t* valid,
                 float* partial, float* out, int rows, int per_row, int blocks,
                 cudaStream_t stream) {
-  bce_dice_partial<<<blocks, THREADS, 0, stream>>>(x, t, valid, partial, rows,
-                                                   per_row);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bce_dice_finish<<<1, THREADS, 0, stream>>>(partial, blocks, valid, rows,
-                                             per_row, out);
-  return (int)cudaGetLastError();
+  return launch_bce(x, t, valid, partial, out, rows, per_row, blocks,
+                    stream);
 }
 
 int og_bce_dice_bwd(const float* x, const float* t, const uint8_t* valid,

@@ -59,10 +59,12 @@ AUG_PARAMS = ("hflip", "vflip", "cos", "sin", "scale", "do_noise",
               "sigma_n", "do_blur", "k0", "k1", "k2", "k3", "k4", "bright",
               "contrast", "unused")
 N_AUG_PARAMS = len(AUG_PARAMS)
-# the augment kernel's row tile (rows of a sample a block takes)
+# rows of a tile of the augment's per-image mean; (B, 256 / 16) float32 is
+# the scratch ``og_unet_augment``'s C interface takes (this kernel keeps the
+# tile partials in shared memory and does not use it)
 AUG_TILE_ROWS = 16
 DICE_EPS = 1e-6
-# blocks of the loss's reduction (two waves of the H100's 132 SMs)
+# blocks of the loss's reduction (two on each of the H100's 132 SMs)
 BCE_BLOCKS = 264
 TAL_TOPK = 10
 TAL_MAX_GT = 8
@@ -70,6 +72,11 @@ TAL_SMEM_BYTES = 200 * 1024
 INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
 
 _configured = False
+# og_bce_dice's scratch for each (device, stream): the blocks' partials, then
+# the ticket of the last block's finish, zeroed once (every launch leaves it
+# zero).  Launches on one stream run one after another and share it;
+# launches on different streams, which may overlap, never share a ticket.
+_BCE_SCRATCH: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -192,8 +199,9 @@ def blur5(img, taps):
     return axis(lambda d: rows[:, :, d:d + s])
 
 
-def unet_augment_plain(imgs_u8, msks_u8, params, noise):
-    """The plain version of :func:`unet_augment`: eager tensor ops."""
+def augment_before_contrast(imgs_u8, msks_u8, params, noise):
+    """The plain version's steps up to the contrast: (images after the
+    brightness, masks), each (B, S, S) float32."""
     p = params
     x = imgs_u8.to(torch.float32) * INV255.to(imgs_u8.device)
     sy, sx = affine_coords(p, x.shape[-1])
@@ -207,11 +215,21 @@ def unet_augment_plain(imgs_u8, msks_u8, params, noise):
                       fma32(noise, col(6).expand_as(noise), img).clamp(0, 1),
                       img)
     img = torch.where(col(7) != 0, blur5(img, p[:, 8:13]), img)
-    img = (img * col(13)).clamp(0, 1)
-    mean = img.mean((1, 2), keepdim=True)
-    c = col(14)
+    return (img * col(13)).clamp(0, 1), msk
+
+
+def apply_contrast(img, params, mean):
+    """clip(fma(c, img, (1 - c) * mean), 0, 1) with each sample's contrast c
+    (``params[:, 14]``) and mean (B, 1, 1)."""
+    c = params[:, 14, None, None]
     img = fma32(c.expand_as(img), img, ((1 - c) * mean).expand_as(img))
-    return img.clamp(0, 1), msk
+    return img.clamp(0, 1)
+
+
+def unet_augment_plain(imgs_u8, msks_u8, params, noise):
+    """The plain version of :func:`unet_augment`: eager tensor ops."""
+    img, msk = augment_before_contrast(imgs_u8, msks_u8, params, noise)
+    return apply_contrast(img, params, img.mean((1, 2), keepdim=True)), msk
 
 
 def unet_augment(imgs_u8, msks_u8, params, noise):
@@ -220,8 +238,8 @@ def unet_augment(imgs_u8, msks_u8, params, noise):
     ``AUG_PARAMS``: flags as 0/1, the angle's cos and sin, the scale, the
     noise sigma, the five normalised blur taps, brightness, contrast) and
     the Gaussian noise (B, 256, 256) float32 -> (images, masks), each (B,
-    256, 256) float32.  On CUDA tensors one call of ``og_unet_augment`` (its
-    tile pass and its contrast pass); on CPU tensors the plain version."""
+    256, 256) float32.  On CUDA tensors one launch of ``og_unet_augment`` (a
+    cluster of blocks a sample); on CPU tensors the plain version."""
     b = imgs_u8.shape[0]
     shape = (b, AUG_SIZE, AUG_SIZE)
     _check("unet_augment: imgs", imgs_u8, shape, torch.uint8)
@@ -326,13 +344,26 @@ def _bce_dice_args(what, logits, targets, valid):
     _same_device(what, logits, targets, valid)
 
 
+def _bce_scratch(dev) -> torch.Tensor:
+    """``_BCE_SCRATCH``'s buffer of the current stream of ``dev``
+    (BCE_BLOCKS * 4 + 1 float32 words), made on that stream at its first
+    use."""
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _BCE_SCRATCH.get(key)
+    if buf is None:
+        buf = _BCE_SCRATCH[key] = torch.zeros(
+            BCE_BLOCKS * 4 + 1, dtype=torch.float32, device=dev)
+    return buf
+
+
 def _bce_dice_cuda(logits, targets, valid):
     _contig("bce_dice", logits, targets, valid)
     dev = logits.device
-    partial = torch.empty((BCE_BLOCKS, 4), dtype=torch.float32, device=dev)
     out = torch.empty((6,), dtype=torch.float32, device=dev)
     rows = logits.shape[0]
     with torch.cuda.device(dev):
+        partial = _bce_scratch(dev)
         err = _lib().og_bce_dice(
             logits.data_ptr(), targets.data_ptr(),
             None if valid is None else valid.data_ptr(), partial.data_ptr(),
@@ -367,8 +398,9 @@ def bce_dice(logits, targets, valid=None):
     0-d float32, differentiable in ``logits``.  ``valid`` (B,) bool: rows
     that count (the masked eval loss); the others count in neither the BCE
     mean nor the Dice sums.  On CUDA tensors the forward is one call of
-    ``og_bce_dice`` (a block reduction and its finish) and the backward one
-    launch of ``og_bce_dice_bwd``; on CPU tensors the plain versions."""
+    ``og_bce_dice`` (the blocks' sums, the last block's finish) and the
+    backward one launch of ``og_bce_dice_bwd``; on CPU tensors the plain
+    versions."""
     _bce_dice_args("bce_dice", logits, targets, valid)
     return _BceDice.apply(logits, targets, valid)
 

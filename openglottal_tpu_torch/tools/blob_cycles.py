@@ -9,8 +9,9 @@ checkout), instruments the copy and builds it beside the package's own
 libraries: in every ``__global__`` kernel, thread 0 of each block stores
 ``clock64()`` when the kernel starts, after every barrier between passes
 (``__syncthreads();`` and calls of the source's ``pass_barrier``) and where
-the kernel ends.  The differences are the cycles each pass took in that
-block.  Nothing of the instrumentation is kept in ``csrc/``.
+the kernel ends, and there also the block's SM.  The differences are the
+cycles each pass took in that block.  Nothing of the instrumentation is kept
+in ``csrc/``.
 
 Inputs: the launches of ``og_dual_cc`` (guided-vft's 500 windows of 128x128)
 and ``og_cc_batch`` (vft's crops, 502x48x40, 8- and 4-connected) that the
@@ -34,19 +35,27 @@ import sys
 from pathlib import Path
 
 MAX_BLOCKS = 4096
-MARKS = 16          # clock slots a block; the last one holds the mark count
+MARKS = 24          # clock slots a block; the last two hold the block's SM
+                    # and its mark count
 
 _HEADER = f"""
 __device__ long long og_pass_clock[{MAX_BLOCKS * MARKS}];
+__device__ __forceinline__ unsigned og_block() {{
+  return blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+}}
 __device__ __forceinline__ void og_mark(int& k) {{
-  if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS} && k < {MARKS - 1})
-    og_pass_clock[blockIdx.x * {MARKS} + k] = clock64();
+  if (threadIdx.x == 0 && og_block() < {MAX_BLOCKS} && k < {MARKS - 2})
+    og_pass_clock[og_block() * {MARKS} + k] = clock64();
   ++k;
 }}
 __device__ __forceinline__ void og_end(int& k) {{
   og_mark(k);
-  if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS})
-    og_pass_clock[blockIdx.x * {MARKS} + {MARKS - 1}] = k;
+  if (threadIdx.x == 0 && og_block() < {MAX_BLOCKS}) {{
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    og_pass_clock[og_block() * {MARKS} + {MARKS - 2}] = sm;
+    og_pass_clock[og_block() * {MARKS} + {MARKS - 1}] = k;
+  }}
 }}
 """
 
@@ -79,15 +88,18 @@ def _body_end(src: str, open_brace: int) -> int:
     raise ValueError("unbalanced braces")
 
 
-def instrument(src: str) -> str:
+def instrument(src: str, barrier: re.Pattern = _BARRIER,
+               footer: str = "") -> str:
     """``src`` with a clock mark at the start of every ``__global__``
-    kernel's body, after each pass barrier in it, and at each of its ends."""
+    kernel's body, after each statement that ``barrier`` matches in it, and
+    at each of its ends (where thread 0 also stores the block's SM and its
+    mark count); ``footer`` goes after the readers."""
     out, pos = [], 0
     for m in re.finditer(r"__global__[^{;]*?\(", src):
         open_brace = src.index("{", m.end())
         close = _body_end(src, open_brace)
         body = src[open_brace + 1:close]
-        body = _BARRIER.sub(lambda b: b.group(1) + " og_mark(og_k);", body)
+        body = barrier.sub(lambda b: b.group(1) + " og_mark(og_k);", body)
         body = re.sub(r"\breturn\s*;", "{ og_end(og_k); return; }", body)
         out += [src[pos:open_brace + 1], " int og_k = 0; og_mark(og_k);",
                 body, " og_end(og_k);\n"]
@@ -96,7 +108,8 @@ def instrument(src: str) -> str:
     text = "".join(out)
     # the helpers go after the includes, the readers at the end
     last_include = max(i.end() for i in re.finditer(r"#include[^\n]*\n", text))
-    return text[:last_include] + _HEADER + text[last_include:] + _FOOTER
+    return (text[:last_include] + _HEADER + text[last_include:] + _FOOTER
+            + footer)
 
 
 def _sm_clock() -> str:
@@ -192,7 +205,7 @@ def main() -> int:
                     else blobs_cuda.cc_plain(x, conn))
             equal = bool(torch.equal(out, want))
             blocks = clk[:, MARKS - 1] > 0
-            n_marks = int(clk[blocks, MARKS - 1].max())
+            n_marks = min(int(clk[blocks, MARKS - 1].max()), MARKS - 2)
             cyc = np.diff(clk[blocks, :n_marks], axis=1)
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             launch(*args)
