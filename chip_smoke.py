@@ -72,7 +72,9 @@ falling, both checkpoints read back by ``utils/io`` and served through
 models); one f32 U-Net step from ``demo_unet.npz`` on the card against the
 CPU (loss, gradient norm); ``cli train-unet`` and ``train-unet-crop --mode
 yolo`` on a PNG split written by ``data/png.py``; ms per train step in
-turns and each kernel's ms against its bound.
+turns and each kernel's ms against its bound; ``og_tal_assign``'s launch
+floor (``tal_assign_vs_floor``: an empty kernel of its grid from
+``tools/train_cycles.py``'s instrumented copy, timed as the kernels are).
 
 Builds the CUDA kernels from ``openglottal_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version (exact equality) -- the union-find's
@@ -2816,9 +2818,11 @@ def hold_train(name, got, want, max_err: dict) -> None:
 
 
 def order_model(name, inputs):
-    """The output of ``og_unet_augment`` / ``og_bce_dice`` on ``inputs`` as
-    their order models in ``tools/train_stress.py`` add it (the tuples of
-    ``train_runner``'s kernel fns), or None for the other kernels."""
+    """The output of ``og_unet_augment`` / ``og_bce_dice`` /
+    ``og_tal_assign`` on ``inputs`` as their models in
+    ``tools/train_stress.py`` form it (the order of the augment's mean and
+    the loss's sums; the TAL's selection), in the tuples of
+    ``train_runner``'s kernel fns, or None for the backward."""
     from openglottal_tpu_torch.tools import train_stress as ts
 
     if name == "unet_augment":
@@ -2826,12 +2830,15 @@ def order_model(name, inputs):
     if name == "bce_dice":
         sums, cnt, loss = ts.bce_dice_model(*inputs)
         return (loss, sums, cnt)
+    if name == "tal_assign":
+        return ts.tal_select_model(*inputs)
     return None
 
 
-def hold_train_bits(name, got, again, inputs) -> None:
-    """A training kernel's output bit-equal to a repeat launch's and, for the
-    two with order models, to the model's."""
+def hold_train_bits(name, got, again, inputs, want) -> None:
+    """A training kernel's output bit-equal to a repeat launch's, for the
+    three with models to the model's, and og_tal_assign's to its plain
+    version's ``want`` (the same rounded operations and selection)."""
     import torch
 
     from openglottal_tpu_torch.tools.train_stress import same_bits
@@ -2839,6 +2846,9 @@ def hold_train_bits(name, got, again, inputs) -> None:
     torch.cuda.synchronize()
     if not same_bits(got, again):
         raise AssertionError(f"{name}: a repeat launch differs in its bits")
+    if name == "tal_assign" and not same_bits(got, want):
+        raise AssertionError("tal_assign: differs in its bits from its plain "
+                             "version")
     model = order_model(name, inputs)
     if model is not None and not same_bits(got, model):
         raise AssertionError(f"{name}: differs in its bits from its order "
@@ -2847,28 +2857,29 @@ def hold_train_bits(name, got, again, inputs) -> None:
 
 def train_stress(dev, max_err: dict) -> tuple:
     """Each training kernel against its plain version (within TRAIN_TOL,
-    masks exact), a repeat launch (bit-equal) and, for og_unet_augment and
-    og_bce_dice, its order model (bit-equal) on ``tools/train_stress.py``'s
-    families (batches of 1, 3, 16, 17 with every flag on and off, angle,
-    scale, blur, brightness and contrast extremes, black, saturated and
-    constant frames, unaligned frames; logits of ±40 and ±88, soft
-    targets, masked and all-invalid rows, other sizes); the backward on
-    the loss's cases; gt boxes at the frame's edge, M = 1 and 4, top-k ties.
+    masks exact), a repeat launch (bit-equal) and, for og_unet_augment,
+    og_bce_dice and og_tal_assign, its model (bit-equal) on
+    ``tools/train_stress.py``'s families (augment: batches of 1, 3, 16, 17
+    with every flag on and off, angle, scale, blur, brightness and contrast
+    extremes, black, saturated and constant frames, unaligned frames; loss:
+    logits of ±40 and ±88, soft targets, masked and all-invalid rows, other
+    sizes; the backward on those and on rows not a multiple of 4, logits
+    one element past an allocation, one row, all-invalid masked calls; the
+    TAL at 256² and 64² anchors: M = 1, 4, 8, invalid, whole-frame, edge and
+    zero-area gts, fewer than 10 candidates and none, ties within and across
+    gts, batches of 1 and 17).
     -> (labels, [(label, kernel name, kernel fn, plain output)])."""
-    import numpy as np
     import torch
 
-    from openglottal_tpu_torch.models.yolo import anchors_for
     from openglottal_tpu_torch.tools.train_stress import stress_inputs
 
     labels, items = [], []
-    rng = np.random.default_rng(21)
 
     def case(label, name, inputs):
         kfn, pfn, _, _ = train_runner(name, inputs, {})
         got, want = kfn(), pfn()
         hold_train(name, got, want, max_err)
-        hold_train_bits(name, got, kfn(), inputs)
+        hold_train_bits(name, got, kfn(), inputs, want)
         labels.append(label)
         items.append((label, name, kfn, want))
         return got
@@ -2877,34 +2888,13 @@ def train_stress(dev, max_err: dict) -> tuple:
     for kind, label, inputs in stress_inputs(dev):
         if kind == "augment":
             case(f"unet_augment stress {label}", "unet_augment", inputs)
-            continue
-        _, sums, cnt = case(f"bce_dice stress {label}", "bce_dice", inputs)
-        case(f"bce_dice_bwd stress {label}", "bce_dice_bwd",
-             (*inputs, sums, cnt, g))
-    for size in (256, 64):
-        pts, _ = anchors_for(size, size, dev)
-        a = pts.shape[0]
-        for m in (1, 4):
-            b = 16
-            lo = rng.uniform(0, size * 0.7, (b, m, 2))
-            hi = np.minimum(lo + rng.uniform(4, size * 0.6, (b, m, 2)), size)
-            gt = np.concatenate([lo, hi], -1).astype(np.float32)
-            gt[0, 0] = [0, 0, size, size]             # the whole frame
-            gt[1, 0] = [size - 9, 0, size, size]      # at the frame's edge
-            gt = torch.from_numpy(gt).to(dev)
-            gv = torch.ones((b, m), dtype=torch.bool, device=dev)
-            gv[2, 0] = False
-            c = torch.from_numpy(rng.uniform(0, size, (b, a, 2)).astype(
-                np.float32)).to(dev)
-            wh = torch.from_numpy(rng.uniform(4, size * 0.6, (b, a, 2)).astype(
-                np.float32)).to(dev)
-            pred = torch.cat([c - wh / 2, c + wh / 2], -1).contiguous()
-            cls = torch.from_numpy(rng.normal(0, 2, (b, a)).astype(
-                np.float32)).to(dev)
-            cls[3] = 0.0                              # ties: equal scores,
-            pred[3] = gt[3, 0]                        # equal boxes
-            case(f"tal_assign stress {size}² m={m}", "tal_assign",
-                 (cls, pred, gt, gv, pts))
+        elif kind == "tal":
+            case(f"tal_assign stress {label}", "tal_assign", inputs)
+        else:       # a loss or backward case: the forward gives the sums
+            _, sums, cnt = case(f"bce_dice stress {label}", "bce_dice",
+                                inputs)
+            case(f"bce_dice_bwd stress {label}", "bce_dice_bwd",
+                 (*inputs, sums, cnt, g))
     return labels, items
 
 
@@ -2990,6 +2980,14 @@ def train_phase(dev, smi, counted, logs, turns=None):
 
     t_phase = time.perf_counter()
     max_err: dict = {}
+    # the instrumented copy of train.cu (its empty kernel of the TAL's grid
+    # is the TAL's launch floor), built while the stress cases run
+    from concurrent.futures import ThreadPoolExecutor
+
+    from openglottal_tpu_torch.tools import train_cycles
+    pool = ThreadPoolExecutor(1)
+    copy = pool.submit(train_cycles.build_copy)
+    pool.shutdown(wait=False)
     stress, stress_items = train_stress(dev, max_err)
     work = Path(tempfile.mkdtemp(prefix="og_train_", dir="."))
     line = {"nvidia_smi": smi, "stress_cases": len(stress)}
@@ -3119,7 +3117,7 @@ def train_phase(dev, smi, counted, logs, turns=None):
             kfn, pfn, nbytes, ops = train_runner(name, inputs, kw)
             got, want = kfn(), pfn()
             hold_train(name, got, want, max_err)
-            hold_train_bits(name, got, kfn(), inputs)
+            hold_train_bits(name, got, kfn(), inputs, want)
             shape = "x".join(map(str, inputs[0].shape))
             fit_items.append((f"{name} fit {shape} #{k}", name, kfn, want))
             held += 1
@@ -3163,7 +3161,9 @@ def train_phase(dev, smi, counted, logs, turns=None):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None, "shape": e["shape"]})
-        if "tal_assign" in per:       # the serial floor: M = 1 against M = 4
+        if "tal_assign" in per:
+            # M = 1 and one gt repeated four times (all 40 rounds), and the
+            # launch floor: an empty kernel of the same grid, timed alike
             cls, pred, gt, gv, pts = per["tal_assign"]["inputs"][0]
             g4 = gt[:, :1].repeat(1, 4, 1).contiguous()
             v4 = gv[:, :1].repeat(1, 4).contiguous()
@@ -3173,6 +3173,16 @@ def train_phase(dev, smi, counted, logs, turns=None):
                                                gv[:, :1].contiguous(), pts),
                           20),
                 time_cuda(lambda: T.tal_assign(cls, pred, g4, v4, pts), 20)]
+            tal = next(e for e in entries if e["name"] == "tal_assign")
+            floor = time_cuda(train_cycles.tal_floor(
+                copy.result(), cls.shape[0], cls.shape[1], gt.shape[1]), 20)
+            tal["launch_floor_ms"] = floor
+            line["tal_assign_vs_floor"] = {
+                "shape": {"b": cls.shape[0], "a": cls.shape[1],
+                          "m": gt.shape[1]},
+                "ms": tal["ms"], "bound_ms": tal["bound_ms"],
+                "launch_floor_ms": floor, "ms_over_floor": tal["ms"] / floor,
+                "ms_over_bound": tal["ms"] / tal["bound_ms"]}
         del record, per
 
         # ── (f) ms per train step, in turns ───────────────────────────────
@@ -4063,7 +4073,8 @@ def main() -> int:
         train_line, train_entries = train_phase(dev, smi, counted, logs,
                                                 train_turns)
         say("train", compared="masks, best_gt and assigned exact; floats "
-            "within TRAIN_TOL of the plain version", **train_line)
+            "within TRAIN_TOL of the plain version; og_tal_assign "
+            "bit-equal to it", **train_line)
         print(json.dumps({"kernels": train_entries, "timing": TIMING}),
               flush=True)
         print(smi, flush=True)
@@ -5114,7 +5125,8 @@ def main() -> int:
     reset_counts()
     held["train"] = train_line["launches_held_equal_to_plain"]
     say("train", compared="masks, best_gt and assigned exact; floats "
-        "within TRAIN_TOL of the plain version", **train_line)
+        "within TRAIN_TOL of the plain version; og_tal_assign bit-equal "
+        "to it", **train_line)
     # ── the self-test with trained weights; the evaluation commands ─────
     t_st = time.perf_counter()
     selftests(dev, smi, counted, hold_any)

@@ -59,12 +59,47 @@
 //       run one after another and may share one.  The wrapper keeps one
 //       zeroed buffer for each device and stream.
 //   og_bce_dice_bwd  the loss's gradient, one elementwise pass from the
-//       saved sums (12.6 MB: 3.8 us).
+//       saved sums.  Bound by bytes (12.6 MB at batch 16: 3.8 us).  A
+//       thread loads two 16-byte groups of x and two of t before any
+//       arithmetic and stores its gradient 16 bytes at a time; the grid is
+//       one pass where the card holds it (SMs x resident blocks at most).
+//       A masked call steps the row with the stride (no division an
+//       element).  The last n mod 4 elements, and every element where x, t
+//       and the gradient are not all 16-byte aligned, go one at a time.
+//       Each element's rounded operations and their order are fixed (the
+//       trainers' bits depend on them); three divisions are made cheaper
+//       with the same bits: 1 / y as
+//       __frcp_rn, the division by a count that is a power of two as a
+//       product by its exact reciprocal, and 2t / D for t = 0 and t = 1
+//       (the mask's values) from none or one division a thread.
 //   og_tal_assign    <- openglottal_tpu/train/yolo_loss.py:98-133: the
-//       task-aligned assignment, one block an image over M <= 8 gts x A
-//       anchors (align and IoU in shared memory), top-10 per gt by ten
-//       block arg-max rounds.  Latency-bound: its bytes are negligible, its
-//       floor is the serial chain of M x 10 block reductions.
+//       task-aligned assignment, one block of 16 warps an image.
+//       Latency-bound (its bytes take 0.2 us, an empty launch of its grid
+//       ~1.9 us): two block barriers in all, none a round.
+//       (1) each warp copies the M <= 8 gts for itself; every thread loads
+//       3 anchors' logit, centre and box before any arithmetic and, for
+//       each gt, tests them inside it; where no lane of the warp has an
+//       anchor inside, or none intersecting the gt, the warp skips the
+//       rest.  Otherwise it forms the align metric (sigma's square root
+//       once an anchor, shared by the gts) and appends the positive (align
+//       bits, anchor) pairs to its own region of the gt's candidate list
+//       in shared memory by a ballot, its count in a register (no
+//       atomics; 38,208 bytes with the claim bytes at M = 4, A = 1,344).
+//       No intersection, no division by it: an IEEE division of 0 takes
+//       its slow path.  (2) warp m alone selects gt m's top 10, from the
+//       16 regions read as one list: each lane keeps its candidates' top
+//       10 by (value, lower anchor) in registers and each round takes the
+//       warp's best by __reduce_max_sync on the value bits (they order as
+//       the values, all > 0) and __reduce_min_sync on the anchor, so the M
+//       selections run at once; each taken anchor's claim byte gets bit m.
+//       (3) the lane of each taken anchor's lowest gt resolves it among
+//       the gts in its claim byte (first largest; one gt needs no lookup)
+//       and writes its soft target; the other anchors were written as
+//       unassigned in (1).  The bits are fixed (the trainers' depend on
+//       them): the plain version's rounded operations on the same inputs
+//       (1 / y as __frcp_rn, correctly rounded as __fdiv_rn(1, y) is) and
+//       its selection's order (value descending, ties to the lower anchor,
+//       only values > 0; the first gt with the largest value).
 //
 // Rounding: every product and sum is written with __fmul_rn / __fadd_rn /
 // __fmaf_rn, so nvcc contracts nothing; the forms are the plain versions'
@@ -640,135 +675,422 @@ bce_dice_kernel(const float* __restrict__ x, const float* __restrict__ t,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ── og_bce_dice_bwd ─────────────────────────────────────────────────────
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_AHEAD = 2;   // 16-byte groups of x and of t a thread loads
+                               // before their arithmetic
+
+// The launch's constants of the gradient: a = I / D², the count and, where
+// they allow it, the divisions that need none: by a count that is a power
+// of two (a product by its exact reciprocal rounds the same real number),
+// and 2t / D at t = 0 (±0, D > 0) and t = 1 (2 / D, once a thread).
+struct BwdConst {
+  float a, D, cnt, g, inv_cnt, two_d;
+  bool pow2, dpos;
+};
+
+// One element of the gradient, its rounded operations in their fixed order:
+// g * (0.5 (p - t) / n + 0.5 (a - 2t / D) p (1 - p)), p = 1 / (1 + e^-x).
+// 1 / y is __frcp_rn (correctly rounded as __fdiv_rn(1, y) is: the same
+// bits); a division whose numerator is 0 would take the IEEE division's
+// slow path.
+__device__ __forceinline__ float bwd_elem(float xi, float ti,
+                                          const BwdConst& k) {
+  const float p = __frcp_rn(__fadd_rn(1.f, expf(-xi)));
+  const float num = __fmul_rn(0.5f, __fsub_rn(p, ti));
+  const float gb = k.pow2 ? __fmul_rn(num, k.inv_cnt) : __fdiv_rn(num, k.cnt);
+  const float t2 = __fmul_rn(2.f, ti);
+  float q;
+  if (k.dpos && ti == 0.f) {
+    q = t2;
+  } else if (k.dpos && ti == 1.f) {
+    q = k.two_d;
+  } else {
+    q = __fdiv_rn(t2, k.D);
+  }
+  const float gd = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, __fsub_rn(k.a, q)), p),
+                             __fsub_rn(1.f, p));
+  return __fmul_rn(__fadd_rn(gb, gd), k.g);
+}
+
+// Element i of x, t and grad: groups q < n4 as 16-byte vectors (thread j
+// takes groups j, j + G, ... of the G = blocks * 256 threads, BWD_AHEAD of
+// them loaded together), then elements 4 n4 .. n - 1 one at a time
+// (n4 = 0 where the three pointers are not all 16-byte aligned).  A masked
+// call steps each thread's row and column by the stride: one division a
+// thread, none an element.
+__global__ void __launch_bounds__(BWD_THREADS)
 bce_dice_bwd(const float* __restrict__ x, const float* __restrict__ t,
              const uint8_t* __restrict__ valid, const float* __restrict__ sn,
-             const float* __restrict__ gout, float* __restrict__ grad, int rows,
-             int per_row) {
-  const long long n = (long long)rows * per_row;
+             const float* __restrict__ gout, float* __restrict__ grad,
+             long long n, int per_row, long long n4) {
   const float eps = 1e-6f;
   const float I = __fadd_rn(__fmul_rn(2.f, sn[1]), eps);
-  const float D = __fadd_rn(__fadd_rn(sn[2], sn[3]), eps);
-  const float a = __fdiv_rn(I, __fmul_rn(D, D));
-  const float cnt = sn[4], g = gout[0];
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (valid && !valid[i / per_row]) { grad[i] = 0.f; continue; }
-    const float xi = x[i], ti = t[i];
-    const float p = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-xi)));
-    const float gb = __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(p, ti)), cnt);
-    const float gd = __fmul_rn(__fmul_rn(__fmul_rn(0.5f,
-        __fsub_rn(a, __fdiv_rn(__fmul_rn(2.f, ti), D))), p), __fsub_rn(1.f, p));
-    grad[i] = __fmul_rn(__fadd_rn(gb, gd), g);
+  BwdConst k;
+  k.D = __fadd_rn(__fadd_rn(sn[2], sn[3]), eps);
+  k.a = __fdiv_rn(I, __fmul_rn(k.D, k.D));
+  k.cnt = sn[4];
+  k.g = gout[0];
+  const unsigned cb = __float_as_uint(k.cnt);
+  k.pow2 = (cb & 0x807fffffu) == 0u && (cb >> 23) != 0u && (cb >> 23) != 255u;
+  k.inv_cnt = __frcp_rn(k.cnt);
+  k.dpos = k.D > 0.f && k.D < __uint_as_float(0x7f800000u);
+  k.two_d = __fdiv_rn(2.f, k.D);
+  const long long G = (long long)gridDim.x * BWD_THREADS;
+  const long long q0 = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* t4 = reinterpret_cast<const float4*>(t);
+  float4* g4 = reinterpret_cast<float4*>(grad);
+  // the row and column of this thread's next group's first element, and
+  // the stride's (4 G elements)
+  long long row = 0, srow = 0;
+  int col = 0, scol = 0;
+  if (valid != nullptr && q0 < n4) {
+    row = 4 * q0 / per_row;
+    col = (int)(4 * q0 % per_row);
+    srow = 4 * G / per_row;
+    scol = (int)(4 * G % per_row);
+  }
+  for (long long q = q0; q < n4; q += BWD_AHEAD * G) {
+    float4 xv[BWD_AHEAD], tv[BWD_AHEAD];
+    bool on[BWD_AHEAD][4];
+#pragma unroll
+    for (int j = 0; j < BWD_AHEAD; ++j) {
+      const long long qj = q + j * G;
+      const bool in = qj < n4;
+      xv[j] = in ? x4[qj] : make_float4(0.f, 0.f, 0.f, 0.f);
+      tv[j] = in ? t4[qj] : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (valid == nullptr) {
+        on[j][0] = on[j][1] = on[j][2] = on[j][3] = true;
+      } else {
+        if (col + 3 < per_row) {          // the group lies in one row
+          const bool v = in && valid[row] != 0;
+          on[j][0] = on[j][1] = on[j][2] = on[j][3] = v;
+        } else {
+          long long r = row;
+          int c = col;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            on[j][k] = in && valid[r] != 0;
+            if (++c == per_row) { c = 0; ++r; }
+          }
+        }
+        row += srow;
+        col += scol;
+        if (col >= per_row) { col -= per_row; ++row; }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BWD_AHEAD; ++j) {
+      const long long qj = q + j * G;
+      if (qj < n4) {
+        float4 o;
+        o.x = on[j][0] ? bwd_elem(xv[j].x, tv[j].x, k) : 0.f;
+        o.y = on[j][1] ? bwd_elem(xv[j].y, tv[j].y, k) : 0.f;
+        o.z = on[j][2] ? bwd_elem(xv[j].z, tv[j].z, k) : 0.f;
+        o.w = on[j][3] ? bwd_elem(xv[j].w, tv[j].w, k) : 0.f;
+        g4[qj] = o;
+      }
+    }
+  }
+  // the elements after the groups, one a thread a step
+  const long long e0 = 4 * n4 + q0;
+  if (e0 >= n) return;
+  if (valid != nullptr) {
+    row = e0 / per_row;
+    col = (int)(e0 % per_row);
+    srow = G / per_row;
+    scol = (int)(G % per_row);
+  }
+  for (long long e = e0; e < n; e += G) {
+    bool on = true;
+    if (valid != nullptr) {
+      on = valid[row] != 0;
+      row += srow;
+      col += scol;
+      if (col >= per_row) { col -= per_row; ++row; }
+    }
+    grad[e] = on ? bwd_elem(x[e], t[e], k) : 0.f;
   }
 }
 
-// ── task-aligned assignment ─────────────────────────────────────────────
+// ── og_tal_assign ───────────────────────────────────────────────────────
 
 constexpr int TOPK = 10;
 constexpr int MAXM = 8;
+constexpr int TAL_WARPS = 2 * MAXM;      // (the selection: a warp a gt)
+constexpr int TAL_THREADS = 32 * TAL_WARPS;
+constexpr int TAL_AHEAD = 3;   // anchors a thread loads before their
+                               // arithmetic (3 x 512 >= 1,344, 256²'s A)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_ANCHOR = 0x7fffffff;
 
-__global__ void __launch_bounds__(THREADS)
+// The gt's intersection with a predicted box, and the IoU from it (union +
+// 1e-7): the plain version's operations (box_iou), rounded one at a time.
+__device__ __forceinline__ float tal_inter(float gx1, float gy1, float gx2,
+                                           float gy2, float4 p) {
+  const float iw = fmaxf(__fsub_rn(fminf(gx2, p.z), fmaxf(gx1, p.x)), 0.f);
+  const float ih = fmaxf(__fsub_rn(fminf(gy2, p.w), fmaxf(gy1, p.y)), 0.f);
+  return __fmul_rn(iw, ih);
+}
+
+// (num: inter itself, or a stand-in where the quotient is not used)
+__device__ __forceinline__ float tal_iou(float inter, float ag, float4 p,
+                                         float num) {
+  const float ap = __fmul_rn(fmaxf(__fsub_rn(p.z, p.x), 0.f),
+                             fmaxf(__fsub_rn(p.w, p.y), 0.f));
+  const float u = __fadd_rn(__fsub_rn(__fadd_rn(ag, ap), inter), 1e-7f);
+  return __fdiv_rn(num, u);
+}
+
+__device__ __forceinline__ float tal_area(float gx1, float gy1, float gx2,
+                                          float gy2) {
+  return __fmul_rn(fmaxf(__fsub_rn(gx2, gx1), 0.f),
+                   fmaxf(__fsub_rn(gy2, gy1), 0.f));
+}
+
+// (k1, a1) before (k2, a2): the larger value, then the lower anchor
+__device__ __forceinline__ bool tal_before(unsigned k1, int a1, unsigned k2,
+                                           int a2) {
+  return k1 > k2 || (k1 == k2 && a1 < a2);
+}
+
+// dynamic shared memory: for each (gt, warp) a region of the candidates'
+// align bits and their anchors (16 bits: A <= 65,535) the warp found, as
+// many as the anchors it visits; then a claim byte an anchor (bit m: gt m
+// took it) in 32-bit words
+__host__ __device__ constexpr size_t tal_region(int a) {
+  return 32 * (((size_t)a + TAL_THREADS - 1) / TAL_THREADS);
+}
+__host__ __device__ constexpr size_t tal_claim_off(int a, int m) {
+  return ((size_t)m * TAL_WARPS * tal_region(a) *
+              (sizeof(unsigned) + sizeof(uint16_t)) + 3) & ~3ull;
+}
+__host__ __device__ constexpr size_t tal_smem(int a, int m) {
+  return tal_claim_off(a, m) + 4 * (((size_t)a + 3) / 4);
+}
+
+__global__ void __launch_bounds__(TAL_THREADS)
 tal_assign_kernel(const float* __restrict__ cls, const float* __restrict__ pred,
                   const float* __restrict__ gt, const uint8_t* __restrict__ gtv,
                   const float* __restrict__ pts, int32_t* __restrict__ best_gt,
                   uint8_t* __restrict__ assigned, float* __restrict__ t_score,
                   int A, int M) {
-  extern __shared__ float sm[];
-  float* align = sm;                       // [M][A]
-  float* iou = sm + (size_t)M * A;         // [M][A]
-  uint8_t* mask = (uint8_t*)(iou + (size_t)M * A);   // [M][A]
-  __shared__ float wv[THREADS / 32];
-  __shared__ int wi[THREADS / 32];
+  extern __shared__ __align__(16) unsigned char tal_smem_raw[];
+  const int R = (int)tal_region(A);
+  unsigned* const ck = reinterpret_cast<unsigned*>(tal_smem_raw);
+  uint16_t* const ca =
+      reinterpret_cast<uint16_t*>(ck + (size_t)M * TAL_WARPS * R);
+  unsigned* const claim =
+      reinterpret_cast<unsigned*>(tal_smem_raw + tal_claim_off(A, M));
+  __shared__ float gbox[TAL_WARPS][MAXM][4];   // a copy a warp
+  __shared__ int gok[TAL_WARPS][MAXM];
+  __shared__ int take_n[MAXM];
+  __shared__ int wcnt[MAXM][TAL_WARPS];   // the regions' counts
+  __shared__ unsigned take_v[MAXM][TOPK];
+  __shared__ int take_a[MAXM][TOPK];
   __shared__ float max_align[MAXM], max_iou[MAXM];
-  __shared__ int stop;
-  const int b = blockIdx.x;
-  const float* g = gt + (size_t)b * M * 4;
-  for (int i = threadIdx.x; i < M * A; i += blockDim.x) {
-    const int m = i / A, a = i % A;
-    const float* pb = pred + ((size_t)b * A + a) * 4;
-    const float gx1 = g[m * 4], gy1 = g[m * 4 + 1], gx2 = g[m * 4 + 2],
-                gy2 = g[m * 4 + 3];
-    const float px = pts[a * 2], py = pts[a * 2 + 1];
-    const bool inside = gtv[b * M + m] && px > gx1 && px < gx2 && py > gy1 &&
-                        py < gy2;
-    const float iw =
-        fmaxf(__fsub_rn(fminf(gx2, pb[2]), fmaxf(gx1, pb[0])), 0.f);
-    const float ih =
-        fmaxf(__fsub_rn(fminf(gy2, pb[3]), fmaxf(gy1, pb[1])), 0.f);
-    const float inter = __fmul_rn(iw, ih);
-    const float ag = __fmul_rn(fmaxf(__fsub_rn(gx2, gx1), 0.f),
-                               fmaxf(__fsub_rn(gy2, gy1), 0.f));
-    const float ap = __fmul_rn(fmaxf(__fsub_rn(pb[2], pb[0]), 0.f),
-                               fmaxf(__fsub_rn(pb[3], pb[1]), 0.f));
-    const float u = __fadd_rn(__fsub_rn(__fadd_rn(ag, ap), inter), 1e-7f);
-    const float io = __fdiv_rn(inter, u);
-    const float c = fmaxf(io, 0.f);
-    const float c2 = __fmul_rn(c, c);
-    const float c6 = __fmul_rn(__fmul_rn(c2, c2), c2);
-    const float x = cls[(size_t)b * A + a];
-    const float prob = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-    align[i] = inside ? __fmul_rn(sqrtf(prob), c6) : 0.f;
-    iou[i] = io;
-    mask[i] = 0;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, w = tid >> 5;
+  const float* const cb = cls + (size_t)b * A;
+  const float* const pb = pred + (size_t)b * A * 4;
+  const bool vec = (reinterpret_cast<uintptr_t>(pb) & 15) == 0;
+
+  // ── (1) a thread's anchors a0 + k * TAL_THREADS + tid: logit, centre, box
+  float xs[TAL_AHEAD], px[TAL_AHEAD], py[TAL_AHEAD];
+  float4 box[TAL_AHEAD];
+  auto load = [&](int a0) {
+#pragma unroll
+    for (int k = 0; k < TAL_AHEAD; ++k) {
+      const int a = a0 + k * TAL_THREADS + tid;
+      // (past the last anchor: zeros, on which the arithmetic is plain)
+      xs[k] = px[k] = py[k] = 0.f;
+      box[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (a < A) {
+        xs[k] = cb[a];
+        px[k] = pts[2 * a];
+        py[k] = pts[2 * a + 1];
+        box[k] = vec ? reinterpret_cast<const float4*>(pb)[a]
+                     : make_float4(pb[4 * a], pb[4 * a + 1], pb[4 * a + 2],
+                                   pb[4 * a + 3]);
+        // unassigned unless step (3) rewrites it
+        const size_t o = (size_t)b * A + a;
+        best_gt[o] = 0;
+        assigned[o] = 0;
+        t_score[o] = 0.f;
+      }
+    }
+  };
+  load(0);
+  // the gts in the warp's own copy: no block barrier before the anchors
+  if (lane < 4 * M)
+    gbox[w][lane >> 2][lane & 3] = gt[(size_t)b * M * 4 + lane];
+  if (lane < M) gok[w][lane] = gtv[b * M + lane] != 0;
+  for (int i = tid; i < (A + 3) / 4; i += TAL_THREADS) claim[i] = 0u;
+  __syncwarp();
+  const unsigned lt = (1u << lane) - 1u;
+  for (int a0 = 0;;) {
+    float sp[TAL_AHEAD];        // sqrt(sigmoid(logit)), once a warp needs it
+    unsigned have = 0u;
+    for (int m = 0; m < M; ++m) {
+      const float gx1 = gbox[w][m][0], gy1 = gbox[w][m][1],
+                  gx2 = gbox[w][m][2], gy2 = gbox[w][m][3];
+      const bool ok = gok[w][m] != 0;
+      const float ag = tal_area(gx1, gy1, gx2, gy2);
+      unsigned* const rk = ck + (size_t)(m * TAL_WARPS + w) * R;
+      uint16_t* const ra = ca + (size_t)(m * TAL_WARPS + w) * R;
+      int n = a0 == 0 ? 0 : wcnt[m][w];
+#pragma unroll
+      for (int k = 0; k < TAL_AHEAD; ++k) {
+        const int a = a0 + k * TAL_THREADS + tid;
+        const bool inside = ok && a < A && px[k] > gx1 && px[k] < gx2 &&
+                            py[k] > gy1 && py[k] < gy2;
+        if (!__any_sync(FULL, inside)) continue;
+        // inside the gt and intersecting it; elsewhere the IoU is 0 and so
+        // is the align metric (a NaN is never taken either, as a value
+        // that is not > 0)
+        const float inter = tal_inter(gx1, gy1, gx2, gy2, box[k]);
+        const bool on = inside && inter > 0.f;
+        if (!__any_sync(FULL, on)) continue;
+        if (!((have >> k) & 1u)) {
+          sp[k] = sqrtf(__frcp_rn(__fadd_rn(1.f, expf(-xs[k]))));
+          have |= 1u << k;
+        }
+        // a numerator of 1 where there is no intersection (a division of
+        // 0 would take the slow path)
+        const float c =
+            fmaxf(tal_iou(inter, ag, box[k], on ? inter : 1.f), 0.f);
+        const float c2 = __fmul_rn(c, c);
+        const float c6 = __fmul_rn(__fmul_rn(c2, c2), c2);
+        const float align = __fmul_rn(sp[k], c6);
+        const unsigned key =
+            on && align > 0.f ? __float_as_uint(align) : 0u;
+        // appended to the warp's region of gt m's list
+        const unsigned bal = __ballot_sync(FULL, key != 0u);
+        if (key != 0u) {
+          const int pos = n + __popc(bal & lt);
+          rk[pos] = key;
+          ra[pos] = (uint16_t)a;
+        }
+        n += __popc(bal);
+      }
+      wcnt[m][w] = n;     // (every lane writes the same count)
+    }
+    a0 += TAL_THREADS * TAL_AHEAD;
+    if (a0 >= A) break;
+    load(a0);
   }
   __syncthreads();
-  // per gt: the top-10 by value, ties to the lower index, kept where > 0
-  for (int m = 0; m < M; ++m) {
-    if (threadIdx.x == 0) { max_align[m] = 0.f; max_iou[m] = 0.f; }
-    for (int r = 0; r < TOPK && r < A; ++r) {
-      float bv = -1.f;
-      int bi = A;
-      for (int a = threadIdx.x; a < A; a += blockDim.x) {
-        const float v = align[m * A + a];
-        if (!mask[m * A + a] && (v > bv || (v == bv && a < bi))) {
-          bv = v;
-          bi = a;
+
+  // ── (2) warp w: gt w's top 10 by value, ties to the lower anchor, > 0
+  unsigned my_v = 0u;       // lane r: round r's value and anchor
+  int my_a = 0, r = 0;
+  if (w < M) {
+    unsigned kv[TOPK];
+    int ka[TOPK];
+#pragma unroll
+    for (int s = 0; s < TOPK; ++s) {
+      kv[s] = 0u;
+      ka[s] = NO_ANCHOR;
+    }
+    // the warps' regions of gt w as one list: region j starts at off[j]
+    int off[TAL_WARPS + 1];
+    off[0] = 0;
+#pragma unroll
+    for (int j = 0; j < TAL_WARPS; ++j) off[j + 1] = off[j] + wcnt[w][j];
+    for (int p = lane; p < off[TAL_WARPS]; p += 32) {
+      int j = 0;
+#pragma unroll
+      for (int q = 1; q < TAL_WARPS; ++q) j += p >= off[q];
+      int at = p - off[0];
+#pragma unroll
+      for (int q = 1; q < TAL_WARPS; ++q)
+        if (j == q) at = p - off[q];
+      const size_t e = (size_t)(w * TAL_WARPS + j) * R + at;
+      const unsigned key = ck[e];
+      const int a = ca[e];
+      // insertion into the lane's ordered ten
+#pragma unroll
+      for (int s = TOPK - 1; s >= 0; --s) {
+        if (s > 0 && tal_before(key, a, kv[s - 1], ka[s - 1])) {
+          kv[s] = kv[s - 1];
+          ka[s] = ka[s - 1];
+        } else if (tal_before(key, a, kv[s], ka[s])) {
+          kv[s] = key;
+          ka[s] = a;
         }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    }
+    for (; r < TOPK; ++r) {
+      const unsigned v = __reduce_max_sync(FULL, kv[0]);
+      if (v == 0u) break;
+      const int a = (int)__reduce_min_sync(
+          FULL, kv[0] == v ? (unsigned)ka[0] : (unsigned)NO_ANCHOR);
+      if (lane == r) {
+        my_v = v;
+        my_a = a;
       }
-      if ((threadIdx.x & 31) == 0) {
-        wv[threadIdx.x >> 5] = bv;
-        wi[threadIdx.x >> 5] = bi;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-          if (wv[w] > bv || (wv[w] == bv && wi[w] < bi)) {
-            bv = wv[w];
-            bi = wi[w];
-          }
-        // the values are >= 0; once the best left is not > 0, no later one is
-        stop = !(bv > 0.f) || bi >= A;
-        if (!stop) {
-          mask[m * A + bi] = 1;
-          max_align[m] = fmaxf(max_align[m], bv);
-          max_iou[m] = fmaxf(max_iou[m], fmaxf(iou[m * A + bi], 0.f));
+      if (kv[0] == v && ka[0] == a) {     // the lane that held it
+#pragma unroll
+        for (int s = 0; s < TOPK - 1; ++s) {
+          kv[s] = kv[s + 1];
+          ka[s] = ka[s + 1];
         }
+        kv[TOPK - 1] = 0u;
+        ka[TOPK - 1] = NO_ANCHOR;
       }
-      __syncthreads();
-      if (stop) break;
+    }
+    // the largest value is the first taken; the taken IoUs are > 0 (their
+    // align is), so their largest is the largest of their bits
+    unsigned ci = 0u;
+    if (lane < r) {
+      const float4 p = vec ? reinterpret_cast<const float4*>(pb)[my_a]
+                           : make_float4(pb[4 * my_a], pb[4 * my_a + 1],
+                                         pb[4 * my_a + 2], pb[4 * my_a + 3]);
+      const float gx1 = gbox[w][w][0], gy1 = gbox[w][w][1],
+                  gx2 = gbox[w][w][2], gy2 = gbox[w][w][3];
+      const float inter = tal_inter(gx1, gy1, gx2, gy2, p);
+      ci = __float_as_uint(fmaxf(
+          tal_iou(inter, tal_area(gx1, gy1, gx2, gy2), p, inter), 0.f));
+      take_v[w][lane] = my_v;
+      take_a[w][lane] = my_a;
+      atomicOr(&claim[my_a >> 2], (1u << w) << (8 * (my_a & 3)));
+    }
+    ci = __reduce_max_sync(FULL, ci);
+    const unsigned v0 = __shfl_sync(FULL, my_v, 0);
+    if (lane == 0) {
+      take_n[w] = r;
+      max_align[w] = __uint_as_float(v0);
+      max_iou[w] = __uint_as_float(ci);
     }
   }
   __syncthreads();
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    int bm = 0;
-    float mx = mask[a] ? align[a] : -1.f;
-    for (int m = 1; m < M; ++m) {
-      const float v = mask[m * A + a] ? align[m * A + a] : -1.f;
-      if (v > mx) { mx = v; bm = m; }
+
+  // ── (3) each taken anchor, by the lane of the lowest gt that took it:
+  // the first gt with the largest value among those, and its soft target
+  if (w < M && lane < r) {
+    const unsigned c = (claim[my_a >> 2] >> (8 * (my_a & 3))) & 0xffu;
+    if ((c & ((1u << w) - 1u)) == 0u) {
+      int bm = w;
+      float mx = __uint_as_float(my_v);
+      for (int m = w + 1; m < M; ++m)       // (rare: other gts took it too)
+        if ((c >> m) & 1u)
+          for (int k = 0; k < take_n[m]; ++k)
+            if (take_a[m][k] == my_a) {
+              const float v = __uint_as_float(take_v[m][k]);
+              if (v > mx) {
+                mx = v;
+                bm = m;
+              }
+              break;
+            }
+      const size_t o = (size_t)b * A + my_a;
+      best_gt[o] = bm;
+      assigned[o] = 1;
+      t_score[o] = __fdiv_rn(__fmul_rn(mx, max_iou[bm]),
+                             __fadd_rn(max_align[bm], 1e-9f));
     }
-    const bool as = mask[bm * A + a] && mx > 0.f;
-    const size_t o = (size_t)b * A + a;
-    best_gt[o] = bm;
-    assigned[o] = as;
-    t_score[o] = as ? __fdiv_rn(__fmul_rn(align[bm * A + a], max_iou[bm]),
-                                __fadd_rn(max_align[bm], 1e-9f))
-                    : 0.f;
   }
 }
 
@@ -818,34 +1140,64 @@ int og_bce_dice(const float* x, const float* t, const uint8_t* valid,
                     stream);
 }
 
+// One pass where the card holds it: blocks for two groups a thread, at
+// most the SMs times the blocks an SM holds (queried once a device).
 int og_bce_dice_bwd(const float* x, const float* t, const uint8_t* valid,
                     const float* sn, const float* gout, float* grad, int rows,
                     int per_row, cudaStream_t stream) {
   const long long n = (long long)rows * per_row;
-  long long blocks = (n + THREADS * 4 - 1) / (THREADS * 4);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 4096) blocks = 4096;
-  bce_dice_bwd<<<(int)blocks, THREADS, 0, stream>>>(x, t, valid, sn, gout, grad,
-                                                    rows, per_row);
+  if (n <= 0) return 0;
+  static int resident[64];      // SMs x blocks an SM, by device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bce_dice_bwd,
+                                                        BWD_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    resident[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(t) |
+                         reinterpret_cast<uintptr_t>(grad)) & 15) == 0;
+  const long long n4 = aligned ? n / 4 : 0;
+  const long long units = n4 > 0 ? (n4 + BWD_AHEAD - 1) / BWD_AHEAD : n;
+  long long blocks = (units + BWD_THREADS - 1) / BWD_THREADS;
+  if (blocks > resident[dev]) blocks = resident[dev];
+  bce_dice_bwd<<<(int)blocks, BWD_THREADS, 0, stream>>>(x, t, valid, sn, gout,
+                                                        grad, n, per_row, n4);
   return (int)cudaGetLastError();
 }
 
+// Shared memory above 48 KB (M A > 8,192) is allowed once a device for the
+// largest size seen.
 int og_tal_assign(const float* cls, const float* pred, const float* gt,
                   const uint8_t* gtv, const float* pts, int32_t* best_gt,
                   uint8_t* assigned, float* t_score, int b, int a, int m,
                   cudaStream_t stream) {
   if (b <= 0 || a <= 0) return 0;
-  if (m < 1 || m > MAXM) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)m * a * (4 + 4 + 1);
+  if (m < 1 || m > MAXM || a > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = tal_smem(a, m);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tal_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    static size_t allowed[64];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (smem > allowed[dev]) {
+      e = cudaFuncSetAttribute(tal_assign_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed[dev] = smem;
+    }
   }
-  tal_assign_kernel<<<b, THREADS, smem, stream>>>(cls, pred, gt, gtv, pts,
-                                                  best_gt, assigned, t_score,
-                                                  a, m);
+  tal_assign_kernel<<<b, TAL_THREADS, smem, stream>>>(
+      cls, pred, gt, gtv, pts, best_gt, assigned, t_score, a, m);
   return (int)cudaGetLastError();
 }
 

@@ -68,6 +68,8 @@ DICE_EPS = 1e-6
 BCE_BLOCKS = 264
 TAL_TOPK = 10
 TAL_MAX_GT = 8
+TAL_WARPS = 2 * TAL_MAX_GT         # og_tal_assign's block (its selection:
+TAL_THREADS = 32 * TAL_WARPS       # a warp a gt)
 TAL_SMEM_BYTES = 200 * 1024
 INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
 
@@ -474,6 +476,15 @@ def _first_argmax(x, mx):
     return torch.where(x == mx[:, None, :], pos, m).amin(1)
 
 
+def tal_smem_bytes(a: int, m: int) -> int:
+    """``og_tal_assign``'s dynamic shared memory for a anchors and m gts
+    (``tal_smem`` in ``csrc/train.cu``): for each (gt, warp) a region of 6
+    bytes (align bits, anchor) for each anchor the warp visits, then a
+    claim byte an anchor, in 32-bit words."""
+    region = 32 * -(-a // TAL_THREADS)
+    return ((m * TAL_WARPS * region * 6 + 3) & ~3) + 4 * -(-a // 4)
+
+
 def tal_assign(cls_logits, pred_boxes, gt_boxes, gt_valid, pts):
     """Task-aligned assignment of a batch (``yolo_loss``'s TAL, under
     ``stop_gradient`` there, so no backward): ``cls_logits`` (B, A) float32
@@ -481,8 +492,8 @@ def tal_assign(cls_logits, pred_boxes, gt_boxes, gt_valid, pts):
     (detached), ``gt_boxes`` (B, M, 4) float32, ``gt_valid`` (B, M) bool,
     ``pts`` (A, 2) float32 anchor centres -> (best_gt (B, A) int32,
     assigned (B, A) bool, t_score (B, A) float32).  On CUDA tensors one
-    launch of ``og_tal_assign`` (a block an image); on CPU tensors the plain
-    version."""
+    launch of ``og_tal_assign`` (a block an image, a warp a gt in the
+    selection); on CPU tensors the plain version."""
     b, a = cls_logits.shape
     m = gt_boxes.shape[1]
     _check("tal_assign: cls_logits", cls_logits, (b, a), torch.float32)
@@ -495,10 +506,10 @@ def tal_assign(cls_logits, pred_boxes, gt_boxes, gt_valid, pts):
     if not cls_logits.is_cuda:
         return tal_assign_plain(cls_logits, pred_boxes, gt_boxes, gt_valid,
                                 pts)
-    if m < 1 or m > TAL_MAX_GT or 9 * m * a > TAL_SMEM_BYTES:
+    if m < 1 or m > TAL_MAX_GT or tal_smem_bytes(a, m) > TAL_SMEM_BYTES:
         raise ValueError(f"tal_assign: {m} gts x {a} anchors do not fit "
-                         f"the kernel (1 <= M <= {TAL_MAX_GT}, 9·M·A bytes "
-                         f"of shared memory)")
+                         f"the kernel (1 <= M <= {TAL_MAX_GT}, "
+                         f"{TAL_SMEM_BYTES} bytes of shared memory)")
     _contig("tal_assign", cls_logits, pred_boxes, gt_boxes, gt_valid, pts)
     dev = cls_logits.device
     best = torch.empty((b, a), dtype=torch.int32, device=dev)

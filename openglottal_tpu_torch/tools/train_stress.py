@@ -29,6 +29,42 @@ valid):
   ``all_invalid``   every row invalid (the count falls to 1);
   ``sizes``         other sizes of a row: 7x3, one element, 2x17x19.
 
+Backward families (``bwd_cases``), beside the loss's, in the same form:
+
+  ``per_row_odd``   rows of 1,961, 35 and 3 elements (not a multiple of 4:
+                    16-byte groups straddle rows), masked and not;
+  ``offset``        logits and targets one element past an allocation
+                    (``stress_inputs`` offsets them on the device: the
+                    kernel's unaligned path), masked and not;
+  ``one_row``       a batch of one row, masked and not, and a row of 7;
+  ``all_invalid``   masked calls whose every row is invalid.
+
+TAL families (``tal_cases``), each at 256² (A = 1,344) and 64² (A = 84)
+anchors, a list of (label, logits, predicted boxes, gts, gt validity):
+
+  ``m1``, ``m4``, ``m8``  B = 16 with M = 1, 4 and 8 drawn gts, predicted
+                    boxes drawn over the frame (many candidates);
+  ``edges``         a gt covering the whole frame, gts at the frame's
+                    right and bottom edges, invalid gts (an image with
+                    none valid), zero-area and inverted gts, degenerate
+                    predicted boxes;
+  ``few``           gts with fewer than 10 positive candidates, with
+                    none (no anchor centre inside; predicted boxes that
+                    miss the gt);
+  ``ties``          equal align values within a gt's top 10 (equal
+                    logits and boxes) and across gts (a gt repeated; two
+                    gts equally far from every predicted box): the lower
+                    anchor and the first gt win;
+  ``batches``       B = 1 and B = 17.
+
+``tal_select_model`` is the assignment as ``og_tal_assign`` selects it:
+packed keys (the align value's bits, then the lower anchor), candidates
+dealt to 32 lanes, each lane's own top 10, rounds that take the warp's
+largest value and, among the lanes that hold it, the lowest anchor, then
+the resolve by the first gt with the largest value.  It equals
+``tal_assign_plain`` bit for bit on the CPU, whatever order the candidates
+come in; on the card the kernel is held bit-equal to it.
+
 The order models: ``tile_mean`` is each image's mean as ``og_unet_augment``
 adds it (per 16-row tile each column over its rows in order, the warps'
 shuffle trees over 32 columns, the 8 warps in order, the 16 tiles in
@@ -70,6 +106,9 @@ AUG_FAMILIES = ("b1", "b3_all_on", "b3_all_off", "b16_extremes",
                 "b17_frames")
 LOSS_FAMILIES = ("pm40", "pm88", "soft_targets", "masked", "all_invalid",
                  "sizes")
+BWD_FAMILIES = ("per_row_odd", "offset", "one_row", "all_invalid")
+TAL_FAMILIES = ("m1", "m4", "m8", "edges", "few", "ties", "batches")
+TAL_SIZES = (256, 64)
 
 
 # ── og_unet_augment ─────────────────────────────────────────────────────────
@@ -278,6 +317,37 @@ def loss_cases(family: str, seed: int = 0) -> list:
     raise ValueError(f"unknown loss family {family!r}")
 
 
+def bwd_cases(family: str, seed: int = 0) -> list:
+    """One backward family: [(label, logits, targets, valid or None)] as
+    ``loss_cases`` gives them."""
+    rng = np.random.default_rng(seed)
+
+    def case(label, shape, valid=None, p=0.3):
+        return (label, _loss_logits(shape, rng, 4.0), _binary(shape, rng, p),
+                valid)
+
+    if family == "per_row_odd":
+        return [case("per_row 1961 3x1x37x53", (3, 1, 37, 53)),
+                case("per_row 35 masked 16x1x7x5", (16, 1, 7, 5),
+                     np.arange(16) % 5 != 2),
+                case("per_row 3 masked 5x1x1x3", (5, 1, 1, 3),
+                     np.array([True, False, True, True, False]))]
+    if family == "offset":
+        return [case("offset 16x1x64x64", (16, 1, 64, 64)),
+                case("offset masked 6x1x33x31", (6, 1, 33, 31),
+                     np.array([True, True, False, True, False, True]))]
+    if family == "one_row":
+        return [case("one row 1x1x64x64", (1, 1, 64, 64)),
+                case("one row masked 1x1x64x64", (1, 1, 64, 64),
+                     np.array([True])),
+                case("one row 1x1x1x7", (1, 1, 1, 7))]
+    if family == "all_invalid":
+        return [case("all invalid 16x1x32x32", (16, 1, 32, 32),
+                     np.zeros(16, bool)),
+                case("all invalid 3x1x5x7", (3, 1, 5, 7), np.zeros(3, bool))]
+    raise ValueError(f"unknown backward family {family!r}")
+
+
 def bce_terms(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(4, n) float32 per-element terms in ``og_bce_dice``'s form: BCE (the
     two log-sigmoids from one log1p(exp(-|x|))), sigma*t, sigma, t."""
@@ -347,6 +417,160 @@ def loss_tolerance_ok(got, want, tol: float) -> bool:
     return float((got - want).abs().max()) / scale <= tol
 
 
+# ── og_tal_assign ───────────────────────────────────────────────────────────
+
+def tal_pts(size: int) -> np.ndarray:
+    """(A, 2) float32 anchor centres of a size² frame (YOLOv8's strides)."""
+    from openglottal_tpu_torch.models.yolo import anchors_for
+
+    return anchors_for(size, size)[0].numpy()
+
+
+def _tal_draw(b: int, m: int, size: int, rng):
+    """Drawn gts (all valid) and predicted boxes scattered over the frame,
+    logits N(0, 2): (logits, pred, gt, gv) float32 / bool numpy."""
+    a = len(tal_pts(size))
+    lo = rng.uniform(0, size * 0.7, (b, m, 2))
+    hi = np.minimum(lo + rng.uniform(4, size * 0.6, (b, m, 2)), size)
+    gt = np.concatenate([lo, hi], -1).astype(np.float32)
+    centre = rng.uniform(0, size, (b, a, 2))
+    wh = rng.uniform(4, size * 0.6, (b, a, 2))
+    pred = np.concatenate([centre - wh / 2, centre + wh / 2], -1).astype(
+        np.float32)
+    cls = rng.normal(0, 2, (b, a)).astype(np.float32)
+    return cls, pred, gt, np.ones((b, m), bool)
+
+
+def tal_cases(family: str, size: int, seed: int = 0) -> list:
+    """One TAL family at size² anchors: [(label, logits (B, A), pred
+    (B, A, 4), gt (B, M, 4), gt valid (B, M))], float32 / bool numpy."""
+    rng = np.random.default_rng(seed + size)
+    tag = f"{family} {size}²"
+    if family in ("m1", "m4", "m8"):
+        return [(tag, *_tal_draw(16, int(family[1]), size, rng))]
+    if family == "batches":
+        return [(f"{tag} b=1", *_tal_draw(1, 4, size, rng)),
+                (f"{tag} b=17", *_tal_draw(17, 4, size, rng))]
+    cls, pred, gt, gv = _tal_draw(16, 4, size, rng)
+    s = float(size)
+    if family == "edges":
+        gt[0, 0] = [0, 0, s, s]                       # the whole frame
+        pred[0, :] = [0, 0, s, s]
+        gt[1, 0] = [s - 9, 0, s, s]                   # the right edge
+        gt[1, 1] = [0, s - 9, s, s]                   # the bottom edge
+        gt[1, 2] = [0, 0, 9, s]                       # the left edge
+        gv[2, 1] = False                              # invalid gts
+        gv[3] = False                                 # none valid
+        gt[4, 0] = [20, 20, 20, 20]                   # zero area
+        gt[4, 1] = [10, 30, s - 10, 30]               # zero height
+        gt[4, 2] = [s - 20, 20, 20, s - 20]           # inverted
+        pred[5, ::3, 2:] = pred[5, ::3, :2]           # zero-area predictions
+        pred[6, ::5, :2] = pred[6, ::5, 2:] + 1.0     # inverted predictions
+        return [(tag, cls, pred, gt, gv)]
+    if family == "few":
+        h = 6.0 if size > 64 else 5.0
+        for i in range(16):
+            # small gts around an anchor centre: 1-4 candidates each
+            c = rng.integers(1, size // 8 - 1, (4, 2)) * 8 + 4
+            gt[i] = np.concatenate([c - h, c + h], -1)
+        gt[0, 1] = [1, 1, 3, 3]                       # no centre inside
+        gt[1] = [[1, 1, 3, 3]] * 4                    # no candidate at all
+        pred[2] = np.concatenate([-s - 20 + 0 * pred[2, :, :2],
+                                  -s - 10 + 0 * pred[2, :, :2]], -1)
+        # predicted boxes around the gts: every inside anchor a candidate
+        j = rng.integers(0, 4, pred.shape[1])
+        for i in range(3, 16):
+            pred[i] = gt[i, j] + rng.uniform(-3, 3, (pred.shape[1], 4))
+        return [(tag, cls, pred, gt, gv)]
+    if family == "ties":
+        cls[0] = 0.0                                  # equal values in a gt
+        gt[0, 0] = [0, 0, s / 2, s / 2]
+        pred[0] = gt[0, 0]
+        gt[1, 1] = gt[1, 0]                           # a gt repeated
+        gt[2, 0] = [0, 0, s / 4, s / 4]               # two gts equally far
+        gt[2, 1] = [s / 8, 0, s * 3 / 8, s / 4]       # from the boxes
+        pred[2] = [s / 16, 0, s * 5 / 16, s / 4]
+        cls[2] = 0.5
+        cls[3] = 0.0                                  # equal scores and
+        pred[3] = gt[3, 0]                            # boxes, drawn gts
+        return [(tag, cls, pred, gt, gv)]
+    raise ValueError(f"unknown TAL family {family!r}")
+
+
+def tal_select_model(cls_logits, pred_boxes, gt_boxes, gt_valid, pts,
+                     gen: torch.Generator | None = None):
+    """``tal_assign``'s outputs (best_gt, assigned, t_score) as
+    ``og_tal_assign`` selects: the align metric's bits as keys (0 where it
+    is not > 0), each gt's candidates dealt to 32 lanes in list order (anchor
+    order, or an order drawn from ``gen``: the kernel's list is its warps'
+    regions one after another, and the selection does not depend on the
+    order), each lane's top 10 by (value, lower anchor), ten rounds
+    of the lanes' largest value and, among the lanes that hold it, the
+    lowest anchor; the largest align is the first taken, the largest IoU
+    the largest of the taken; an anchor goes to the first gt with the
+    largest value among those that took it."""
+    align, iou = train_cuda.tal_align(cls_logits, pred_boxes, gt_boxes,
+                                      gt_valid, pts)
+    b, m, a = align.shape
+    dev = align.device
+    topk = train_cuda.TAL_TOPK
+    key = torch.where(align > 0, align, 0.0).view(torch.int32).long()
+    cand = key > 0
+    order = torch.arange(a, device=dev).expand(b, m, a)
+    if gen is not None:
+        order = torch.rand((b, m, a), generator=gen,
+                           device=gen.device).argsort(-1).to(dev)
+    # a candidate's place in its gt's list: its rank in ``order``
+    rank = torch.where(cand, order, a).argsort(-1).argsort(-1)
+    slots = -(-a // WARP)
+    lanes_k = torch.zeros((b, m, WARP * slots), dtype=torch.int64,
+                          device=dev)
+    lanes_a = torch.full_like(lanes_k, a)
+    bi, mi, ai = torch.nonzero(cand, as_tuple=True)
+    place = rank[bi, mi, ai]
+    lanes_k[bi, mi, place] = key[bi, mi, ai]
+    lanes_a[bi, mi, place] = ai
+    # place p to lane p mod 32, slot p // 32; each lane's ten in order of
+    # the packed key (larger value, then lower anchor)
+    lanes_k = lanes_k.view(b, m, slots, WARP).transpose(2, 3)
+    lanes_a = lanes_a.view(b, m, slots, WARP).transpose(2, 3)
+    packed = lanes_k * (a + 1) + (a - lanes_a)
+    top = packed.topk(min(topk, slots), -1).values
+    lk, la = top // (a + 1), a - top % (a + 1)
+    if lk.shape[-1] < topk:
+        pad = topk - lk.shape[-1]
+        lk = torch.cat([lk, lk.new_zeros(lk.shape[:-1] + (pad,))], -1)
+        la = torch.cat([la, la.new_full(la.shape[:-1] + (pad,), a)], -1)
+    taken = torch.zeros((b, m, a), dtype=torch.bool, device=dev)
+    first = torch.zeros((b, m), dtype=torch.int64, device=dev)
+    for r in range(topk):
+        v = lk[..., 0].amax(-1)                                  # (B, M)
+        live = v > 0
+        win = torch.where(lk[..., 0] == v[..., None], la[..., 0], a).amin(-1)
+        if r == 0:
+            first = v
+        taken[live.nonzero(as_tuple=True) + (win[live],)] = True
+        pop = (live[..., None] & (lk[..., 0] == v[..., None])
+               & (la[..., 0] == win[..., None]))[..., None]
+        lk = torch.where(pop, torch.cat([lk[..., 1:], lk[..., :1] * 0], -1),
+                         lk)
+        la = torch.where(pop, torch.cat([la[..., 1:], la[..., :1] * 0 + a],
+                                        -1), la)
+    max_align = first.to(torch.int32).view(torch.float32)[..., None]
+    max_iou = torch.where(taken, iou.clamp_min(0), 0.0).amax(2, keepdim=True)
+    claimed = torch.where(taken, align, -1.0)
+    mx = claimed.amax(1)
+    pos = torch.arange(m, device=dev)[None, :, None]
+    best = torch.where(claimed == mx[:, None, :], pos, m).amin(1)
+    assigned = taken.any(1)
+    pick = best[:, None, :]
+    t = (torch.gather(align, 1, pick) * torch.gather(
+        max_iou.expand(b, m, a), 1, pick)) / (torch.gather(
+            max_align.expand(b, m, a), 1, pick) + 1e-9)
+    return (best.to(torch.int32), assigned,
+            torch.where(assigned, t[:, 0], 0.0))
+
+
 # ── every case on a device, and bit equality ───────────────────────────────
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -361,10 +585,13 @@ def same_bits(got, want) -> bool:
 
 def stress_inputs(dev) -> list:
     """[(kind, label, inputs)] of every case of every family on ``dev``:
-    ("augment", label, (imgs, msks, params, noise)) and ("loss", label,
-    (logits, targets, valid)); ``b3_all_on`` also with its frames and masks
-    one byte past an allocation (frames the augment's bulk copies cannot
-    take)."""
+    ("augment", label, (imgs, msks, params, noise)), ("loss", label,
+    (logits, targets, valid)), ("bwd", label, (logits, targets, valid)) and
+    ("tal", label, (logits, pred, gt, gt valid, pts)); ``b3_all_on`` also
+    with its frames and masks one byte past an allocation (frames the
+    augment's bulk copies cannot take); the ``offset`` backward cases with
+    logits and targets one element past one; ``m4 256²`` also with its
+    predicted boxes one element past one (the TAL's scalar loads)."""
     def unaligned(x):
         return torch.empty(x.numel() + 1, dtype=x.dtype, device=dev
                            )[1:].view(x.shape).copy_(x)
@@ -386,4 +613,21 @@ def stress_inputs(dev) -> list:
             out.append(("loss", label, (
                 torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev),
                 None if v is None else torch.from_numpy(v).to(dev))))
+    for fam in BWD_FAMILIES:
+        for label, x, t, v in bwd_cases(fam):
+            x, t = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+            if fam == "offset":
+                x, t = unaligned(x), unaligned(t)
+            out.append(("bwd", label, (
+                x, t, None if v is None else torch.from_numpy(v).to(dev))))
+    for fam in TAL_FAMILIES:
+        for size in TAL_SIZES:
+            pts = torch.from_numpy(tal_pts(size)).to(dev)
+            for label, *arrays in tal_cases(fam, size):
+                cls, pred, gt, gv = (torch.from_numpy(v).to(dev)
+                                     for v in arrays)
+                out.append(("tal", label, (cls, pred, gt, gv, pts)))
+                if label == "m4 256²":
+                    out.append(("tal", f"{label} unaligned",
+                                (cls, unaligned(pred), gt, gv, pts)))
     return out

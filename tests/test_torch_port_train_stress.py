@@ -25,6 +25,19 @@ augment's mask exact, its image within 1e-5; the loss and its sums within
 1e-4 of their largest, the count equal): on the card they are held
 bit-equal to ``og_unet_augment`` and ``og_bce_dice`` (``chip_smoke.py
 --train``).
+
+Backward families (rows not a multiple of 4, offset logits, one row,
+all-invalid masked calls): ``bce_dice_grad_plain`` against ``jax.grad`` of
+the JAX package's loss (``_loss_fn`` at :49-52, the masked loss of :89
+written out) within ``TRAIN_TOL``.  TAL families (M = 1, 4, 8; invalid,
+whole-frame, edge and zero-area gts; fewer than 10 candidates and none;
+ties within and across gts; batches of 1 and 17; at 256² and 64²):
+``tal_assign_plain`` against the JAX package's assignment
+(``openglottal_tpu/train/yolo_loss.py:98-133``, jitted) with ``assigned``
+and ``best_gt`` on assigned anchors exact and ``t_score`` within 1e-5, and
+``tal_select_model`` (``og_tal_assign``'s selection, held bit-equal to the
+kernel on the card) bit-equal to ``tal_assign_plain``, with the candidates
+in anchor order and in a drawn order.
 """
 
 import jax
@@ -36,6 +49,7 @@ import torch
 
 from openglottal_tpu.data import augment as jaug
 from openglottal_tpu.train import unet_trainer as jtr
+from openglottal_tpu.train import yolo_loss as jyl
 from openglottal_tpu_torch.ops import train_cuda
 from openglottal_tpu_torch.tools import train_stress as ts
 
@@ -280,6 +294,137 @@ def test_bce_dice_model_adds_in_the_kernels_order():
     assert float(m_n) == 4 * per_row
 
 
+def _jax_masked_loss(x, t, v):
+    return _jax_sums_loss.__wrapped__(x, t, v)[1]
+
+
+_jax_grad_loss = jax.jit(jax.grad(jtr._loss_fn))
+_jax_grad_masked = jax.jit(jax.grad(_jax_masked_loss))
+
+
+@pytest.mark.parametrize("family", ts.BWD_FAMILIES)
+def test_plain_bwd_matches_jax_grad_on_each_family(family):
+    """bce_dice_grad_plain (from the plain sums, g = 1) against jax.grad of
+    the JAX package's loss, within TRAIN_TOL of the largest gradient."""
+    for label, x, t, valid in ts.bwd_cases(family):
+        if valid is None:
+            want = np.asarray(_jax_grad_loss(x, t))
+        else:
+            want = np.asarray(_jax_grad_masked(x, t, valid.astype(np.float32)))
+        xt, tt = torch.from_numpy(x), torch.from_numpy(t)
+        vt = None if valid is None else torch.from_numpy(valid)
+        sums, n = train_cuda.bce_dice_sums_plain(xt, tt, vt)
+        got = train_cuda.bce_dice_grad_plain(xt, tt, vt, sums, n,
+                                             torch.tensor(1.0)).numpy()
+        assert got.shape == x.shape, label
+        diff = float(np.abs(got - want).max())
+        assert diff <= TRAIN_TOL["bce_dice_bwd"] * max(
+            float(np.abs(want).max()), 1e-30), (label, diff)
+        if valid is not None:
+            assert not got[~valid].any(), label
+
+
+# ── og_tal_assign ───────────────────────────────────────────────────────────
+
+@jax.jit
+def _jax_assign(cls_logits, pred_boxes, gt_boxes, gt_valid, pts):
+    """yolo_loss.py:98-133 of the JAX package, as it computes the TAL
+    assignment."""
+    b, m = gt_boxes.shape[:2]
+    cls_prob = jax.nn.sigmoid(cls_logits)
+    gx1, gy1, gx2, gy2 = [gt_boxes[..., i][:, :, None] for i in range(4)]
+    px, py = pts[None, None, :, 0], pts[None, None, :, 1]
+    inside = (px > gx1) & (px < gx2) & (py > gy1) & (py < gy2)
+    inside = inside & gt_valid[:, :, None]
+    _, iou = jyl.pairwise_ciou(gt_boxes[:, :, None, :],
+                               pred_boxes[:, None, :, :])
+    align = (cls_prob[:, None, :] ** jyl.TAL_ALPHA) * (
+        jnp.clip(iou, 0) ** jyl.TAL_BETA)
+    align = jnp.where(inside, align, 0.0)
+    topv, topi = jax.lax.top_k(align, jyl.TAL_TOPK)
+    topk_mask = jnp.zeros_like(align, bool).at[
+        jnp.arange(b)[:, None, None], jnp.arange(m)[None, :, None],
+        topi].set(topv > 0)
+    claimed = jnp.where(topk_mask, align, -1.0)
+    best_gt = jnp.argmax(claimed, axis=1)
+    assigned = jnp.take_along_axis(topk_mask, best_gt[:, None, :], 1)[:, 0]
+    assigned = assigned & (jnp.max(claimed, 1) > 0)
+    max_align = jnp.max(jnp.where(topk_mask, align, 0), axis=2, keepdims=True)
+    max_iou = jnp.max(jnp.where(topk_mask, jnp.clip(iou, 0), 0), 2,
+                      keepdims=True)
+    norm = jnp.take_along_axis(align * max_iou / (max_align + 1e-9),
+                               best_gt[:, None, :], 1)[:, 0]
+    return best_gt, assigned, jnp.where(assigned, norm, 0.0)
+
+
+def _tal_family(family):
+    """[(label, numpy inputs, torch inputs with pts)] of a family at both
+    sizes."""
+    out = []
+    for size in ts.TAL_SIZES:
+        pts = ts.tal_pts(size)
+        for label, *arrays in ts.tal_cases(family, size):
+            out.append((label, (*arrays, pts),
+                        tuple(torch.from_numpy(v) for v in (*arrays, pts))))
+    return out
+
+
+@pytest.mark.parametrize("family", ts.TAL_FAMILIES)
+def test_plain_tal_matches_jax_on_each_family(family):
+    for label, arrays, inputs in _tal_family(family):
+        jb, ja, jt = (np.asarray(v) for v in _jax_assign(*arrays))
+        tb, ta, tt = train_cuda.tal_assign_plain(*inputs)
+        np.testing.assert_array_equal(ta.numpy(), ja, err_msg=label)
+        np.testing.assert_array_equal(tb.numpy()[ja], jb[ja], err_msg=label)
+        np.testing.assert_allclose(tt.numpy(), jt, rtol=0,
+                                   atol=TRAIN_TOL["tal_assign"],
+                                   err_msg=label)
+
+
+@pytest.mark.parametrize("family", ts.TAL_FAMILIES)
+def test_tal_select_model_equals_plain_on_each_family(family):
+    """The kernel's selection (packed keys, lanes' own top 10, rounds, the
+    first-largest resolve) gives tal_assign_plain's outputs bit for bit,
+    whatever order the candidates are appended in."""
+    gen = torch.Generator().manual_seed(11)
+    for label, _, inputs in _tal_family(family):
+        want = train_cuda.tal_assign_plain(*inputs)
+        assert ts.same_bits(ts.tal_select_model(*inputs), want), label
+        assert ts.same_bits(ts.tal_select_model(*inputs, gen=gen), want), \
+            label
+
+
+def test_tal_families_cover_their_cases():
+    """The TAL families hold what their names say: M = 1, 4 and 8, B = 1
+    and 17, a gt of fewer than 10 candidates and one of none, a gt whose
+    candidates are every anchor, invalid gts, and equal values within a
+    gt's top 10 and across gts."""
+    def align(family, size, k=0):
+        _, *arrays = ts.tal_cases(family, size)[k]
+        pts = ts.tal_pts(size)
+        return train_cuda.tal_align(*(torch.from_numpy(v)
+                                      for v in (*arrays, pts)))[0], arrays
+
+    for size in ts.TAL_SIZES:
+        a = len(ts.tal_pts(size))
+        assert [ts.tal_cases(f, size)[0][3].shape[1]
+                for f in ("m1", "m4", "m8")] == [1, 4, 8]
+        assert [c[1].shape[0] for c in ts.tal_cases("batches", size)] == \
+            [1, 17]
+        al, arrays = align("few", size)
+        pos = (al > 0).sum(-1)
+        assert (pos < 10).all() and (pos == 0).any() and (pos > 0).any()
+        al, arrays = align("edges", size)
+        assert int((al[0, 0] > 0).sum()) == a
+        assert not arrays[3][3].any() and not arrays[3][2, 1]
+        al, _ = align("ties", size)
+        top = al[0, 0].sort(descending=True).values[:11]
+        assert bool((top == top[0]).all()) and top[0] > 0
+        assert torch.equal(al[1, 0], al[1, 1])
+        both = (al[2, 0] > 0) & (al[2, 1] > 0)
+        assert both.any() and torch.equal(al[2, 0][both], al[2, 1][both])
+
+
 def test_families_are_seeded_and_shaped():
     a, b = ts.augment_case("b17_frames", 5), ts.augment_case("b17_frames", 5)
     assert all(np.array_equal(a[k], b[k]) for k in ("imgs", "msks", "noise"))
@@ -300,8 +445,9 @@ def test_families_are_seeded_and_shaped():
 
 def test_stress_inputs_hold_every_case_and_bits_tell_signed_zeros_apart():
     """``stress_inputs`` (what ``chip_smoke.py --train`` launches) gives every
-    family's cases, the unaligned augment case one byte past an allocation;
-    ``same_bits`` is equality of the bits (-0.0 is not 0.0)."""
+    family's cases, the unaligned augment case one byte past an allocation,
+    the offset backward cases and an unaligned TAL case one element past
+    one; ``same_bits`` is equality of the bits (-0.0 is not 0.0)."""
     items = ts.stress_inputs(torch.device("cpu"))
     aug = [(label, x) for kind, label, x in items if kind == "augment"]
     loss = [label for kind, label, _ in items if kind == "loss"]
@@ -311,15 +457,30 @@ def test_stress_inputs_hold_every_case_and_bits_tell_signed_zeros_apart():
     on, unaligned = aug[1][1], aug[2][1]
     assert unaligned[0].data_ptr() % 16 != 0
     assert ts.same_bits(on, unaligned)
+    bwd = [(label, x) for kind, label, x in items if kind == "bwd"]
+    assert [label for label, _ in bwd] == [
+        c[0] for f in ts.BWD_FAMILIES for c in ts.bwd_cases(f)]
+    for label, (x, t, _) in bwd:
+        assert (x.data_ptr() % 16 != 0) == label.startswith("offset"), label
+        assert (t.data_ptr() % 16 != 0) == label.startswith("offset"), label
+    tal = {label: x for kind, label, x in items if kind == "tal"}
+    assert len(tal) == 1 + sum(len(ts.tal_cases(f, z))
+                               for f in ts.TAL_FAMILIES for z in ts.TAL_SIZES)
+    assert {x[4].shape[0] for x in tal.values()} == {1344, 84}
+    assert tal["m4 256² unaligned"][1].data_ptr() % 16 != 0
+    assert ts.same_bits(tal["m4 256² unaligned"], tal["m4 256²"])
     assert not ts.same_bits((torch.tensor([0.0]),), (torch.tensor([-0.0]),))
     assert torch.equal(torch.tensor([0.0]), torch.tensor([-0.0]))
 
 
 def test_train_cycles_marks_every_barrier_of_a_copy_and_csrc_keeps_none():
     """``tools/train_cycles.py`` instruments a copy of ``csrc/train.cu``: a
-    mark where each kernel starts, after each barrier of the two redesigned
-    kernels (``__syncthreads``, ``cluster_wait``, ``mbar_wait``) and at each
-    end; the shipped source holds no clock reads."""
+    mark where each kernel starts, after each barrier of the four kernels
+    (``__syncthreads``, ``cluster_wait``, ``mbar_wait``; the backward has
+    none) and at each end, and in ``og_tal_assign`` one where each gt's
+    selection ends; the copy adds the occupancy, the gt clocks' reader and
+    the TAL's launch floor (an empty kernel of its grid); the shipped source
+    holds no clock reads."""
     import re
 
     from openglottal_tpu_torch.ops import _build
@@ -328,19 +489,27 @@ def test_train_cycles_marks_every_barrier_of_a_copy_and_csrc_keeps_none():
     src = (_build.CSRC_DIR / "train.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
     assert "clock64" not in code and "og_train_occupancy" not in code
-    text = blob_cycles.instrument(src, train_cycles._BARRIER,
-                                  train_cycles._OCCUPANCY)
-    for kernel in ("augment_kernel", "bce_dice_kernel"):
+    assert "og_gt_mark" not in code and "og_tal_floor" not in code
+    text = train_cycles.instrumented_source(src)
+    for kernel, least in (("augment_kernel", 4), ("bce_dice_kernel", 4),
+                          ("tal_assign_kernel", 2), ("bce_dice_bwd", 0)):
         start = re.search(rf"\b{kernel}\(", src).end()
         body = src[src.index("{", start):]
         body = body[:blob_cycles._body_end(body, 0) + 1]
         barriers = len(train_cycles._BARRIER.findall(body))
-        assert barriers >= 4
+        assert barriers >= least
         start = re.search(rf"\b{kernel}\(", text).end()
         got = text[text.index("{", start):]
         got = got[:blob_cycles._body_end(got, 0) + 1]
         assert got.count("og_mark(og_k);") == barriers + 1
         assert got.count("og_end(og_k);") == 1 + body.count("return;")
+        assert got.count("og_gt_mark(w);") == (kernel == "tal_assign_kernel")
+    assert text.count("og_gt_mark(w);") == 1
+    assert "__global__ void og_tal_floor_kernel() {}" in text
     for entry in ("og_read_pass_clock", "og_clear_pass_clock",
-                  "og_train_occupancy", "og_unet_augment", "og_bce_dice"):
+                  "og_train_occupancy", "og_unet_augment", "og_bce_dice",
+                  "og_bce_dice_bwd", "og_tal_assign", "og_read_gt_clock",
+                  "og_tal_floor"):
         assert f"int {entry}(" in text
+    with pytest.raises(ValueError, match="take_n"):
+        train_cycles.instrumented_source(src.replace("take_n[w] = r;", ""))
